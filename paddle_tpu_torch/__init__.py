@@ -1,0 +1,22 @@
+"""paddle_tpu_torch: the PyTorch and CUDA port of paddle_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package ``paddle_tpu`` stays the reference; this package never
+imports it or JAX. Each Pallas TPU kernel on a ported path has a
+hand-written Hopper kernel under ``ops/hopper`` beside a plain PyTorch
+version of the same function. The tensor's device picks between them:
+a CUDA tensor launches the kernel (or raises), a CPU tensor runs the
+plain version. Entry points run on the card unless the caller passes
+``device="cpu"``.
+
+Ported so far: Llama serving (``models``, ``serving``), with kernels
+K5 (ragged paged attention, CUDA C++) and K6 (RMSNorm forward, Triton).
+"""
+
+from . import flags
+from .convert import load_reference_state
+from .models import LlamaConfig, LlamaForCausalLM
+from .serving import ServingEngine
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "flags",
+           "load_reference_state"]
