@@ -10,13 +10,17 @@ plain version. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
 Ported so far: Llama serving (``models``, ``serving``), with kernels
-K5 (ragged paged attention, CUDA C++) and K6 (RMSNorm forward, Triton).
+K5 (ragged paged attention, CUDA C++) and K6 (RMSNorm forward, Triton);
+single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
+``jit.TrainStep``), with the flash-attention forward, dq and dkv kernels
+(CUDA C++) and RMSNorm's gradient.
 """
 
 from . import flags
 from .convert import load_reference_state
-from .models import LlamaConfig, LlamaForCausalLM
+from .jit import TrainStep
+from .models import LlamaConfig, LlamaForCausalLM, llama_loss_fn
 from .serving import ServingEngine
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "flags",
-           "load_reference_state"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "TrainStep",
+           "flags", "llama_loss_fn", "load_reference_state"]

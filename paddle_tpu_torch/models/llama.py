@@ -1,15 +1,18 @@
-"""Llama for serving (port of ``models/llama.py``: the KV-cache path).
+"""Llama (port of ``models/llama.py``): the KV-cache path for serving
+and the cache-less path for training.
 
-The model runs RMSNorm (kernel K6 on the card), rotary embeddings,
-GQA attention through ``models/generation.cached_attention`` (kernel K5
-for paged caches on the card), and dense matmuls. Parameter names and
+The model runs RMSNorm (kernel K6 on the card, with its gradient),
+rotary embeddings, GQA attention and dense matmuls. With KV caches,
+attention goes through ``models/generation.cached_attention`` (kernel
+K5 for paged caches on the card). Without them it is causal flash
+attention (``nn.functional.flash_attention``: the flash kernels on the
+card), or the plain composition with an additive bias when the caller
+passes ``attn_mask``, as in the JAX package. Parameter names and
 Paddle's ``[in, out]`` linear layout follow the JAX package, so its
 state dict loads by name (``paddle_tpu_torch/convert.py``).
 
-A forward WITHOUT KV caches runs the flash-attention kernels K1/K3 in
-the JAX package. They port with the training slice; until then such a
-forward raises ``NotImplementedError`` rather than running a plain
-attention in their place.
+``recompute=True`` (activation checkpointing per decoder layer) is not
+ported yet and raises in the cache-less forward.
 """
 
 from __future__ import annotations
@@ -23,9 +26,6 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..framework.device import resolve_device, resolve_dtype
 from ..nn import functional as F
-
-_NO_CACHE = ("a forward without KV caches runs flash attention (TPU kernels "
-             "K1/K3), which ports with the training slice; pass kv_caches")
 
 
 @dataclass
@@ -41,6 +41,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    # kept for the JAX config's signature: there too the model does not
+    # read it (the attention implementation is not a config choice)
+    use_flash_attention: bool = True
+    recompute: bool = False
+    recompute_granularity: str = "full"
+    # LM head + cross-entropy in token chunks, each under activation
+    # checkpointing, so the [b*s, vocab] logits are never whole
+    fused_head_loss: bool = False
     dtype: str = "float32"
 
     @staticmethod
@@ -65,6 +73,27 @@ def _rope_tables(head_dim, max_pos, theta, device):
     freqs = torch.outer(t, inv)                                  # [P, D/2]
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos().to(device), emb.sin().to(device)
+
+
+def _mask_to_bias(attn_mask, seqlen):
+    """A user mask as an additive f32 bias over ``[b, heads, q, k]``.
+
+    Accepts the Paddle conventions, as the JAX package does: bool or
+    integer (nonzero = attend) or an additive float mask; shapes
+    ``[b, k]`` (a padding mask: any 2-D mask is read this way), ``[b, q,
+    k]`` or ``[b, h, q, k]``."""
+    m = torch.as_tensor(attn_mask)
+    if not m.is_floating_point():
+        m = torch.where(m != 0, 0.0, torch.finfo(torch.float32).min)
+    m = m.float()
+    if m.shape[-1] != seqlen:
+        raise ValueError(f"attn_mask last dim {m.shape[-1]} != seqlen "
+                         f"{seqlen}")
+    if m.dim() == 2:
+        m = m[:, None, None, :]
+    elif m.dim() == 3:
+        m = m[:, None, :, :]
+    return m
 
 
 def _rotate_half(x):
@@ -129,21 +158,31 @@ class LlamaAttention(nn.Module):
         self.register_buffer("rope_cos", rope[0], persistent=False)
         self.register_buffer("rope_sin", rope[1], persistent=False)
 
-    def forward(self, x, position_offset=0, kv_cache=None):
-        if kv_cache is None:
-            raise NotImplementedError(_NO_CACHE)
-        from .generation import cached_attention
-
+    def forward(self, x, attn_mask=None, position_offset=0, kv_cache=None):
+        """With ``kv_cache``: returns ``(out, new_cache)``. Without:
+        causal self-attention over the chunk, K/V kept at
+        ``num_kv_heads`` (the kernels route query groups to them)."""
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         q, k = apply_rotary_pos_emb(q, k, self.rope_cos, self.rope_sin,
                                     position_offset)
-        out, new_cache = cached_attention(
-            q, k, v, kv_cache, position_offset, kv_heads=self.num_kv_heads,
-            head_dim=self.head_dim, out_dtype=x.dtype)
-        return self.o_proj(out), new_cache
+        if kv_cache is not None:
+            from .generation import cached_attention
+
+            out, new_cache = cached_attention(
+                q, k, v, kv_cache, position_offset,
+                kv_heads=self.num_kv_heads, head_dim=self.head_dim,
+                out_dtype=x.dtype)
+            return self.o_proj(out), new_cache
+        if attn_mask is not None:
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=_mask_to_bias(attn_mask, s),
+                is_causal=True)
+        else:
+            out, _ = F.flash_attention(q, k, v, causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -179,6 +218,10 @@ class LlamaDecoderLayer(nn.Module):
         x = x + h
         return x + self.mlp(self.post_attention_layernorm(x)), new_cache
 
+    def forward(self, x, attn_mask=None):
+        x = x + self.self_attn(self.input_layernorm(x), attn_mask=attn_mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
 
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype):
@@ -194,15 +237,28 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device=device, dtype=dtype)
 
-    def forward(self, input_ids, kv_caches=None, position_offset=0):
-        if kv_caches is None:
-            raise NotImplementedError(_NO_CACHE)
+    def forward(self, input_ids, attn_mask=None, kv_caches=None,
+                position_offset=0):
+        """With ``kv_caches``: ``(hidden, new_caches)``; without: the
+        final hidden states."""
+        if kv_caches is not None and attn_mask is not None:
+            raise NotImplementedError(
+                "KV-cache decoding builds only the causal validity mask; "
+                "padded-batch decoding (attn_mask) is not supported")
         x = self.embed_tokens(input_ids)
-        new_caches = []
-        for layer, cache in zip(self.layers, kv_caches):
-            x, nc = layer.decode(x, cache, position_offset)
-            new_caches.append(nc)
-        return self.norm(x), new_caches
+        if kv_caches is not None:
+            new_caches = []
+            for layer, cache in zip(self.layers, kv_caches):
+                x, nc = layer.decode(x, cache, position_offset)
+                new_caches.append(nc)
+            return self.norm(x), new_caches
+        if self.config.recompute:
+            raise NotImplementedError(
+                "recompute (activation checkpointing per decoder layer) is "
+                "not ported yet")
+        for layer in self.layers:
+            x = layer(x, attn_mask=attn_mask)
+        return self.norm(x)
 
 
 class LlamaLMHead(nn.Module):
@@ -241,17 +297,32 @@ class LlamaForCausalLM(nn.Module):
                     m.weight.normal_(0.0, config.initializer_range,
                                      generator=gen)
 
-    def forward(self, input_ids, kv_caches=None, position_offset=0,
-                logits_rows=None):
-        """Returns ``(logits, caches)``. With ``logits_rows`` (``[B]``
-        row indices) the LM head runs only on row b's position
-        ``logits_rows[b]`` and the logits are ``[B, vocab]``."""
-        h, new_caches = self.llama(input_ids, kv_caches=kv_caches,
-                                   position_offset=position_offset)
-        if logits_rows is not None:
-            h = h[torch.arange(h.shape[0], device=h.device),
-                  logits_rows.long()]
-        return self.lm_head(h), new_caches
+    def forward(self, input_ids, labels=None, attn_mask=None,
+                kv_caches=None, position_offset=0, logits_rows=None):
+        """With ``kv_caches``: ``(logits, caches)``; ``logits_rows``
+        (``[B]`` row indices) then runs the LM head only on row b's
+        position ``logits_rows[b]`` and the logits are ``[B, vocab]``.
+
+        Without caches, as in the JAX package: ``logits`` when ``labels``
+        is None, else ``(logits, loss)``, or ``(None, loss)`` with
+        ``fused_head_loss``. ``labels`` align with ``input_ids`` (the
+        caller shifts them); ``-100`` is ignored."""
+        if kv_caches is not None:
+            h, new_caches = self.llama(input_ids, kv_caches=kv_caches,
+                                       position_offset=position_offset)
+            if logits_rows is not None:
+                h = h[torch.arange(h.shape[0], device=h.device),
+                      logits_rows.long()]
+            return self.lm_head(h), new_caches
+        h = self.llama(input_ids, attn_mask=attn_mask)
+        if labels is not None and self.config.fused_head_loss:
+            return None, fused_head_cross_entropy(
+                h, self.lm_head.weight, labels,
+                transpose_weight=self.lm_head._tied)
+        logits = self.lm_head(h)
+        if labels is None:
+            return logits
+        return logits, causal_lm_loss(logits, labels)
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=0, top_p=1.0, eos_token_id=None, seed=0):
@@ -267,3 +338,48 @@ class LlamaForCausalLM(nn.Module):
             max_positions=cfg.max_position_embeddings,
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_k=top_k, top_p=top_p, eos_token_id=eos_token_id, seed=seed)
+
+
+def causal_lm_loss(logits, labels, ignore_index=-100):
+    """LM cross-entropy: mean over the labels that are not
+    ``ignore_index``, log-softmax in f32."""
+    return F.cross_entropy(logits, labels, ignore_index=ignore_index,
+                           reduction="mean")
+
+
+def _chunk_nll_sum(hc, w, lc, ignore_index):
+    logits = hc @ w                                   # working dtype
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    safe = lc.clamp(0, logits.shape[-1] - 1)
+    picked = logits.gather(-1, safe[:, None])[:, 0].float()
+    return torch.where(lc != ignore_index, lse - picked,
+                       torch.zeros_like(lse)).sum()
+
+
+def fused_head_cross_entropy(h, weight, labels, ignore_index=-100, chunks=4,
+                             transpose_weight=False):
+    """LM head matmul + cross-entropy without the whole ``[b*s, vocab]``
+    logits: the tokens split into ``chunks`` (padded with ignored rows
+    when they do not divide), each chunk's logits and logsumexp computed
+    under ``torch.utils.checkpoint``, so the backward recomputes them one
+    chunk at a time. Equals ``causal_lm_loss(lm_head(h), labels)``."""
+    from torch.utils.checkpoint import checkpoint
+
+    w = weight.t() if transpose_weight else weight
+    d = h.shape[-1]
+    hv = h.reshape(-1, d)
+    lbl = labels.reshape(-1).long()
+    pad = (-hv.shape[0]) % chunks
+    if pad:
+        hv = torch.cat([hv, hv.new_zeros(pad, d)])
+        lbl = torch.cat([lbl, lbl.new_full((pad,), ignore_index)])
+    total = sum(checkpoint(_chunk_nll_sum, hc, w, lc, ignore_index,
+                           use_reentrant=False)
+                for hc, lc in zip(hv.chunk(chunks), lbl.chunk(chunks)))
+    return total / (lbl != ignore_index).sum().clamp(min=1).float()
+
+
+def llama_loss_fn(model, input_ids, labels):
+    """``loss_fn`` for ``TrainStep``."""
+    _, loss = model(input_ids, labels=labels)
+    return loss

@@ -1,16 +1,18 @@
 """Normalisation functions (port of ``nn/functional/norm.py``:
 ``rms_norm`` only).
 
-The tensor's device picks the implementation: a CUDA tensor goes to the
-Triton kernel K6 (``ops/hopper/rms_norm.py``), a CPU tensor to its plain
-version. No flag chooses, and a CUDA input never falls back.
+``rms_norm`` goes through ``RMSNormFunction`` on both devices, so it has
+a gradient everywhere: the tensor's device picks the forward (the Triton
+kernel K6 for a CUDA tensor, its plain version for a CPU tensor), and the
+backward is the same plain PyTorch code on both. No flag chooses, and a
+CUDA input never falls back.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops.hopper.rms_norm import rms_norm_cuda, rms_norm_reference
+from ...ops.hopper.rms_norm import RMSNormFunction
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
@@ -22,9 +24,5 @@ def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
     h = x.shape[-1]
     if weight is None:
         weight = torch.ones(h, device=x.device, dtype=x.dtype)
-    x2d = x.reshape(-1, h)
-    if x.is_cuda:
-        out, _ = rms_norm_cuda(x2d, weight, epsilon)
-    else:
-        out, _ = rms_norm_reference(x2d, weight, epsilon)
+    out = RMSNormFunction.apply(x.reshape(-1, h), weight, float(epsilon))
     return out.reshape(x.shape)

@@ -1,10 +1,13 @@
-"""RMSNorm forward: the Hopper kernel K6 and its plain version.
+"""RMSNorm: the Hopper kernel K6 (forward), its plain version, and the
+autograd Function that gives both a gradient.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas/rms_norm.py``
 (``rms_norm_pallas`` -> ``_fwd`` -> ``_fwd_kernel``): per row
 ``out = x * rsqrt(mean(x^2) + eps) * w`` in f32, cast once to the input
-dtype, with ``rstd`` kept in f32 ``[rows, 1]`` for a backward. The
-backward (``_vjp_bwd``) belongs to training and is not ported yet.
+dtype, with ``rstd`` kept in f32 ``[rows, 1]`` for the backward. The
+backward (``_vjp_bwd``) is XLA code outside any ``pallas_call`` in the
+JAX package, so it is plain PyTorch here, on both devices
+(:func:`rms_norm_backward`).
 
 The kernel is Triton: one row reduction and an elementwise scale, with
 no matrix product. What bounds it on an H100 is HBM bytes (read x and
@@ -17,6 +20,8 @@ Triton is imported inside the function that builds the kernel, so the
 module imports where Triton is missing. :func:`rms_norm_reference` is
 the plain PyTorch version for CPU tensors and for the comparison on the
 card; :func:`rms_norm_cuda` launches the kernel and never falls back.
+A raw kernel launch carries no autograd history, so callers that need a
+gradient go through :class:`RMSNormFunction`.
 """
 
 import functools
@@ -89,3 +94,34 @@ def rms_norm_cuda(x2d, w, eps):
 
 
 rms_norm_cuda.launches = 0
+
+
+def rms_norm_backward(x2d, w, rstd, g):
+    """Port of the JAX package's ``_vjp_bwd`` from the saved ``rstd``:
+    ``dx = rstd*g*w - x*rstd^3*<g*w, x>/h`` and ``dw = sum_rows g*x*rstd``,
+    in f32, cast to the input dtypes."""
+    x = x2d.float()
+    gw = g.float() * w.float()
+    dot = (gw * x).sum(dim=-1, keepdim=True)
+    dx = rstd * gw - x * rstd ** 3 * dot / x.shape[-1]
+    dw = (g.float() * x * rstd).sum(dim=0)
+    return dx.to(x2d.dtype), dw.to(w.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm over ``x2d [rows, h]`` with weight ``w [h]``: K6 forward
+    on a CUDA tensor, the plain version on a CPU tensor, and
+    :func:`rms_norm_backward` on both."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, eps):
+        fwd = rms_norm_cuda if x2d.is_cuda else rms_norm_reference
+        out, rstd = fwd(x2d, w, eps)
+        ctx.save_for_backward(x2d, w, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x2d, w, rstd, g)
+        return dx, dw, None

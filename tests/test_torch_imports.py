@@ -17,6 +17,14 @@ from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "paddle_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+# the training slice's modules, which both scans must reach
+TRAINING_MODULES = (
+    "paddle_tpu_torch.jit.train_step", "paddle_tpu_torch.nn.clip",
+    "paddle_tpu_torch.nn.functional.flash_attention",
+    "paddle_tpu_torch.nn.functional.loss",
+    "paddle_tpu_torch.ops.hopper.flash_attention",
+    "paddle_tpu_torch.optimizer.optimizer",
+    "paddle_tpu_torch.optimizer.optimizers")
 
 
 def _port_modules():
@@ -35,7 +43,8 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     """With ``jax`` and ``paddle_tpu`` unimportable, every port module
     and chip_smoke import in a fresh interpreter."""
     mods = _port_modules() + ["chip_smoke"]
-    assert "paddle_tpu_torch.serving.engine" in mods
+    assert set(TRAINING_MODULES) | {"paddle_tpu_torch.serving.engine"} <= set(
+        mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -52,7 +61,9 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_import_in_source(path):
-    """AST scan: no absolute import names jax or the JAX package."""
+    """AST scan: no absolute import names jax or the JAX package. The
+    scan covers every source of the package (the training slice's
+    modules among them) and chip_smoke.py."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     for node in ast.walk(tree):

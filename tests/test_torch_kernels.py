@@ -1,8 +1,9 @@
 """Kernel modules of the PyTorch port against the JAX package.
 
-On the CPU the port's plain versions (ragged paged attention, RMSNorm)
-are held against the JAX package's Pallas kernels in interpret mode and
-against its plain versions, on the same numpy-seeded inputs. The
+On the CPU the port's plain versions (ragged paged attention, RMSNorm
+and RMSNorm's gradient) are held against the JAX package's Pallas
+kernels in interpret mode and against its plain versions, on the same
+numpy-seeded inputs. The
 ``gpu``-marked tests launch the Hopper kernels and hold them against
 the plain versions; they skip on a machine without a CUDA device. This
 module imports JAX only inside the ``ref`` fixture, so the card's run
@@ -24,12 +25,14 @@ from paddle_tpu_torch.serving import paged_attention as torch_pa
 def ref():
     """The JAX package's kernels and plain versions."""
     pytest.importorskip("jax")
+    import jax
     import jax.numpy as jnp
 
     from paddle_tpu.ops.pallas.paged_attention import paged_attend_pallas
+    from paddle_tpu.nn import functional as jax_F
     from paddle_tpu.ops.pallas.rms_norm import rms_norm_pallas
     from paddle_tpu.serving import paged_attention as jax_pa
-    return types.SimpleNamespace(jnp=jnp, pa=jax_pa,
+    return types.SimpleNamespace(jax=jax, jnp=jnp, pa=jax_pa, F=jax_F,
                                  paged_attend_pallas=paged_attend_pallas,
                                  rms_norm_pallas=rms_norm_pallas)
 
@@ -86,10 +89,14 @@ def test_paged_attend_plain_matches_jax(ref, case, g):
         torch.from_numpy(x["positions"]), kv_heads=kv, head_dim=d).numpy()
     args = tuple(ref.jnp.asarray(x[n])
                  for n in ("q", "kbuf", "vbuf", "tables", "positions"))
-    want_kernel = np.asarray(ref.paged_attend_pallas(
-        *args, kv_heads=kv, head_dim=d, interpret=True))
-    want_plain = np.asarray(ref.pa.paged_attend(*args, kv_heads=kv,
-                                                head_dim=d))
+
+    def jax_side(*a):
+        # the kernel and the plain version, compiled together once
+        return (ref.paged_attend_pallas(*a, kv_heads=kv, head_dim=d,
+                                        interpret=True),
+                ref.pa.paged_attend(*a, kv_heads=kv, head_dim=d))
+
+    want_kernel, want_plain = map(np.asarray, ref.jax.jit(jax_side)(*args))
     assert got.shape == (len(positions), s, kv, g, d)
     np.testing.assert_allclose(got, want_kernel, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got, want_plain, atol=ATOL, rtol=RTOL)
@@ -180,6 +187,73 @@ def test_rms_norm_functional_on_cpu_uses_plain_version():
     assert hop_rms.rms_norm_cuda.launches == before
 
 
+@pytest.mark.parametrize("jax_route", ["rms_norm_pallas", "F.rms_norm"])
+def test_rms_norm_function_grads_match_jax(ref, jax_route):
+    """dx and dw of the port's RMSNormFunction (the plain forward and the
+    port of ``_vjp_bwd``, which the card runs too) equal jax.vjp of the
+    JAX Pallas kernel (interpret mode, its custom vjp) and of the JAX
+    ``F.rms_norm`` (plain XLA, autodiff): f32, only the order of
+    summation differs, 1e-5."""
+    from paddle_tpu.framework.autograd import no_grad
+    from paddle_tpu.framework.tensor import Tensor
+
+    rng = np.random.RandomState(8)
+    x = (rng.randn(16, 128) * 3).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(128)).astype(np.float32)
+    g = rng.randn(16, 128).astype(np.float32)
+    eps = 1e-5
+    xt, wt = (torch.from_numpy(a).requires_grad_() for a in (x, w))
+    out = hop_rms.RMSNormFunction.apply(xt, wt, eps)
+    out.backward(torch.from_numpy(g))
+
+    def jax_fn(xa, wa):
+        if jax_route == "rms_norm_pallas":
+            return ref.rms_norm_pallas(xa, wa, eps, True)
+        with no_grad():
+            return ref.F.rms_norm(Tensor(xa), Tensor(wa), epsilon=eps)._data
+
+    want, vjp = ref.jax.vjp(jax_fn, ref.jnp.asarray(x), ref.jnp.asarray(w))
+    dx, dw = vjp(ref.jnp.asarray(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,h", [(1, 8), (5, 130), (64, 48), (3, 1024)],
+                         ids=lambda v: str(v))
+def test_rms_norm_function_grads_match_f64_autograd(rows, h, dtype):
+    """Over widths that are not a power of two and a single row, dx and
+    dw of RMSNormFunction equal autograd through RMSNorm in f64: f32 to
+    1e-5 (rounding against exact sums over up to 1024 terms); bf16, whose
+    gradients are rounded once to bf16, to two bf16 ulps of each value
+    plus 1e-6."""
+    rng = np.random.RandomState(rows * 7 + h)
+    x = (rng.randn(rows, h) * 3).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(h)).astype(np.float32)
+    g = rng.randn(rows, h).astype(np.float32)
+    eps = 1e-5
+    tdt = getattr(torch, dtype)
+    # the inputs as the port sees them, rounded to its dtype, so both
+    # sides differentiate the same function
+    xs, ws, gs = (torch.from_numpy(a).to(tdt) for a in (x, w, g))
+    xt, wt = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+    hop_rms.RMSNormFunction.apply(xt, wt, eps).backward(gs)
+    x64, w64 = (t.double().requires_grad_() for t in (xs, ws))
+    r = torch.rsqrt((x64 * x64).mean(dim=-1, keepdim=True) + eps)
+    (x64 * r * w64).backward(gs.double())
+    assert xt.grad.dtype == wt.grad.dtype == tdt
+    for got, want in ((xt.grad, x64.grad), (wt.grad, w64.grad)):
+        got, want = got.double().numpy(), want.numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            assert np.all(np.abs(got - want) <= 2 * _bf16_ulp(want) + 1e-6)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -240,3 +314,31 @@ def test_rms_norm_kernel_matches_plain(cuda, rows):
     torch.testing.assert_close(out.float(), want.float(), atol=1.6e-2,
                                rtol=1.6e-2)
     torch.testing.assert_close(rstd, want_r, atol=0, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rms_norm_on_card_has_gradient_equal_to_plain_autograd(cuda):
+    """F.rms_norm on a CUDA tensor (kernel K6 forward) carries autograd
+    history, and its dx/dw equal autograd through the plain version on
+    the card: within 2 bf16 ulps of the largest value (one rounding on
+    each side plus the order of the row sums)."""
+    from paddle_tpu_torch.nn.functional import rms_norm
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 64, 4096, device=cuda, generator=gen).bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, device=cuda, generator=gen)).bfloat16()
+    g = torch.randn(2, 64, 4096, device=cuda, generator=gen).bfloat16()
+    before = hop_rms.rms_norm_cuda.launches
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = rms_norm(xa, wa, epsilon=1e-5)
+    assert out.grad_fn is not None
+    assert hop_rms.rms_norm_cuda.launches == before + 1
+    out.backward(g)
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want, _ = hop_rms.rms_norm_reference(xb.reshape(-1, 4096), wb, 1e-5)
+    want.reshape(x.shape).backward(g)
+    torch.cuda.synchronize()
+    for got, ref_ in ((xa.grad, xb.grad), (wa.grad, wb.grad)):
+        tol = 2 * 2.0 ** -8 * float(ref_.float().abs().max())
+        torch.testing.assert_close(got.float(), ref_.float(), atol=tol,
+                                   rtol=0)

@@ -124,9 +124,19 @@ def test_generate_greedy_matches_jax(models, tied):
 
 
 def test_cacheless_forward_raises_until_training_slice(models):
+    """The training slice ported the cache-less forward: it returns the
+    logits; what it still leaves to a later slice (recompute) raises.
+    Its parity with the JAX package is in test_torch_llama_training.py."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.zeros(1, 4, dtype=torch.long))
+    with torch.no_grad():
+        logits = tm(torch.zeros(1, 4, dtype=torch.long))
+    assert logits.shape == (1, 4, tm.config.vocab_size)
+    tm.config.recompute = True
+    try:
+        with pytest.raises(NotImplementedError, match="recompute"):
+            tm(torch.zeros(1, 4, dtype=torch.long))
+    finally:
+        tm.config.recompute = False
 
 
 ENGINE_CASES = {
