@@ -8,7 +8,7 @@ the run with a non-zero exit code and no result line:
 
 1. Device: name, count, ``nvidia-smi`` name and power limit; build the
    kernels from the checkout's sources (one nvcc per CUDA source, all
-   started together, while Triton compiles K6).
+   started together, while Triton compiles K6 and K9).
 2. K5 (ragged paged attention, CUDA) against its plain version on the
    same bf16 pool: decode at mixed depths with an idle row, prefill at
    position 0 and 256, a ragged 100-row chunk, and GQA decode.
@@ -33,8 +33,24 @@ the run with a non-zero exit code and no result line:
    masters, batch 2 x 4096: 2 warm-up and 5 timed TrainSteps; step
    time, tokens/s, MFU, peak memory, exact launch counts per step, a
    falling loss; then a torch.profiler window as for serving.
-10. One ``kernels`` JSON line.
-11. The result line ``{"ok": true, "device": {...}}``.
+10. K7 and K8 (fused conv + BatchNorm, CUDA) forward and backward and
+    K9 (BatchNorm statistics, Triton) against their plain versions at
+    ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
+    (layer 1's second 1x1, 64 -> 256) and without (layer 4's first,
+    2048 -> 512), K8 at layer 1 (56^2, 64) and layer 3 (14^2, 256), K9
+    at 802,816 x 256 and 12,544 x 2048; then their timings beside a
+    PyTorch call and the bound.
+11. One layer-1 bottleneck (256 -> 64 -> 256, 56^2, batch 8, bf16, both
+    ResNet flags on): the card (kernels) against the CPU (plain
+    versions), and the fused composition against the default one on
+    the card.
+12. ResNet-50 training at batch 256, 224^2, bf16 with f32 Momentum
+    masters, both flags on: 2 warm-up and 5 timed TrainSteps with exact
+    launch counts per step and a falling loss; a torch.profiler window;
+    then the same step with both flags off (cuDNN and plain BatchNorm)
+    as the whole-step yardstick.
+13. One ``kernels`` JSON line.
+14. The result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or the JAX package. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -138,15 +154,18 @@ def phase_device():
 def phase_build():
     """One nvcc per CUDA source, in worker threads, while Triton compiles
     K6 by launching it once; all must succeed."""
-    from paddle_tpu_torch.ops.hopper import (flash_attention,
-                                             paged_attention, rms_norm)
+    from paddle_tpu_torch.ops.hopper import (bn_stats, flash_attention,
+                                             paged_attention, resnet_unit,
+                                             rms_norm)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         nvcc = [pool.submit(paged_attention.build),
-                pool.submit(flash_attention.build)]
+                pool.submit(flash_attention.build),
+                pool.submit(resnet_unit.build)]
         x = torch.ones(8, 4096, device="cuda", dtype=torch.bfloat16)
         rms_norm.rms_norm_cuda(x, x[0], 1e-5)
+        bn_stats.bn_stats_cuda(x)
         torch.cuda.synchronize()
         t_triton = time.perf_counter() - t0
         nvcc_logs = [f.result() for f in nvcc]
@@ -157,7 +176,8 @@ def phase_build():
                 log(f"[build] ptxas: {line.split(chr(39))[1]}")
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] seconds={t_all} (triton K6 first launch {t_triton})")
+    log(f"[build] seconds={t_all} (triton K6 and K9 first launches "
+        f"{t_triton})")
 
 
 # -- phase 2 and 5: K5 --------------------------------------------------------
@@ -644,25 +664,40 @@ KERNEL_FAMILIES = (("k5_paged_attention", ("paged_attend_kernel",)),
                    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")))
 
 
-def device_ms_by_family(prof, families, n, others=None):
-    """Device milliseconds per unit (``n`` units in the window) by kernel
-    family, from a torch.profiler window. ``others``, a dict, collects
-    the kernels of the "other" family by name."""
-    device_ms = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
+def device_events(prof):
+    """Device microseconds by name in a torch.profiler window: (kernels
+    and copies, the port's ``TrainStep.*`` ranges). Device-side entries
+    carry no host time; the aten ops that launched them do and are
+    skipped, so nothing is counted twice. A ``record_function`` range
+    also leaves a device-side entry, whose time is the range's span on
+    the device: it goes to the second dict, never into a family."""
+    kernels, ranges = {}, {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        # device-side entries (kernels, copies) carry no host time; the
-        # aten ops that launched them do and are skipped, so nothing is
-        # counted twice
         if dev_us <= 0 or evt.self_cpu_time_total > 0:
             continue
+        into = ranges if evt.key.startswith("TrainStep.") else kernels
+        into[evt.key] = into.get(evt.key, 0.0) + dev_us
+    return kernels, ranges
+
+
+def device_ms_by_family(prof, families, n, others=None, ranges=None):
+    """Device milliseconds per unit (``n`` units in the window) by kernel
+    family, from a torch.profiler window. ``others``, a dict, collects
+    the kernels of the "other" family by name; ``ranges``, a dict, the
+    device span of each ``TrainStep.*`` range."""
+    device_ms = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
+    kernels, spans = device_events(prof)
+    for key, dev_us in kernels.items():
         fam = next((f for f, keys in families
-                    if any(k in evt.key for k in keys)), "other")
+                    if any(k in key for k in keys)), "other")
         device_ms[fam] += dev_us / 1e3 / n
         if fam == "other" and others is not None:
-            others[evt.key] = others.get(evt.key, 0.0) + dev_us / 1e3 / n
+            others[key] = others.get(key, 0.0) + dev_us / 1e3 / n
+    if ranges is not None:
+        ranges.update((k, v / 1e3 / n) for k, v in spans.items())
     return device_ms
 
 
@@ -872,17 +907,578 @@ def profile_train_window(step, ids, labels, wall_ms, steps=2):
         for _ in range(steps):
             step(ids, labels)
         torch.cuda.synchronize()
-    others = {}
-    device_ms = device_ms_by_family(prof, TRAIN_FAMILIES, steps, others)
+    others, ranges = {}, {}
+    device_ms = device_ms_by_family(prof, TRAIN_FAMILIES, steps, others,
+                                    ranges)
     busy_ms = sum(device_ms.values())
     log(f"[train-profile] per step: wall_ms={wall_ms} (unprofiled) "
         f"device_busy_ms={busy_ms} device_idle_share={1 - busy_ms / wall_ms}"
         f" ({steps} profiled steps)")
     log(f"[train-profile] device_ms_per_step_by_family="
         f"{json.dumps(device_ms)}")
+    log(f"[train-profile] device span per step of the TrainStep ranges: "
+        f"{json.dumps(ranges)}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:10]
     log(f"[train-profile] largest of other, ms per step: "
         f"{json.dumps([(k[:90], v) for k, v in top])}")
+
+
+# -- phases 10-12: ResNet-50 -------------------------------------------------
+
+RESNET_BATCH, RESNET_SIZE = 256, 224
+# ResNet-50 forward at 224^2: 4.089 GFLOP per image (bench.py), x3 for the
+# training step
+RESNET_FLOP_PER_IMAGE = 3 * 4.089e9
+# launches per training step with both flags on: 16 fused blocks (two
+# 1x1 units each), 11 of them with a stride-1 3x3 that K8 takes, and the
+# four downsample BatchNorms that K9 takes
+RESNET_LAUNCHES = dict(k7_fwd=32, k7_bwd=32, k8_fwd=11, k8_bwd=11, k9=4)
+
+# kernel vs plain, bf16 at ResNet-50 shapes. Both sides accumulate in f32
+# over the same bf16 operands: bf16 outputs (y, dx) to 2 bf16 ulps of the
+# largest element (one rounding each side, and dyc may round the other
+# way where the two f32 sums straddle a bf16 boundary). The f32 sums
+# differ only in summation order over up to 802,816 rows; each is held to
+# about five times the largest error read on the H100 at these shapes,
+# relative to the largest element: s1, s2, da, db, mean and E[x^2] read
+# 2e-7 to 4e-6 (limit 2e-5); dw reads 2e-6 to 4.3e-5, the most in K8's
+# layer-1 case, whose nine taps each sum 802,816 rows (limit 2e-4). A
+# kernel that drops one partial sum of its deterministic reduction is
+# off by more: one of K9's 1,568 row partials by ~6e-4, one of K7's
+# 6,272 row-tile partials of s2 by ~1.6e-4.
+RU_BF16_REL = 2.0 ** -7
+RU_SUM_REL = dict(s1=2e-5, s2=2e-5, da=2e-5, db=2e-5, mean=2e-5, m2=2e-5,
+                  dw=2e-4)
+# one bottleneck at full width, bf16. Its bf16 gradients carry rounding
+# noise of 4-9% (relative L2) against the same computation in f32, in
+# both compositions (a relu at a bf16 tie, BatchNorm's centring), and
+# two bf16 runs that round one value differently diverge by as much. So
+# each bf16 run is held against one f32 reference (the fused composition
+# in f32 on the CPU, which in f32 equals the default one): the card's
+# relative L2 error (kernels) at most 1.25 x the CPU's (plain versions,
+# the same rounding points) + 1e-3, and the fused composition's at most
+# 1.5 x the default composition's + 1e-3, for every gradient and running
+# statistic; the output, card vs CPU, to 2^-5 of its largest element
+BLOCK_OUT_REL = 2.0 ** -5
+BLOCK_VS_PLAIN = 1.25
+FUSED_VS_DEFAULT = 1.5
+BLOCK_SLACK = 1e-3
+
+# (name, kind, shape): the main path's shapes at batch 256, 224^2
+RU_CASES = [
+    ("conv1x1_prologue_layer1_unit_b_802816x64x256", "k7",
+     dict(rows=802816, cin=64, cout=256, pro=True)),
+    ("conv1x1_layer4_unit_a_12544x2048x512", "k7",
+     dict(rows=12544, cin=2048, cout=512, pro=False)),
+    ("conv3x3_layer1_256x56x56x64", "k8", dict(n=256, h=56, w=56, c=64)),
+    ("conv3x3_layer3_256x14x14x256", "k8", dict(n=256, h=14, w=14, c=256)),
+]
+K9_CASES = [("rows802816_c256", 802816, 256), ("rows12544_c2048", 12544, 2048)]
+
+
+def _bound(nbytes, ops_by_type):
+    """(least ms, "bytes" or "operations"): the larger of the bytes time
+    (over the HBM rate) and the operations time. The tensor cores and
+    the CUDA cores of an SM run at the same time, so the operations time
+    is that of the slowest type: each type's operations over its peak,
+    the largest of these."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = max(n / PEAK_OPS_S[dt] for dt, n in ops_by_type.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ru_inputs(gen, kind, shape):
+    """Seeded bf16 activations and weights, f32 prologue and statistic
+    cotangents, at a case's shape."""
+    dev = torch.device("cuda")
+
+    def rnd(*sh, scale=1.0):
+        return torch.randn(*sh, device=dev, generator=gen) * scale
+
+    if kind == "k7":
+        rows, cin, cout = shape["rows"], shape["cin"], shape["cout"]
+        x = rnd(rows, cin).bfloat16()
+        w = rnd(cin, cout, scale=cin ** -0.5).bfloat16()
+        xs, ys = (rows, cin), (rows, cout)
+        pro = shape["pro"]
+    else:
+        n, h, wd, c = shape["n"], shape["h"], shape["w"], shape["c"]
+        cin = cout = c
+        x = rnd(n, h, wd, c).bfloat16()
+        w = rnd(9, c, c, scale=(9 * c) ** -0.5).bfloat16()
+        xs, ys = (n, h, wd, c), (n, h, wd, c)
+        pro = True
+    a = (torch.rand(cin, device=dev, generator=gen) + 0.5) if pro else None
+    b = rnd(cin, scale=0.5) if pro else None
+    dy = rnd(*ys).bfloat16()
+    gs1 = rnd(cout, scale=1e-3)
+    gs2 = rnd(cout, scale=1e-5)
+    return dict(x=x, w=w, a=a, b=b, dy=dy, gs1=gs1, gs2=gs2, xs=xs, ys=ys)
+
+
+def _ru_fns(kind):
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    if kind == "k7":
+        return (ru.conv1x1_bn_fwd_cuda, ru.conv1x1_bn_fwd_reference,
+                ru.conv1x1_bn_bwd_cuda, ru.conv1x1_bn_bwd_reference)
+    return (ru.conv3x3_bn_fwd_cuda, ru.conv3x3_bn_fwd_reference,
+            ru.conv3x3_bn_bwd_cuda, ru.conv3x3_bn_bwd_reference)
+
+
+def _bwd_args(kind, c, y):
+    head = (c["x"], c["w"], c["a"], c["b"])
+    tail = (c["dy"], c["gs1"], c["gs2"])
+    return head + tail if kind == "k7" else head + (y,) + tail
+
+
+def _rel_err(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_resnet_kernels():
+    """K7 and K8 (forward and backward) and K9 against their plain
+    versions at ResNet-50 shapes; the backward versions both take the
+    plain forward's y."""
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    results = {}
+    for name, kind, shape in RU_CASES:
+        c = _ru_inputs(gen, kind, shape)
+        fwd_k, fwd_p, bwd_k, bwd_p = _ru_fns(kind)
+        got = fwd_k(c["x"], c["w"], c["a"], c["b"])
+        want = fwd_p(c["x"], c["w"], c["a"], c["b"])
+        gotb = bwd_k(*_bwd_args(kind, c, want[0]))
+        wantb = bwd_p(*_bwd_args(kind, c, want[0]))
+        torch.cuda.synchronize()
+        errs = {}
+        for key, g, wnt in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
+                               (*got, *gotb), (*want, *wantb)):
+            if wnt is None:
+                check(g is None, f"{name}: {key} should be None")
+                continue
+            check(bool(torch.isfinite(g).all()), f"{name}: {key} not finite")
+            err, rel = _rel_err(g, wnt)
+            tol = (RU_BF16_REL if wnt.dtype == torch.bfloat16
+                   else RU_SUM_REL[key])
+            errs[key] = err
+            log(f"[resnet-kernels] {name} {key} max_abs_err={err} "
+                f"rel_to_max={rel} tol={tol}")
+            check(rel <= tol, f"{name}: {key} disagrees with the plain "
+                  f"version")
+        results[name] = dict(kind=kind, shape=shape, case=c, y=want[0],
+                             errs=errs)
+        del got, gotb, wantb
+    for name, rows, ch in K9_CASES:
+        x = (torch.randn(rows, ch, device="cuda", generator=gen) * 2
+             + 1.5).bfloat16()
+        got = bn.bn_stats_cuda(x)
+        want = bn.bn_stats_reference(x)
+        torch.cuda.synchronize()
+        errs = {}
+        for key, g, wnt in zip(("mean", "m2"), got, want):
+            err, rel = _rel_err(g, wnt)
+            errs[key] = err
+            log(f"[resnet-kernels] k9 {name} {key} max_abs_err={err} "
+                f"rel_to_max={rel} tol={RU_SUM_REL[key]}")
+            check(rel <= RU_SUM_REL[key], f"K9 {name}: {key} disagrees "
+                  f"with the plain version")
+        results[f"k9_{name}"] = dict(kind="k9", x=x, errs=errs)
+    return results
+
+
+def _ru_bounds(kind, c):
+    """Bounds of (forward, backward) of a K7/K8 case: each input read
+    once and each output written once; the products on the tensor cores
+    (forward 2 K, backward 6 K for K7, which recomputes y, 4 K for K8,
+    per output element of y), the prologue and epilogue in f32."""
+    rows = c["x"].numel() // c["xs"][-1]
+    cin, cout = c["xs"][-1], c["ys"][-1]
+    taps = 1 if kind == "k7" else 9
+    pro = 2 * cin * 4 if c["a"] is not None else 0
+    w = c["w"].numel() * 2
+    act_in, act_out = rows * cin * 2, rows * cout * 2
+    mac = rows * cin * cout * taps
+    f32_fwd = 3 * rows * cin * (c["a"] is not None) + 3 * rows * cout
+    fwd = _bound(act_in + w + pro + act_out + 2 * cout * 4,
+                 {torch.bfloat16: 2 * mac, torch.float32: f32_fwd})
+    bwd_in = act_in + w + pro + act_out + 2 * cout * 4
+    if kind == "k8":
+        bwd_in += act_out                     # the saved y
+    bwd_out = act_in + c["w"].numel() * 4 + pro
+    f32_bwd = 4 * rows * cout + 6 * rows * cin
+    bwd = _bound(bwd_in + bwd_out,
+                 {torch.bfloat16: (6 if kind == "k7" else 4) * mac,
+                  torch.float32: f32_bwd})
+    return fwd, bwd
+
+
+def _ru_library(kind, c, y):
+    """One PyTorch call per direction computing the same convolution:
+    the forward as torch.matmul (1x1) or F.conv2d on channels-last
+    views (3x3); the backward as aten.convolution_backward (dx and dw of
+    the convolution, without the BatchNorm terms)."""
+    x, w, dy = c["x"], c["w"], c["dy"]
+    if kind == "k7":
+        rows, cin = x.shape
+        cout = w.shape[1]
+        n = RESNET_BATCH
+        hw = int(round((rows // n) ** 0.5))
+        x4 = x.reshape(n, hw, hw, cin).permute(0, 3, 1, 2)
+        dy4 = dy.reshape(n, hw, hw, cout).permute(0, 3, 1, 2)
+        w4 = w.t().reshape(cout, cin, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        fwd = lambda: torch.matmul(x, w)                     # noqa: E731
+        pad = 0
+    else:
+        x4 = x.permute(0, 3, 1, 2)
+        dy4 = dy.permute(0, 3, 1, 2)
+        w4 = c["w"].reshape(3, 3, *w.shape[1:]).permute(3, 2, 0, 1
+                                                        ).contiguous(
+            memory_format=torch.channels_last)
+        fwd = lambda: torch.nn.functional.conv2d(x4, w4, padding=1)  # noqa
+        pad = 1
+
+    def bwd():
+        return torch.ops.aten.convolution_backward(
+            dy4, x4, w4, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+    return fwd, bwd
+
+
+def time_resnet_kernels(results):
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+
+    timing = {}
+    for name, r in results.items():
+        if r["kind"] == "k9":
+            x = r["x"]
+            rows, ch = x.shape
+            t = dict(ms=time_ms(lambda: bn.bn_stats_cuda(x)),
+                     plain_ms=time_ms(lambda: bn.bn_stats_reference(x),
+                                      iters=5, warmup=1),
+                     library_ms=time_ms(lambda: torch.var_mean(x, dim=0)))
+            t["bound_ms"], t["bound_by"] = _bound(
+                rows * ch * 2 + 2 * ch * 4, {torch.float32: 3 * rows * ch})
+            timing[name] = dict(k9=t)
+            log(f"[time] k9 {name} ms={t['ms']} plain_ms={t['plain_ms']} "
+                f"library_ms={t['library_ms']} (torch.var_mean) bound_ms="
+                f"{t['bound_ms']} ({t['bound_by']}) bound_share="
+                f"{t['bound_ms'] / t['ms']}")
+            continue
+        kind, c, y = r["kind"], r["case"], r["y"]
+        fwd_k, fwd_p, bwd_k, bwd_p = _ru_fns(kind)
+        fargs = (c["x"], c["w"], c["a"], c["b"])
+        bargs = _bwd_args(kind, c, y)
+        lib_f, lib_b = _ru_library(kind, c, y)
+        (bf, byf), (bb, byb) = _ru_bounds(kind, c)
+        t = {
+            "fwd": dict(ms=time_ms(lambda: fwd_k(*fargs)),
+                        plain_ms=time_ms(lambda: fwd_p(*fargs), iters=3,
+                                         warmup=1),
+                        library_ms=time_ms(lib_f), bound_ms=bf,
+                        bound_by=byf),
+            "bwd": dict(ms=time_ms(lambda: bwd_k(*bargs)),
+                        plain_ms=time_ms(lambda: bwd_p(*bargs), iters=3,
+                                         warmup=1),
+                        library_ms=time_ms(lib_b), bound_ms=bb,
+                        bound_by=byb),
+        }
+        timing[name] = t
+        for d, tt in t.items():
+            log(f"[time] {kind} {d} {name} ms={tt['ms']} plain_ms="
+                f"{tt['plain_ms']} library_ms={tt['library_ms']} "
+                f"({'matmul/conv2d' if d == 'fwd' else 'convolution_backward'})"
+                f" bound_ms={tt['bound_ms']} ({tt['bound_by']}) bound_share="
+                f"{tt['bound_ms'] / tt['ms']}")
+    results.clear()
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _block_run(blk, x, cot, fused_direct=False):
+    """Output, gradients (input and parameters) and running statistics
+    after one training forward/backward of ``blk``; ``fused_direct``
+    calls the fused composition whatever the dtype (the f32
+    reference)."""
+    x = x.clone().requires_grad_()
+    out = blk._forward_fused(x) if fused_direct else blk(x)
+    out.backward(cot)
+    tensors = {"grad x": x.grad}
+    tensors.update((f"grad {n}", p.grad) for n, p in blk.named_parameters())
+    tensors.update((f"buffer {n}", b) for n, b in blk.named_buffers())
+    return out.detach(), {k: v.detach().float().cpu().clone()
+                          for k, v in tensors.items()}
+
+
+def _l2_rel(got, want):
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def phase_block_parity():
+    """One layer-1 bottleneck at full width (256 -> 64 -> 256, 56^2,
+    batch 8), bf16, flags on: the card (K7, K8) against the CPU (plain
+    versions), and the fused composition against the default one on the
+    card, each against the f32 reference (see BLOCK_VS_PLAIN)."""
+    from paddle_tpu_torch import flags, load_reference_state
+    from paddle_tpu_torch.vision.models import BottleneckBlock
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def block(device, dtype="bfloat16", state=None):
+        blk = BottleneckBlock(256, 64, data_format="NHWC", device=device,
+                              dtype=dtype,
+                              generator=gen if state is None else None)
+        if state is not None:
+            load_reference_state(blk, state)
+        return blk.train()
+
+    card = block("cuda")
+    # copies: the card's buffers change in its run
+    state = {n: t.detach().float().cpu().numpy().copy()
+             for n, t in card.state_dict().items()}
+    x = torch.randn(8, 56, 56, 256, device="cuda", generator=gen).bfloat16()
+    cot = torch.randn(8, 56, 56, 256, device="cuda", generator=gen
+                      ).bfloat16()
+    _, ref = _block_run(block("cpu", "float32", state), x.cpu().float(),
+                        cot.cpu().float(), fused_direct=True)
+    flags.set_flags({"use_fused_resnet_unit": True,
+                     "use_pallas_bn_stats": True})
+    try:
+        check(card._fused_ok(x) and card._uses_3x3_kernel(x),
+              "the layer-1 block does not take K7 and K8")
+        out_c, on_card = _block_run(card, x, cot)
+        out_h, on_cpu = _block_run(block("cpu", state=state), x.cpu(),
+                                   cot.cpu())
+        flags.set_flags({"use_fused_resnet_unit": False,
+                         "use_pallas_bn_stats": False})
+        plain = block("cuda", state=state)
+        check(not plain._fused_ok(x), "flags off still fuse")
+        out_p, default = _block_run(plain, x, cot)
+    finally:
+        flags.set_flags({"use_fused_resnet_unit": False,
+                         "use_pallas_bn_stats": False})
+    check(all(bool(torch.isfinite(t).all()) for t in on_card.values()),
+          "non-finite gradient or statistic on the card")
+    _, rel = _rel_err(out_c.cpu(), out_h)
+    log(f"[block] layer-1 bottleneck 256-64-256, 56^2, batch 8, bf16: "
+        f"output card vs CPU {rel} of its largest element (tol "
+        f"{BLOCK_OUT_REL}); fused vs default on the card "
+        f"{_rel_err(out_c, out_p)[1]}")
+    check(rel <= BLOCK_OUT_REL, "block output differs card vs CPU")
+    rows = []
+    for key, want in ref.items():
+        e_card = _l2_rel(on_card[key], want)
+        e_cpu = _l2_rel(on_cpu[key], want)
+        e_def = _l2_rel(default[key], want)
+        rows.append((key, e_card, e_cpu, e_def))
+        check(e_card <= BLOCK_VS_PLAIN * e_cpu + BLOCK_SLACK,
+              f"block {key}: card error {e_card} against f32 exceeds "
+              f"{BLOCK_VS_PLAIN} x the CPU's {e_cpu}")
+        check(e_card <= FUSED_VS_DEFAULT * e_def + BLOCK_SLACK,
+              f"block {key}: fused error {e_card} against f32 exceeds "
+              f"{FUSED_VS_DEFAULT} x the default composition's {e_def}")
+    for key, e_card, e_cpu, e_def in rows:
+        log(f"[block] {key}: relative L2 error against f32: card (fused, "
+            f"kernels) {e_card} cpu (fused, plain) {e_cpu} card (default "
+            f"composition) {e_def}")
+    log(f"[block] all {len(rows)} gradients and statistics within "
+        f"{BLOCK_VS_PLAIN} x the CPU's error and {FUSED_VS_DEFAULT} x the "
+        f"default composition's (+{BLOCK_SLACK}); seconds="
+        f"{time.perf_counter() - t0}")
+    torch.cuda.empty_cache()
+
+
+def _resnet_counts():
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    return dict(k7_fwd=ru.conv1x1_bn_fwd_cuda.launches,
+                k7_bwd=ru.conv1x1_bn_bwd_cuda.launches,
+                k8_fwd=ru.conv3x3_bn_fwd_cuda.launches,
+                k8_bwd=ru.conv3x3_bn_bwd_cuda.launches,
+                k9=bn.bn_stats_cuda.launches)
+
+
+def _reset_resnet_counts():
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    for fn in (ru.conv1x1_bn_fwd_cuda, ru.conv1x1_bn_bwd_cuda,
+               ru.conv3x3_bn_fwd_cuda, ru.conv3x3_bn_bwd_cuda,
+               bn.bn_stats_cuda):
+        fn.launches = 0
+
+
+def resnet_family(name):
+    """Kernel family of a device kernel name in a ResNet step."""
+    for kernel, arg in (("gemm_rows_kernel<", 1), ("gemm_dw_kernel<", 2)):
+        if kernel in name:
+            taps = int(name.split(kernel)[1].split(",")[arg])
+            return "k8" if taps == 9 else "k7"
+    if "dyc_kernel" in name:
+        return "k8"
+    if "col_reduce_kernel" in name:
+        return "k7_k8_reduce"
+    if "bn_stats_" in name:
+        return "k9"
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "dgrad",
+                              "wgrad", "fprop")):
+        return "cudnn_conv"
+    if any(k in low for k in ("gemm", "nvjet", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def resnet_part(name):
+    """Which part of K7/K8 a kernel of resnet_unit.cu is, by its template
+    arguments (``gemm_rows_kernel<BN, TAPS, SIGN, APRO, BTRANS, EPI,
+    EMASK>``, ``gemm_dw_kernel<BM, BN, TAPS, APRO>``), or None."""
+    fam = resnet_family(name)
+    if fam not in ("k7", "k8", "k7_k8_reduce"):
+        return None
+    if "gemm_rows_kernel<" in name:
+        epi = int(name.split("gemm_rows_kernel<")[1].split(",")[5])
+        what = ("forward", "backward dyc", "backward dx")[epi]
+    elif "gemm_dw_kernel<" in name:
+        what = "backward dw (split-K partials)"
+    elif "dyc_kernel" in name:
+        what = "backward dyc (elementwise)"
+    else:
+        return "reductions (statistics, da/db, dw)"
+    return f"{fam} {what}"
+
+
+def profile_resnet_window(step, x, y, wall_ms, steps=2):
+    """Device ms per step by family, the optimizer update's device ms
+    (the ``TrainStep.update`` range) and the idle share against the
+    unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    fams = dict.fromkeys(["k7", "k8", "k7_k8_reduce", "k9", "cudnn_conv",
+                          "matmul", "other"], 0.0)
+    others = {}
+    kernels, spans = device_events(prof)
+    for key, dev_us in kernels.items():
+        fam = resnet_family(key)
+        fams[fam] += dev_us / 1e3 / steps
+        if fam == "other":
+            others[key] = dev_us / 1e3 / steps
+    ranges = {k: v / 1e3 / steps for k, v in spans.items()}
+    parts = {}
+    for key, dev_us in kernels.items():
+        part = resnet_part(key)
+        if part is not None:
+            parts[part] = parts.get(part, 0.0) + dev_us / 1e3 / steps
+    busy = sum(fams.values())
+    log(f"[resnet-profile] per step: wall_ms={wall_ms} (unprofiled) "
+        f"device_busy_ms={busy} device_idle_share={1 - busy / wall_ms} "
+        f"({steps} profiled steps)")
+    log(f"[resnet-profile] device_ms_per_step_by_family={json.dumps(fams)}")
+    log(f"[resnet-profile] K7/K8 device ms per step by part: "
+        f"{json.dumps(dict(sorted(parts.items())))}")
+    log(f"[resnet-profile] device span per step of the TrainStep ranges: "
+        f"{json.dumps(ranges)} (TrainStep.update: the Momentum update and "
+        f"the parameter copies from the masters)")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[resnet-profile] largest of other, ms per step: "
+        f"{json.dumps([(k[:90], v) for k, v in top])}")
+
+
+def phase_resnet_training(warmup=2, timed=5, plain_timed=3):
+    """ResNet-50 at 224^2, batch 256, bf16 parameters, f32 BatchNorm
+    buffers, Momentum(0.1, 0.9) with f32 masters, CrossEntropyLoss, a
+    fixed random batch, both flags on (bench.py's bench_resnet50 with
+    the fused path): exact launches per step, a finite and falling
+    loss, step time, images/s, MFU, peak memory, a profiler window; then
+    both flags off for step time and images/s."""
+    from paddle_tpu_torch import TrainStep, flags
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    model = resnet50(num_classes=1000, dtype="bfloat16", seed=0).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    ce = CrossEntropyLoss()
+    step = TrainStep(model, Momentum(learning_rate=0.1, momentum=0.9,
+                                     multi_precision=True),
+                     lambda m, v, y: ce(m(v), y))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE, device="cuda",
+                    generator=gen).bfloat16()
+    y = torch.randint(0, 1000, (RESNET_BATCH,), device="cuda", generator=gen)
+    flags.set_flags({"use_fused_resnet_unit": True,
+                     "use_pallas_bn_stats": True})
+    try:
+        losses, seconds = [], []
+        _reset_resnet_counts()
+        for i in range(warmup + timed):
+            before = _resnet_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(x, y))        # waits for the step
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss)
+            if i == 0:
+                mem_state = torch.cuda.memory_allocated()
+            after = _resnet_counts()
+            got = {k: after[k] - before[k] for k in RESNET_LAUNCHES}
+            check(got == RESNET_LAUNCHES, f"ResNet-50 step {i}: launches "
+                  f"{got} != {RESNET_LAUNCHES}")
+        counts = _resnet_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sum(seconds[warmup:]) / timed
+        ips = RESNET_BATCH / step_s
+        mfu = RESNET_FLOP_PER_IMAGE * ips / PEAK_OPS_S[torch.bfloat16]
+        log(f"[resnet] resnet50, 224^2, batch {RESNET_BATCH}, bf16, Momentum "
+            f"with f32 masters, both flags on: params={n_params} "
+            f"losses={losses}")
+        log(f"[resnet] step_ms={step_s * 1e3} (mean of {timed} after "
+            f"{warmup} warm-up; each {[t * 1e3 for t in seconds]}) "
+            f"images_per_s={ips} mfu={mfu} (3*4.089e9*images/s over 989e12)")
+        log(f"[resnet] peak_memory_bytes={peak} (allocated: before the model "
+            f"{mem_base}, after the first step {mem_state})")
+        log(f"[resnet] launches over {warmup + timed} steps: {counts} (per "
+            f"step {RESNET_LAUNCHES})")
+        check(all(np.isfinite(losses)), "non-finite ResNet-50 loss")
+        check(losses[-1] < losses[0], f"ResNet-50 loss did not fall: "
+              f"{losses}")
+        profile_resnet_window(step, x, y, step_s * 1e3)
+        flags.set_flags({"use_fused_resnet_unit": False,
+                         "use_pallas_bn_stats": False})
+        before = _resnet_counts()
+        plain = []
+        for i in range(warmup + plain_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(x, y))
+            plain.append(time.perf_counter() - t0)
+            check(np.isfinite(loss), "non-finite loss with the flags off")
+        check(_resnet_counts() == before, "flags off still launched K7-K9")
+        plain_s = sum(plain[warmup:]) / plain_timed
+        log(f"[resnet] both flags off (cuDNN convolutions, plain BatchNorm): "
+            f"step_ms={plain_s * 1e3} (each {[t * 1e3 for t in plain]}) "
+            f"images_per_s={RESNET_BATCH / plain_s}; flags on / off step "
+            f"time {step_s / plain_s}")
+    finally:
+        flags.set_flags({"use_fused_resnet_unit": False,
+                         "use_pallas_bn_stats": False})
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
 
 
 def kernel_entry(name, route, source, replaces, launches, results, key):
@@ -922,6 +1518,13 @@ def main() -> int:
     k5_launches, k6_launches = phase_serving()
     phase_train_parity()
     train = phase_training()
+    t_resnet = time.perf_counter()
+    ru_results = phase_resnet_kernels()
+    ru_errs = {k: v["errs"] for k, v in ru_results.items()}
+    ru_times = time_resnet_kernels(ru_results)
+    phase_block_parity()
+    resnet = phase_resnet_training()
+    t_resnet = time.perf_counter() - t_resnet
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
@@ -949,7 +1552,30 @@ def main() -> int:
                          flash_times["dkv"], shape),
              also_replaces=[f"{pallas}:610"]),
     ]
-    log(f"[done] seconds={time.perf_counter() - t_start}")
+    ru_src = "paddle_tpu_torch/csrc/resnet_unit.cu"
+    ru_pallas = "paddle_tpu/ops/pallas/resnet_unit.py"
+    for kname, kind, d, line, err_key in (
+            ("resnet_unit_conv1x1_fwd", "k7", "fwd", 103, "y"),
+            ("resnet_unit_conv1x1_bwd", "k7", "bwd", 201, "dx"),
+            ("resnet_unit_conv3x3_fwd", "k8", "fwd", 354, "y"),
+            ("resnet_unit_conv3x3_bwd", "k8", "bwd", 433, "dx")):
+        cases = [c for c, kd, _ in RU_CASES if kd == kind]
+        kernels.append(dict(
+            timed_entry(kname, "cuda", ru_src, f"{ru_pallas}:{line}",
+                        resnet[f"{kind}_{d}"],
+                        max(ru_errs[c][err_key] for c in cases),
+                        ru_times[cases[0]][d], cases[0]),
+            other_shapes={c: ru_times[c][d] for c in cases[1:]}))
+    k9_cases = [f"k9_{c}" for c, _, _ in K9_CASES]
+    kernels.append(dict(
+        timed_entry("bn_stats", "triton",
+                    "paddle_tpu_torch/ops/hopper/bn_stats.py",
+                    "paddle_tpu/ops/pallas/bn_stats.py:59", resnet["k9"],
+                    max(max(ru_errs[c].values()) for c in k9_cases),
+                    ru_times[k9_cases[0]]["k9"], K9_CASES[0][0]),
+        other_shapes={c: ru_times[c]["k9"] for c in k9_cases[1:]}))
+    log(f"[done] seconds={time.perf_counter() - t_start} (of which the "
+        f"ResNet phases 10-12: {t_resnet})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

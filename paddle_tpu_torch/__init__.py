@@ -13,14 +13,17 @@ Ported so far: Llama serving (``models``, ``serving``), with kernels
 K5 (ragged paged attention, CUDA C++) and K6 (RMSNorm forward, Triton);
 single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
 ``jit.TrainStep``), with the flash-attention forward, dq and dkv kernels
-(CUDA C++) and RMSNorm's gradient.
+(CUDA C++) and RMSNorm's gradient; single-device ResNet training
+(``vision.models``, ``nn`` layers, ``optimizer.Momentum``), with the fused
+conv+BatchNorm kernels K7 and K8 (CUDA C++) and the BatchNorm-statistics
+kernel K9 (Triton).
 """
 
-from . import flags
+from . import flags, vision
 from .convert import load_reference_state
 from .jit import TrainStep
 from .models import LlamaConfig, LlamaForCausalLM, llama_loss_fn
 from .serving import ServingEngine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "TrainStep",
-           "flags", "llama_loss_fn", "load_reference_state"]
+           "flags", "llama_loss_fn", "load_reference_state", "vision"]

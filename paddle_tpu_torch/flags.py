@@ -3,8 +3,11 @@
 One registry, three surfaces: :func:`define_flag` at import time,
 ``FLAGS_*`` environment variables read when a flag is defined, and
 :func:`set_flags` / :func:`get_flags` at run time. Only the flags the
-serving slice reads are defined here. The attention and RMSNorm
-implementations are not flags: the tensor's device picks them.
+serving slice and the ResNet model read are defined here. The attention,
+RMSNorm and BN-statistics kernels are not chosen by flags: the tensor's
+device picks between a kernel and its plain version. The two ResNet
+flags below choose something else, a different composition of the
+training step (see their help).
 """
 
 from __future__ import annotations
@@ -90,3 +93,16 @@ define_flag("serving_pool_blocks", 0,
 define_flag("serving_token_budget", 0,
             "tokens of work per engine step (decodes + prefill chunk); 0 "
             "means prefill_chunk + max_batch_slots")
+
+# -- vision (vision/models/resnet.py, nn/functional/norm.py) ----------------
+define_flag("use_fused_resnet_unit", False,
+            "route training BottleneckBlocks (NHWC, bf16/f16, groups 1) "
+            "through the fused conv+BN kernels K7 and K8: BN statistics "
+            "come from the conv's f32 accumulator and each BN's "
+            "scale/shift folds into the next conv's prologue. A different "
+            "composition from the default path, so results differ at the "
+            "working precision")
+define_flag("use_pallas_bn_stats", False,
+            "compute training BatchNorm statistics of bf16/f16 "
+            "channel-last inputs (C % 128 == 0, rows % 8 == 0) with the "
+            "statistics kernel K9 (mean and E[x^2] in f32)")

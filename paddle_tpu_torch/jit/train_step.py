@@ -11,6 +11,16 @@ the masters. PyTorch runs it eagerly. Where the JAX step donates its
 buffers (parameters, masters, slots, the merge buffer), this step
 updates them in place.
 
+Buffers such as BatchNorm's running statistics update once per
+``__call__`` and once per ``accumulate()``, as the JAX step writes back
+the buffers its forward returns: here the layers update them in place,
+outside autograd, during the forward.
+
+The forward/backward and the update run inside the profiler ranges
+``TrainStep.forward_backward`` and ``TrainStep.update``, so a
+``torch.profiler`` window can attribute device time to each (a range
+costs a few microseconds when no profiler runs).
+
 Not ported yet (slice 3, distributed training): the mesh and sharding
 stages, ``save``/``load``, ``grad_postprocess``, ``remat``,
 ``return_outputs`` and the XLA-only ``train_step_grad_barrier``.
@@ -19,6 +29,7 @@ stages, ``save``/``load``, ``grad_postprocess``, ``remat``,
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..nn.clip import clip_by_global_norm_
 
@@ -57,17 +68,18 @@ class TrainStep:
         if self._master is None:
             self._init_state()
         params = self._params()
-        for _, p in params:
-            p.grad = None
-        loss = self.loss_fn(self.model, *batch)
-        loss.backward()
-        grads = {}
-        for n, p in params:
-            work = self._work(n, p)
-            g = p.grad
-            grads[n] = (torch.zeros_like(work) if g is None
-                        else g.to(work.dtype))
-            p.grad = None
+        with record_function("TrainStep.forward_backward"):
+            for _, p in params:
+                p.grad = None
+            loss = self.loss_fn(self.model, *batch)
+            loss.backward()
+            grads = {}
+            for n, p in params:
+                work = self._work(n, p)
+                g = p.grad
+                grads[n] = (torch.zeros_like(work) if g is None
+                            else g.to(work.dtype))
+                p.grad = None
         return loss.detach().float(), grads
 
     def accumulate(self, *batch):
@@ -88,12 +100,12 @@ class TrainStep:
                 g += self._accum[n]
             self._accum = None
         opt = self.optimizer
-        clip = opt._grad_clip
-        if clip is not None:
-            clip_by_global_norm_(list(grads.values()), clip.clip_norm)
         self._step += 1
         lr = opt.get_lr()
-        with torch.no_grad():
+        with record_function("TrainStep.update"), torch.no_grad():
+            clip = opt._grad_clip
+            if clip is not None:
+                clip_by_global_norm_(list(grads.values()), clip.clip_norm)
             for n, p in self._params():
                 work = self._work(n, p)
                 opt._update(work, grads.pop(n), self._slots[n], lr,

@@ -10,6 +10,15 @@
   attention (CUDA C++, sm_90a, ``csrc/flash_attention.cu``), replacing
   ``paddle_tpu/ops/pallas/flash_attention.py``, with the autograd
   Function around them.
+- ``resnet_unit``: K7 (fused 1x1 conv + BatchNorm statistics, with the
+  previous BatchNorm's scale/shift as prologue) and K8 (the same for the
+  3x3 conv), forward and backward (CUDA C++, sm_90a,
+  ``csrc/resnet_unit.cu``), replacing
+  ``paddle_tpu/ops/pallas/resnet_unit.py``, with their autograd
+  Functions.
+- ``bn_stats``: K9, BatchNorm statistics (Triton), replacing
+  ``paddle_tpu/ops/pallas/bn_stats.py``, with the autograd Function
+  whose backward is plain PyTorch.
 
 Each module holds the kernel's wrapper with its launch counter
 (``<wrapper>.launches``) and the plain PyTorch version of the same

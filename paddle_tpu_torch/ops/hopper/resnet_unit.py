@@ -1,0 +1,472 @@
+"""Fused conv + BatchNorm: the Hopper kernels K7 (1x1 conv) and K8 (3x3
+conv), their plain versions, and the autograd Functions around them.
+
+Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/resnet_unit.py``:
+``fused_conv1x1_bn`` (K7: ``_fwd_kernel`` via ``_fwd_impl``, ``_bwd_kernel``
+via ``_bwd_impl``) and ``fused_conv3x3_bn`` (K8: ``_conv3_fwd_kernel``,
+``_conv3_bwd_kernel``). The kernels are CUDA C++ for ``sm_90a`` in
+``paddle_tpu_torch/csrc/resnet_unit.cu``, built with ``nvcc`` on first use
+and called through ``ctypes``; the source's header note says how they
+work.
+
+Forward, over NHWC rows: ``xn = relu(x * a + b)`` rounded to x's dtype
+(the optional prologue: the previous BatchNorm's f32 scale and shift),
+``y = conv(xn, w)`` with f32 accumulation, and the BatchNorm statistics
+``s1 = sum_rows(y)``, ``s2 = sum_rows(y^2)`` taken from the f32
+accumulator before y is rounded. Backward, with the statistics'
+cotangents folded into dy: ``dyc = round(dy + gs1 + 2 y gs2)``,
+``dw = xn^T dyc`` (f32, cast to w's dtype by the Function),
+``dxn = dyc w^T``, and with a prologue ``du = dxn [u > 0]``,
+``dx = round(du a)``, ``da = sum(du x)``, ``db = sum(du)``. K7's backward
+recomputes y; K8's reads the saved y. The 3x3 conv pads ``xn`` with
+zeros after the prologue, and its dxn correlates dyc with the flipped
+taps.
+
+What bounds them on an H100: the 1x1 convs of ResNet-50's first stage
+(64 and 256 channels) do too few operations per byte and are bound by
+bytes; the wide 1x1 convs and the 3x3 convs are bound by operations.
+The kernels read each activation once per product, keep xn and the
+statistics out of device memory, and replace the TPU kernels' sums
+carried through a sequential grid with per-CTA partials and a second,
+deterministic pass (no atomics).
+
+The plain versions (``*_reference``) repeat the kernels' arithmetic in
+PyTorch, rounding where they round, and take float32 too (the CPU tests
+compare them with the JAX functions in f32). A CPU tensor runs them; a
+CUDA tensor launches the kernels (bfloat16 only) or raises, and never
+falls back.
+
+``supported`` and ``supported_3x3`` are the JAX package's routing
+predicates, copied so that the same blocks take the same route in both
+packages.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ._build import build_library
+
+_SOURCES = ["resnet_unit.cu"]
+_ROW_TILE = 128     # rows of a CTA tile in the kernels' row GEMMs
+_K_TILE = 32        # rows of a split-K chunk must be a multiple of this
+_MAX_ROW_TILES = 65535
+
+
+# -- routing predicates (copied from the JAX package) -----------------------
+
+def supported(rows, cin, cout):
+    """Shapes the fused 1x1 path takes: channel counts that are multiples
+    of 128 or the stage-1 width 64, and rows in whole 128-row tiles."""
+
+    def ok_c(c):
+        return c % 128 == 0 or c == 64
+    return ok_c(cin) and ok_c(cout) and rows % 128 == 0
+
+
+_VMEM_BUDGET = 34 * 1024 * 1024
+
+
+def _conv3_bn(n, h, w, cin, cout):
+    """Images per grid step of the TPU kernel, 0 when one image does not
+    fit its VMEM budget. A TPU detail, kept only as the routing predicate
+    of ``supported_3x3`` (so that the same blocks take K8 in both
+    packages); the CUDA kernels do not depend on it."""
+    fixed = 9 * cin * cout * 6
+    per_img = h * w * (cin + cout) * 40
+    bn = 1
+    if fixed + per_img > _VMEM_BUDGET:
+        return 0
+    for cand in (2, 4, 8, 16, 32, 64):
+        if n % cand or cand * h * w > 8192:
+            break
+        if fixed + cand * per_img > _VMEM_BUDGET:
+            break
+        bn = cand
+    return bn
+
+
+def supported_3x3(n, h, w, cin, cout):
+    """Shapes the fused 3x3 path (K8) takes."""
+    if cin % 128 and cin != 64:
+        return False
+    if cout % 128 and cout != 64:
+        return False
+    return h * w >= 128 and h >= 4 and _conv3_bn(n, h, w, cin, cout) > 0
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _prologue(x, a, b):
+    """(xn in x's dtype, u > 0 or None): ``relu(x * a + b)`` in f32."""
+    if a is None:
+        return x, None
+    u = x.float() * a.float() + b.float()
+    return torch.clamp_min(u, 0.0).to(x.dtype), u > 0
+
+
+def _stats(y32):
+    return y32.sum(0), (y32 * y32).sum(0)
+
+
+def _mask_grads(dxn, x, a, mask):
+    """dx, da, db from dxn through the prologue (dx alone without one)."""
+    if mask is None:
+        return dxn.to(x.dtype), None, None
+    du = torch.where(mask, dxn, torch.zeros((), device=dxn.device))
+    dx = (du * a.float()).to(x.dtype)
+    return dx, (du * x.float()).sum(0), du.sum(0)
+
+
+def conv1x1_bn_fwd_reference(x2d, w, a=None, b=None):
+    """Plain K7 forward: ``x2d [rows, cin]``, ``w [cin, cout]``, optional
+    ``a, b [cin]``. Returns (y in x's dtype, s1 f32 [cout], s2 f32)."""
+    xn, _ = _prologue(x2d, a, b)
+    y32 = xn.float() @ w.float()
+    s1, s2 = _stats(y32)
+    return y32.to(x2d.dtype), s1, s2
+
+
+def conv1x1_bn_bwd_reference(x2d, w, a, b, gy, gs1, gs2):
+    """Plain K7 backward: (dx in x's dtype, dw f32 [cin, cout], da, db f32
+    [cin] or None without a prologue)."""
+    xn, mask = _prologue(x2d, a, b)
+    y32 = xn.float() @ w.float()
+    dyc = (gy.float() + gs1.float() + 2.0 * y32 * gs2.float()).to(gy.dtype)
+    dw = xn.float().t() @ dyc.float()
+    dxn = dyc.float() @ w.float().t()
+    dx, da, db = _mask_grads(dxn, x2d, a, mask)
+    return dx, dw, da, db
+
+
+def _taps(v):
+    """The nine shifted views of NHWC ``v`` padded by one (tap
+    t = 3 di + dj reads (i + di - 1, j + dj - 1)), each as rows."""
+    n, h, w, c = v.shape
+    vp = F.pad(v, (0, 0, 1, 1, 1, 1))
+    return [vp[:, di:di + h, dj:dj + w, :].reshape(n * h * w, c)
+            for di in range(3) for dj in range(3)]
+
+
+def conv3x3_bn_fwd_reference(x, w9, a, b):
+    """Plain K8 forward: ``x [n, h, w, cin]``, ``w9 [9, cin, cout]``
+    (tap-major), ``a, b [cin]``. The halo is zero in xn, after the
+    prologue. Returns (y [n, h, w, cout] in x's dtype, s1, s2 f32)."""
+    n, h, wd, _ = x.shape
+    cout = w9.shape[-1]
+    xn, _ = _prologue(x, a, b)
+    y32 = sum(xs.float() @ w9[t].float() for t, xs in enumerate(_taps(xn)))
+    s1, s2 = _stats(y32)
+    return y32.to(x.dtype).reshape(n, h, wd, cout), s1, s2
+
+
+def conv3x3_bn_bwd_reference(x, w9, a, b, y, gy, gs1, gs2):
+    """Plain K8 backward from the saved forward output ``y``: (dx
+    [n, h, w, cin] in x's dtype, dw f32 [9, cin, cout], da, db f32)."""
+    n, h, wd, cin = x.shape
+    cout = w9.shape[-1]
+    xn, mask = _prologue(x, a, b)
+    dyc = (gy.float() + gs1.float() + 2.0 * y.float() * gs2.float()
+           ).to(gy.dtype)
+    dy2d = dyc.reshape(-1, cout).float()
+    dw = torch.stack([xs.float().t() @ dy2d for xs in _taps(xn)])
+    # the correlation with the flipped taps: tap t = 3 di + dj reads dyc
+    # at (i - di + 1, j - dj + 1), the view of tap 8 - t
+    flipped = _taps(dyc)[::-1]
+    dxn = sum(ds.float() @ w9[t].float().t() for t, ds in enumerate(flipped))
+    dx, da, db = _mask_grads(dxn, x.reshape(-1, cin), a,
+                             None if mask is None else mask.reshape(-1, cin))
+    return dx.reshape(n, h, wd, cin), dw, da, db
+
+
+# -- the kernels -------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    path, _ = build_library("resnet_unit", _SOURCES)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.resnet_unit_fwd.restype = i
+    lib.resnet_unit_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
+    lib.resnet_unit_bwd.restype = i
+    return lib
+
+
+def build() -> str:
+    """Build (or reuse) the kernel library now; returns the compiler log
+    ("" when an earlier build was reused)."""
+    _, log = build_library("resnet_unit", _SOURCES)
+    _library()
+    return log
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(named, prologue_needed=False):
+    """Raise unless every tensor of ``named`` (name -> tensor or None)
+    lies on one CUDA device, is contiguous and starts on 16 bytes; the
+    activations and weights must be bfloat16, the prologue and
+    cotangents float32."""
+    devs = {t.device for t in named.values() if t is not None}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"all tensors must lie on one CUDA device, got "
+                         f"{sorted(map(str, devs))}")
+    for name, t in named.items():
+        if t is None:
+            continue
+        want = (torch.float32 if name in ("a", "b", "gs1", "gs2")
+                else torch.bfloat16)
+        if t.dtype != want:
+            raise ValueError(f"{name}: the kernels take {want}, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    if (named.get("a") is None) != (named.get("b") is None):
+        raise ValueError("pass both a and b, or neither")
+    if prologue_needed and named.get("a") is None:
+        raise ValueError("the 3x3 kernel needs the prologue a, b")
+
+
+def _check_channels(rows, cin, cout):
+    if cin % 64 or cout % 64 or cin < 64 or cout < 64:
+        raise ValueError(f"channels {cin} -> {cout}: the kernels take "
+                         f"multiples of 64")
+    if rows < 1 or -(-rows // _ROW_TILE) > _MAX_ROW_TILES:
+        raise ValueError(f"{rows} rows: the kernels take 1 to "
+                         f"{_ROW_TILE * _MAX_ROW_TILES}")
+
+
+def _launch_fwd(x, w, a, b, rows, cin, cout, h, wd, taps):
+    dev = x.device
+    y = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
+    part = torch.empty((-(-rows // _ROW_TILE), 2, cout), device=dev,
+                       dtype=torch.float32)
+    stats = torch.empty((2, cout), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().resnet_unit_fwd(
+            x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
+            part.data_ptr(), stats.data_ptr(), rows, cin, cout, h, wd, taps,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"resnet_unit forward launch failed: CUDA error "
+                           f"{rc}")
+    return y, stats[0], stats[1]
+
+
+def dw_splits(rows, cin, cout, taps, sms):
+    """(splits, rows per split) of the dw product's split-K over rows:
+    about four CTAs per SM over the (cin, cout, tap) tiles, each chunk a
+    multiple of 32 rows."""
+    tiles = ((cin // (128 if cin % 128 == 0 else 64))
+             * (cout // (128 if cout % 128 == 0 else 64)) * taps)
+    want = max(1, -(-4 * sms // tiles))
+    ksplit = -(-rows // (want * _K_TILE)) * _K_TILE
+    return -(-rows // ksplit), ksplit
+
+
+def _launch_bwd(x, w, a, b, y, gy, gs1, gs2, rows, cin, cout, h, wd, taps):
+    dev = x.device
+    pro = a is not None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, ksplit = dw_splits(rows, cin, cout, taps, sms)
+    f32 = dict(device=dev, dtype=torch.float32)
+    dyc = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
+    dx = torch.empty((rows, cin), device=dev, dtype=torch.bfloat16)
+    part_dx = (torch.empty((-(-rows // _ROW_TILE), 2, cin), **f32) if pro
+               else None)
+    dadb = torch.empty((2, cin), **f32) if pro else None
+    part_dw = torch.empty((splits, taps, cin, cout), **f32)
+    dw = torch.empty((taps, cin, cout), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().resnet_unit_bwd(
+            x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), _ptr(y),
+            gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), dyc.data_ptr(),
+            dx.data_ptr(), _ptr(part_dx), _ptr(dadb), part_dw.data_ptr(),
+            dw.data_ptr(), rows, cin, cout, h, wd, taps, splits, ksplit,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"resnet_unit backward launch failed: CUDA error "
+                           f"{rc}")
+    if pro:
+        return dx, dw, dadb[0], dadb[1]
+    return dx, dw, None, None
+
+
+def conv1x1_bn_fwd_cuda(x2d, w, a=None, b=None):
+    """Launch K7's forward (CUDA, bfloat16). Same contract as
+    :func:`conv1x1_bn_fwd_reference`; raises ``ValueError`` on inputs the
+    kernel does not take and ``RuntimeError`` when a launch fails."""
+    if x2d.dim() != 2 or w.dim() != 2 or w.shape[0] != x2d.shape[1]:
+        raise ValueError(f"want x [rows, cin] and w [cin, cout]; got "
+                         f"{tuple(x2d.shape)} and {tuple(w.shape)}")
+    rows, cin = x2d.shape
+    cout = w.shape[1]
+    _check_cuda(dict(x=x2d, w=w, a=a, b=b))
+    _check_channels(rows, cin, cout)
+    out = _launch_fwd(x2d, w, a, b, rows, cin, cout, 1, 1, 1)
+    conv1x1_bn_fwd_cuda.launches += 1
+    return out
+
+
+conv1x1_bn_fwd_cuda.launches = 0
+
+
+def conv1x1_bn_bwd_cuda(x2d, w, a, b, gy, gs1, gs2):
+    """Launch K7's backward (CUDA, bfloat16): the dyc, dx and split-K dw
+    kernels and their reductions, counted as one launch. Same contract
+    as :func:`conv1x1_bn_bwd_reference`."""
+    rows, cin = x2d.shape
+    cout = w.shape[1]
+    if tuple(gy.shape) != (rows, cout) or gs1.shape != (cout,) \
+            or gs2.shape != (cout,):
+        raise ValueError(f"cotangents {tuple(gy.shape)}, "
+                         f"{tuple(gs1.shape)}, {tuple(gs2.shape)} do not "
+                         f"match y [{rows}, {cout}]")
+    _check_cuda(dict(x=x2d, w=w, a=a, b=b, gy=gy, gs1=gs1, gs2=gs2))
+    _check_channels(rows, cin, cout)
+    out = _launch_bwd(x2d, w, a, b, None, gy, gs1, gs2, rows, cin, cout, 1,
+                      1, 1)
+    conv1x1_bn_bwd_cuda.launches += 1
+    return out
+
+
+conv1x1_bn_bwd_cuda.launches = 0
+
+
+def _check_3x3(x, w9):
+    if x.dim() != 4 or w9.dim() != 3 or w9.shape[0] != 9 \
+            or w9.shape[1] != x.shape[3]:
+        raise ValueError(f"want x [n, h, w, cin] and w9 [9, cin, cout]; got "
+                         f"{tuple(x.shape)} and {tuple(w9.shape)}")
+
+
+def conv3x3_bn_fwd_cuda(x, w9, a, b):
+    """Launch K8's forward (CUDA, bfloat16). Same contract as
+    :func:`conv3x3_bn_fwd_reference`."""
+    _check_3x3(x, w9)
+    n, h, wd, cin = x.shape
+    cout = w9.shape[2]
+    _check_cuda(dict(x=x, w=w9, a=a, b=b), prologue_needed=True)
+    _check_channels(n * h * wd, cin, cout)
+    y, s1, s2 = _launch_fwd(x, w9, a, b, n * h * wd, cin, cout, h, wd, 9)
+    conv3x3_bn_fwd_cuda.launches += 1
+    return y.reshape(n, h, wd, cout), s1, s2
+
+
+conv3x3_bn_fwd_cuda.launches = 0
+
+
+def conv3x3_bn_bwd_cuda(x, w9, a, b, y, gy, gs1, gs2):
+    """Launch K8's backward (CUDA, bfloat16) from the saved ``y``: the
+    dyc, dx and split-K dw kernels and their reductions, counted as one
+    launch. Same contract as :func:`conv3x3_bn_bwd_reference`."""
+    _check_3x3(x, w9)
+    n, h, wd, cin = x.shape
+    cout = w9.shape[2]
+    if tuple(y.shape) != (n, h, wd, cout) or y.shape != gy.shape \
+            or gs1.shape != (cout,) or gs2.shape != (cout,):
+        raise ValueError(f"y {tuple(y.shape)}, gy {tuple(gy.shape)}, gs1 "
+                         f"{tuple(gs1.shape)}, gs2 {tuple(gs2.shape)} do "
+                         f"not match [{n}, {h}, {wd}, {cout}]")
+    _check_cuda(dict(x=x, w=w9, a=a, b=b, y=y, gy=gy, gs1=gs1, gs2=gs2),
+                prologue_needed=True)
+    _check_channels(n * h * wd, cin, cout)
+    dx, dw, da, db = _launch_bwd(x, w9, a, b, y, gy, gs1, gs2, n * h * wd,
+                                 cin, cout, h, wd, 9)
+    conv3x3_bn_bwd_cuda.launches += 1
+    return dx.reshape(n, h, wd, cin), dw, da, db
+
+
+conv3x3_bn_bwd_cuda.launches = 0
+
+
+# -- autograd ----------------------------------------------------------------
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+class Conv1x1BNFunction(torch.autograd.Function):
+    """K7 with its one-pass backward: ``(x2d, w, a, b) -> (y, s1, s2)``;
+    ``a``/``b`` may be None (no prologue). A CUDA tensor runs the
+    kernels, a CPU tensor the plain versions. Saves x, w, a, b, as the
+    JAX package's VJP does."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, a, b):
+        ctx.ab_dtypes = _dtypes(a, b)
+        x2d, w, a, b = x2d.contiguous(), w.contiguous(), _f32(a), _f32(b)
+        fwd = (conv1x1_bn_fwd_cuda if x2d.is_cuda
+               else conv1x1_bn_fwd_reference)
+        y, s1, s2 = fwd(x2d, w, a, b)
+        ctx.save_for_backward(x2d, w, a, b)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x2d, w, a, b = ctx.saved_tensors
+        bwd = (conv1x1_bn_bwd_cuda if x2d.is_cuda
+               else conv1x1_bn_bwd_reference)
+        dx, dw, da, db = bwd(x2d, w, a, b, gy.contiguous(), _f32(gs1),
+                             _f32(gs2))
+        return (dx, dw.to(w.dtype), *_cast(ctx.ab_dtypes, da, db))
+
+
+def _dtypes(a, b):
+    return (None if a is None else a.dtype, None if b is None else b.dtype)
+
+
+def _cast(dtypes, da, db):
+    """da, db in the dtypes of the a, b given (None stays None)."""
+    return tuple(None if g is None else g.to(dt)
+                 for g, dt in zip((da, db), dtypes))
+
+
+class Conv3x3BNFunction(torch.autograd.Function):
+    """K8 with its backward: ``(x, w9, a, b) -> (y, s1, s2)``. Saves x,
+    w9, a, b and the output y, which the backward reads instead of
+    recomputing it, as the JAX package's VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, w9, a, b):
+        ctx.ab_dtypes = _dtypes(a, b)
+        x, w9, a, b = x.contiguous(), w9.contiguous(), _f32(a), _f32(b)
+        fwd = (conv3x3_bn_fwd_cuda if x.is_cuda
+               else conv3x3_bn_fwd_reference)
+        y, s1, s2 = fwd(x, w9, a, b)
+        ctx.save_for_backward(x, w9, a, b, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w9, a, b, y = ctx.saved_tensors
+        bwd = (conv3x3_bn_bwd_cuda if x.is_cuda
+               else conv3x3_bn_bwd_reference)
+        dx, dw, da, db = bwd(x, w9, a, b, y, gy.contiguous(), _f32(gs1),
+                             _f32(gs2))
+        return (dx, dw.to(w9.dtype), *_cast(ctx.ab_dtypes, da, db))
+
+
+def fused_conv1x1_bn(x2d, w, a=None, b=None):
+    """``y = relu(x*a+b) @ w`` with the BatchNorm-statistic epilogue.
+    ``x2d [rows, cin]``, ``w [cin, cout]``, optional f32 ``a, b [cin]``.
+    Returns (y [rows, cout] in x's dtype, s1 [cout] f32 = sum(y), s2
+    [cout] f32 = sum(y*y)), differentiable."""
+    return Conv1x1BNFunction.apply(x2d, w, a, b)
+
+
+def fused_conv3x3_bn(x, w9, a, b):
+    """3x3/s1/p1 conv over ``relu(x*a+b)`` with the statistic epilogue.
+    ``x [n, h, w, cin]``, ``w9 [9, cin, cout]`` (tap-major), f32 ``a, b
+    [cin]``. Returns (y [n, h, w, cout], s1 [cout], s2 [cout])."""
+    return Conv3x3BNFunction.apply(x, w9, a, b)

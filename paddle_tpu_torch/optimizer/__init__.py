@@ -1,6 +1,6 @@
-"""Optimizers of the port (the subset Llama training uses)."""
+"""Optimizers of the port (the subset Llama and ResNet training use)."""
 
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import Adam, AdamW, Momentum
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer"]

@@ -1,4 +1,4 @@
-"""Adam and AdamW (port of ``optimizer/optimizers.py``).
+"""Momentum, Adam and AdamW (port of ``optimizer/optimizers.py``).
 
 Plain PyTorch, in place on the TrainStep's f32 masters (or on the
 parameters themselves when they are f32): the JAX update is XLA code,
@@ -10,6 +10,40 @@ from __future__ import annotations
 import torch
 
 from .optimizer import Optimizer
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum, optionally Nesterov, with L2 ``weight_decay``
+    added to the gradient: ``v = momentum * v + g``, then ``p -= lr * v``
+    (Nesterov: ``p -= lr * (g + momentum * v)``).
+
+    As in the JAX package, the constructor takes no ``multi_precision``:
+    any extra keyword, ``multi_precision`` among them, is accepted and
+    ignored, so the base default (f32 master weights for half-precision
+    parameters) always holds. That is a fault of the reference (ROADMAP
+    queue 3, F3) which the port reproduces so that the two train alike.
+    """
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, **kw):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_slots(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def _update(self, p, g, slots, lr, step, wd=None):
+        wd = self._wd(wd)
+        if wd:
+            g = g + wd * p
+        v = slots["velocity"].mul_(self._momentum).add_(g)
+        if self._nesterov:
+            p.sub_(lr * (g + self._momentum * v))
+        else:
+            p.sub_(lr * v)
 
 
 class Adam(Optimizer):

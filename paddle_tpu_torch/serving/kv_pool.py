@@ -28,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..framework.device import resolve_device
+
 
 class PoolOOM(RuntimeError):
     """The pool cannot supply the requested blocks. Raised by
@@ -51,10 +53,11 @@ class PagedLayerCache:
 class KVBlockPool:
     """Fixed-size KV block pool shared by every sequence of an engine.
     Each usable block is either allocated (in exactly one table) or on
-    the free list."""
+    the free list. ``device=None`` is the card (it raises without one);
+    pass ``device="cpu"`` for the CPU."""
 
     def __init__(self, *, num_layers, num_blocks, block_size, kv_heads,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype=torch.float32, device=None):
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is the reserved "
@@ -67,7 +70,7 @@ class KVBlockPool:
         self.kv_heads = int(kv_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (self.num_blocks, self.block_size, self.kv_heads,
                  self.head_dim)
         # zeros: scratch and never-written blocks hold finite values,

@@ -1,0 +1,278 @@
+"""The fused conv+BatchNorm kernels K7 and K8 and the statistics kernel K9
+of the PyTorch port against the JAX package.
+
+On the CPU the port runs its plain versions; the JAX package runs its
+Pallas kernels in interpret mode (``paddle_tpu/ops/pallas/resnet_unit.py``
+and ``bn_stats.py``). Both take the same numpy inputs in f32, where every
+rounding cast is exact, so what is compared is the algorithm: y, s1, s2
+(mean, E[x^2]) and every gradient (dx, dw, da, db), with the statistics'
+cotangents gs1/gs2 folded in. The JAX side of each case is one
+``jax.jit``. ``gpu``-marked cases hold each kernel against its plain
+version on the card in bf16; this module imports JAX only inside the
+``ref`` fixture, so those cases need no JAX.
+
+Tolerance (f32 cases): the largest absolute difference of each output
+is at most 1e-4 of the largest element of the JAX package's output. Both
+sides sum the same f32 products in other orders (over up to 576 terms
+per element and 256 rows per statistic), which moves the last bits only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.hopper import bn_stats as hop_bn
+from paddle_tpu_torch.ops.hopper import resnet_unit as hop_ru
+
+F32_REL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's kernels, one jitted forward + VJP per case."""
+    jax = pytest.importorskip("jax")
+    from paddle_tpu.ops.pallas import bn_stats as jbn
+    from paddle_tpu.ops.pallas import resnet_unit as jru
+
+    def k7(x, w, a, b, cy, c1, c2):
+        args = (x, w) if a is None else (x, w, a, b)
+        out, vjp = jax.vjp(
+            lambda *v: jru.fused_conv1x1_bn(*v, interpret=True), *args)
+        return out, vjp((cy, c1, c2))
+
+    def k8(x, w9, a, b, cy, c1, c2):
+        out, vjp = jax.vjp(
+            lambda *v: jru.fused_conv3x3_bn(*v, interpret=True), x, w9, a, b)
+        return out, vjp((cy, c1, c2))
+
+    def k9(x, g1, g2):
+        out, vjp = jax.vjp(jbn.bn_stats, x)
+        return out, vjp((g1, g2))
+
+    return dict(k7=jax.jit(k7), k8=jax.jit(k8), k9=jax.jit(k9), jru=jru,
+                jbn=jbn)
+
+
+def _close(got, want, name, rel=F32_REL):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, name
+    err = float(np.abs(got - want).max())
+    tol = rel * float(np.abs(want).max())
+    assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+def _inputs(rng, xs, cin, cout, prologue, w_shape):
+    x = rng.randn(*xs, cin).astype(np.float32)
+    w = (rng.randn(*w_shape) / np.sqrt(w_shape[-2] * 9)).astype(np.float32)
+    a = (rng.rand(cin) + 0.5).astype(np.float32) if prologue else None
+    # a shift of either sign, large enough that relu(0 * a + b) != 0: a
+    # halo padded before the prologue would show
+    b = (rng.randn(cin) * 0.5).astype(np.float32) if prologue else None
+    cy = rng.randn(*xs, cout).astype(np.float32)
+    c1 = rng.randn(cout).astype(np.float32)
+    c2 = (rng.randn(cout) * 0.01).astype(np.float32)
+    return x, w, a, b, cy, c1, c2
+
+
+def _port_grads(fn, x, w, a, b, cy, c1, c2):
+    leaves = [torch.from_numpy(v).requires_grad_()
+              for v in (x, w, a, b) if v is not None]
+    out = fn(*leaves, *([None, None] if a is None else []))
+    grads = torch.autograd.grad(out, leaves, [torch.from_numpy(v)
+                                              for v in (cy, c1, c2)])
+    return out, grads
+
+
+K7_CASES = {
+    # (rows, cin, cout, prologue)
+    "rows256_64x128_plain": (256, 64, 128, False),
+    "rows256_64x128_prologue": (256, 64, 128, True),
+    "rows128_128x64_prologue": (128, 128, 64, True),
+    "rows256_128x128_plain": (256, 128, 128, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_conv1x1_bn_plain_matches_pallas(ref, case):
+    """K7: y, s1, s2, and dx, dw (and da, db with the prologue), the
+    cotangents of s1 and s2 folded in."""
+    rows, cin, cout, pro = K7_CASES[case]
+    x, w, a, b, cy, c1, c2 = _inputs(np.random.RandomState(rows + cin),
+                                     (rows,), cin, cout, pro, (cin, cout))
+    want_out, want_grads = ref["k7"](x, w, a, b, cy, c1, c2)
+    assert hop_ru.supported(rows, cin, cout)
+    out, grads = _port_grads(hop_ru.fused_conv1x1_bn, x, w, a, b, cy, c1, c2)
+    for name, g, wnt in zip(("y", "s1", "s2"), out, want_out):
+        _close(g, wnt, name)
+    for name, g, wnt in zip(("dx", "dw", "da", "db"), grads, want_grads):
+        _close(g, wnt, name)
+
+
+K8_CASES = {
+    # (n, h, w, cin, cout)
+    "n2_8x8_64": (2, 8, 8, 64, 64),
+    "n1_8x16_64x128": (1, 8, 16, 64, 128),
+    "n2_6x5_128x64": (2, 6, 5, 128, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K8_CASES))
+def test_conv3x3_bn_plain_matches_pallas(ref, case):
+    """K8: y, s1, s2, dx, dw, da, db, with a shift b whose relu is not
+    zero, so that the halo is checked to be zero after the prologue."""
+    n, h, wd, cin, cout = K8_CASES[case]
+    x, w9, a, b, cy, c1, c2 = _inputs(np.random.RandomState(n * h * wd),
+                                      (n, h, wd), cin, cout, True,
+                                      (9, cin, cout))
+    assert (np.maximum(b, 0) > 0.1).any()
+    want_out, want_grads = ref["k8"](x, w9, a, b, cy, c1, c2)
+    out, grads = _port_grads(hop_ru.fused_conv3x3_bn, x, w9, a, b, cy, c1,
+                             c2)
+    for name, g, wnt in zip(("y", "s1", "s2"), out, want_out):
+        _close(g, wnt, name)
+    for name, g, wnt in zip(("dx", "dw", "da", "db"), grads, want_grads):
+        _close(g, wnt, name)
+
+
+@pytest.mark.parametrize("rows,c", [(256, 128), (1024, 256)])
+def test_bn_stats_plain_matches_pallas(ref, rows, c):
+    """K9: mean, E[x^2] and the closed-form gradient (a non-centred
+    input, so E[x^2] is not just the variance)."""
+    rng = np.random.RandomState(rows)
+    x = (rng.randn(rows, c) + 1.5).astype(np.float32)
+    g1 = rng.randn(c).astype(np.float32)
+    g2 = rng.randn(c).astype(np.float32)
+    want_out, (want_dx,) = ref["k9"](x, g1, g2)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = hop_bn.bn_stats(xt)
+    (dx,) = torch.autograd.grad(out, [xt], [torch.from_numpy(g1),
+                                            torch.from_numpy(g2)])
+    for name, g, wnt in zip(("mean", "m2"), out, want_out):
+        _close(g, wnt, name)
+    _close(dx, want_dx, "dx")
+
+
+SHAPES_3X3 = [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
+              (256, 14, 14, 256, 256), (256, 7, 7, 512, 512),
+              (2, 16, 16, 64, 64), (2, 8, 8, 128, 128), (8, 4, 4, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_3X3)
+def test_routing_predicates_equal_the_jax_package(ref, shape):
+    """``supported`` and ``supported_3x3`` are copies: the same shapes
+    take the same route in both packages."""
+    n, h, w, cin, cout = shape
+    jru = ref["jru"]
+    assert hop_ru.supported_3x3(*shape) == jru.supported_3x3(*shape)
+    for rows in (n * h * w, n * h * w // 4, 96):
+        assert hop_ru.supported(rows, cin, cout) == jru.supported(rows, cin,
+                                                                  cout)
+        assert hop_bn.supported(rows, cout) == ref["jbn"].supported(rows,
+                                                                    cout)
+
+
+def test_dw_splits_cover_the_rows():
+    """The dw product's split-K chunks are whole 32-row tiles and cover
+    every row exactly."""
+    for rows, cin, cout, taps in [(802816, 64, 256, 1), (12544, 2048, 512, 1),
+                                  (50176, 256, 256, 9), (128, 64, 64, 9),
+                                  (81, 64, 128, 9)]:
+        splits, ksplit = hop_ru.dw_splits(rows, cin, cout, taps, sms=132)
+        assert ksplit % 32 == 0 and splits * ksplit >= rows
+        assert (splits - 1) * ksplit < rows
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The raw CUDA wrappers take only CUDA tensors; the CPU runs the
+    plain versions through the Functions instead."""
+    x = torch.zeros(128, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        hop_ru.conv1x1_bn_fwd_cuda(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        hop_bn.bn_stats_cuda(torch.zeros(8, 128, dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version, bf16
+# ---------------------------------------------------------------------------
+#
+# Tolerances: both sides accumulate in f32 over the same bf16 operands; y,
+# dx (bf16 outputs) to 2 bf16 ulps of the largest element (one rounding
+# each side, and dyc may round the other way where the two f32 sums
+# straddle a bf16 boundary). The f32 sums differ only in summation order
+# (over up to 12,544 rows here) and take chip_smoke.py's limits, relative
+# to the largest element, about five times what it reads on the H100 at
+# ResNet-50's larger shapes: s1, s2, da, db, mean and E[x^2] 2e-5, dw 2e-4.
+BF16_REL = 2.0 ** -7
+SUM_REL = dict(s1=2e-5, s2=2e-5, da=2e-5, db=2e-5, mean=2e-5, m2=2e-5,
+               dw=2e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_case(dev, xs, cin, cout, pro, w_shape, seed):
+    x, w, a, b, cy, c1, c2 = _inputs(np.random.RandomState(seed), xs, cin,
+                                     cout, pro, w_shape)
+
+    def t(v, dt=torch.bfloat16):
+        return None if v is None else torch.from_numpy(v).to(dev, dt)
+    return (t(x), t(w), t(a, torch.float32), t(b, torch.float32), t(cy),
+            t(c1, torch.float32), t(c2, torch.float32))
+
+
+def _card_close(got, want, name):
+    rel = BF16_REL if want.dtype == torch.bfloat16 else SUM_REL[name]
+    err = float((got.float() - want.float()).abs().max())
+    tol = rel * float(want.float().abs().max())
+    assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_conv1x1_bn_kernel_matches_plain(cuda, case):
+    rows, cin, cout, pro = K7_CASES[case]
+    x, w, a, b, cy, c1, c2 = _card_case(cuda, (rows,), cin, cout, pro,
+                                        (cin, cout), 7)
+    got = hop_ru.conv1x1_bn_fwd_cuda(x, w, a, b)
+    want = hop_ru.conv1x1_bn_fwd_reference(x, w, a, b)
+    gotb = hop_ru.conv1x1_bn_bwd_cuda(x, w, a, b, cy, c1, c2)
+    wantb = hop_ru.conv1x1_bn_bwd_reference(x, w, a, b, cy, c1, c2)
+    torch.cuda.synchronize()
+    for name, g, wnt in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
+                            (*got, *gotb), (*want, *wantb)):
+        if wnt is not None:
+            _card_close(g, wnt, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K8_CASES) + ["n1_9x9_64_ragged"])
+def test_conv3x3_bn_kernel_matches_plain(cuda, case):
+    n, h, wd, cin, cout = K8_CASES.get(case, (1, 9, 9, 64, 64))
+    x, w9, a, b, cy, c1, c2 = _card_case(cuda, (n, h, wd), cin, cout, True,
+                                         (9, cin, cout), 11)
+    y, s1, s2 = hop_ru.conv3x3_bn_fwd_cuda(x, w9, a, b)
+    want = hop_ru.conv3x3_bn_fwd_reference(x, w9, a, b)
+    gotb = hop_ru.conv3x3_bn_bwd_cuda(x, w9, a, b, want[0], cy, c1, c2)
+    wantb = hop_ru.conv3x3_bn_bwd_reference(x, w9, a, b, want[0], cy, c1, c2)
+    torch.cuda.synchronize()
+    for name, g, wnt in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
+                            (y, s1, s2, *gotb), (*want, *wantb)):
+        _card_close(g, wnt, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,c", [(256, 128), (12544, 2048), (1000, 256)])
+def test_bn_stats_kernel_matches_plain(cuda, rows, c):
+    x = (torch.randn(rows, c, device=cuda) + 1.5).bfloat16()
+    got = hop_bn.bn_stats_cuda(x)
+    want = hop_bn.bn_stats_reference(x)
+    torch.cuda.synchronize()
+    for name, g, wnt in zip(("mean", "m2"), got, want):
+        _card_close(g, wnt, name)
