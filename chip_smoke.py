@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port (``paddle_tpu_torch``) on one NVIDIA
 H100: the quickest proof that the port builds, runs and is right on the
-card. Run from the repository root with ``python3 chip_smoke.py``.
+card. Run from the repository root with ``python3 chip_smoke.py``;
+``python3 chip_smoke.py --k8-bwd`` builds and runs only K8's backward
+at ResNet-50's three shapes (check, timings, device time by part), the
+quick loop for that kernel.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
 
 1. Device: name, count, ``nvidia-smi`` name and power limit; build the
    kernels from the checkout's sources (one nvcc per CUDA source, all
-   started together, while Triton compiles K6 and K9).
+   four started together, while Triton compiles K6 and K9).
 2. K5 (ragged paged attention, CUDA) against its plain version on the
    same bf16 pool: decode at mixed depths with an idle row, prefill at
    position 0 and 256, a ragged 100-row chunk, and GQA decode.
@@ -37,9 +40,10 @@ the run with a non-zero exit code and no result line:
     K9 (BatchNorm statistics, Triton) against their plain versions at
     ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
     (layer 1's second 1x1, 64 -> 256) and without (layer 4's first,
-    2048 -> 512), K8 at layer 1 (56^2, 64) and layer 3 (14^2, 256), K9
-    at 802,816 x 256 and 12,544 x 2048; then their timings beside a
-    PyTorch call and the bound.
+    2048 -> 512), K8 at layer 1 (56^2, 64), layer 3 (14^2, 256) and
+    layer 2 (28^2, 128), K9 at 802,816 x 256 and 12,544 x 2048; then
+    their timings beside a PyTorch call and the bound, and K8
+    backward's device time by part (dyc, dw, dx, reductions).
 11. One layer-1 bottleneck (256 -> 64 -> 256, 56^2, batch 8, bf16, both
     ResNet flags on): the card (kernels) against the CPU (plain
     versions), and the fused composition against the default one on
@@ -159,10 +163,11 @@ def phase_build():
                                              rms_norm)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         nvcc = [pool.submit(paged_attention.build),
                 pool.submit(flash_attention.build),
-                pool.submit(resnet_unit.build)]
+                pool.submit(resnet_unit.build),
+                pool.submit(resnet_unit.build_conv3x3_bwd)]
         x = torch.ones(8, 4096, device="cuda", dtype=torch.bfloat16)
         rms_norm.rms_norm_cuda(x, x[0], 1e-5)
         bn_stats.bn_stats_cuda(x)
@@ -972,6 +977,7 @@ RU_CASES = [
      dict(rows=12544, cin=2048, cout=512, pro=False)),
     ("conv3x3_layer1_256x56x56x64", "k8", dict(n=256, h=56, w=56, c=64)),
     ("conv3x3_layer3_256x14x14x256", "k8", dict(n=256, h=14, w=14, c=256)),
+    ("conv3x3_layer2_256x28x28x128", "k8", dict(n=256, h=28, w=28, c=128)),
 ]
 K9_CASES = [("rows802816_c256", 802816, 256), ("rows12544_c2048", 12544, 2048)]
 
@@ -1037,7 +1043,7 @@ def _rel_err(got, want):
     return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
-def phase_resnet_kernels():
+def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES):
     """K7 and K8 (forward and backward) and K9 against their plain
     versions at ResNet-50 shapes; the backward versions both take the
     plain forward's y."""
@@ -1045,7 +1051,7 @@ def phase_resnet_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(2024)
     results = {}
-    for name, kind, shape in RU_CASES:
+    for name, kind, shape in cases:
         c = _ru_inputs(gen, kind, shape)
         fwd_k, fwd_p, bwd_k, bwd_p = _ru_fns(kind)
         got = fwd_k(c["x"], c["w"], c["a"], c["b"])
@@ -1071,7 +1077,7 @@ def phase_resnet_kernels():
         results[name] = dict(kind=kind, shape=shape, case=c, y=want[0],
                              errs=errs)
         del got, gotb, wantb
-    for name, rows, ch in K9_CASES:
+    for name, rows, ch in k9_cases:
         x = (torch.randn(rows, ch, device="cuda", generator=gen) * 2
              + 1.5).bfloat16()
         got = bn.bn_stats_cuda(x)
@@ -1148,6 +1154,29 @@ def _ru_library(kind, c, y):
     return fwd, bwd
 
 
+def k8_bwd_parts(bargs, iters=5):
+    """Device ms per launch of each part of K8's backward (dyc, dw, dx,
+    the reductions), from a torch.profiler window over ``iters``
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    ru.conv3x3_bn_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            ru.conv3x3_bn_bwd_cuda(*bargs)
+        torch.cuda.synchronize()
+    parts = {}
+    for key, dev_us in device_events(prof)[0].items():
+        part = next((what or "reductions" for kernel, _, what in K8_BWD_PARTS
+                     if kernel in key), "other")
+        parts[part] = parts.get(part, 0.0) + dev_us / 1e3 / iters
+    return parts
+
+
 def time_resnet_kernels(results):
     from paddle_tpu_torch.ops.hopper import bn_stats as bn
 
@@ -1186,6 +1215,10 @@ def time_resnet_kernels(results):
                         library_ms=time_ms(lib_b), bound_ms=bb,
                         bound_by=byb),
         }
+        if kind == "k8":
+            t["bwd"]["parts"] = k8_bwd_parts(bargs)
+            log(f"[time] k8 bwd {name} device ms per launch by part: "
+                f"{json.dumps(t['bwd']['parts'])}")
         timing[name] = t
         for d, tt in t.items():
             log(f"[time] {kind} {d} {name} ms={tt['ms']} plain_ms="
@@ -1315,14 +1348,23 @@ def _reset_resnet_counts():
         fn.launches = 0
 
 
+# K8's backward kernels (csrc/conv3x3_bn_bwd.cu) by name, with their part;
+# their names hold "conv", so they are matched before cuDNN's keywords
+K8_BWD_PARTS = (("conv3_dyc_kernel", "k8", "backward dyc (elementwise)"),
+                ("conv3_dw_band_kernel", "k8", "backward dw (bands, 9 taps)"),
+                ("conv3_dx_band_kernel", "k8", "backward dx (bands)"),
+                ("conv3_reduce_kernel", "k7_k8_reduce", None))
+
+
 def resnet_family(name):
     """Kernel family of a device kernel name in a ResNet step."""
+    for kernel, fam, _ in K8_BWD_PARTS:
+        if kernel in name:
+            return fam
     for kernel, arg in (("gemm_rows_kernel<", 1), ("gemm_dw_kernel<", 2)):
         if kernel in name:
             taps = int(name.split(kernel)[1].split(",")[arg])
             return "k8" if taps == 9 else "k7"
-    if "dyc_kernel" in name:
-        return "k8"
     if "col_reduce_kernel" in name:
         return "k7_k8_reduce"
     if "bn_stats_" in name:
@@ -1337,19 +1379,22 @@ def resnet_family(name):
 
 
 def resnet_part(name):
-    """Which part of K7/K8 a kernel of resnet_unit.cu is, by its template
-    arguments (``gemm_rows_kernel<BN, TAPS, SIGN, APRO, BTRANS, EPI,
-    EMASK>``, ``gemm_dw_kernel<BM, BN, TAPS, APRO>``), or None."""
+    """Which part of K7/K8 a kernel is: by name for K8's backward, by its
+    template arguments for resnet_unit.cu (``gemm_rows_kernel<BN, TAPS,
+    SIGN, APRO, BTRANS, EPI, EMASK>``, ``gemm_dw_kernel<BM, BN, TAPS,
+    APRO>``); None for other kernels."""
     fam = resnet_family(name)
     if fam not in ("k7", "k8", "k7_k8_reduce"):
         return None
-    if "gemm_rows_kernel<" in name:
+    part = next((what for kernel, _, what in K8_BWD_PARTS
+                 if kernel in name and what), None)
+    if part is not None:
+        what = part
+    elif "gemm_rows_kernel<" in name:
         epi = int(name.split("gemm_rows_kernel<")[1].split(",")[5])
         what = ("forward", "backward dyc", "backward dx")[epi]
     elif "gemm_dw_kernel<" in name:
         what = "backward dw (split-K partials)"
-    elif "dyc_kernel" in name:
-        what = "backward dyc (elementwise)"
     else:
         return "reductions (statistics, da/db, dw)"
     return f"{fam} {what}"
@@ -1496,6 +1541,23 @@ def timed_entry(name, route, source, replaces, launches, max_err, r, shape):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
+def k8_bwd_only():
+    """``--k8-bwd``: build, then K8's backward alone at the main path's
+    shapes (with its forward, which gives it y): the check against the
+    plain version, the timings beside convolution_backward and the
+    bound, and the device time of each part. Prints no result line."""
+    from paddle_tpu_torch.ops.hopper import resnet_unit
+
+    phase_device()
+    for log_text in (resnet_unit.build(), resnet_unit.build_conv3x3_bwd()):
+        for line in log_text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] ptxas: {line.strip()}")
+    cases = [c for c in RU_CASES if c[1] == "k8"]
+    time_resnet_kernels(phase_resnet_kernels(cases, k9_cases=()))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -1504,6 +1566,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if sys.argv[1:] == ["--k8-bwd"]:
+        return k8_bwd_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()
@@ -1554,14 +1618,15 @@ def main() -> int:
     ]
     ru_src = "paddle_tpu_torch/csrc/resnet_unit.cu"
     ru_pallas = "paddle_tpu/ops/pallas/resnet_unit.py"
-    for kname, kind, d, line, err_key in (
-            ("resnet_unit_conv1x1_fwd", "k7", "fwd", 103, "y"),
-            ("resnet_unit_conv1x1_bwd", "k7", "bwd", 201, "dx"),
-            ("resnet_unit_conv3x3_fwd", "k8", "fwd", 354, "y"),
-            ("resnet_unit_conv3x3_bwd", "k8", "bwd", 433, "dx")):
+    for kname, kind, d, line, err_key, source in (
+            ("resnet_unit_conv1x1_fwd", "k7", "fwd", 103, "y", ru_src),
+            ("resnet_unit_conv1x1_bwd", "k7", "bwd", 201, "dx", ru_src),
+            ("resnet_unit_conv3x3_fwd", "k8", "fwd", 354, "y", ru_src),
+            ("resnet_unit_conv3x3_bwd", "k8", "bwd", 433, "dx",
+             "paddle_tpu_torch/csrc/conv3x3_bn_bwd.cu")):
         cases = [c for c, kd, _ in RU_CASES if kd == kind]
         kernels.append(dict(
-            timed_entry(kname, "cuda", ru_src, f"{ru_pallas}:{line}",
+            timed_entry(kname, "cuda", source, f"{ru_pallas}:{line}",
                         resnet[f"{kind}_{d}"],
                         max(ru_errs[c][err_key] for c in cases),
                         ru_times[cases[0]][d], cases[0]),

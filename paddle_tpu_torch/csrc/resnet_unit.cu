@@ -5,22 +5,21 @@
 //   K7 forward  `_fwd_impl` -> `_fwd_kernel`        (resnet_unit_fwd, taps = 1)
 //   K7 backward `_bwd_impl` -> `_bwd_kernel`        (resnet_unit_bwd, taps = 1)
 //   K8 forward  `_conv3_fwd_impl` -> `_conv3_fwd_kernel`  (resnet_unit_fwd, taps = 9)
-//   K8 backward `_conv3_bwd_impl` -> `_conv3_bwd_kernel`  (resnet_unit_bwd, taps = 9)
+// K8's backward (`_conv3_bwd_impl` -> `_conv3_bwd_kernel`) has its own source,
+// conv3x3_bn_bwd.cu, built around bands of whole image rows in shared memory.
 //
 // Function (NHWC rows, bf16 activations and weights, f32 accumulation):
 //   forward   xn = relu(x * a + b) rounded to bf16 (the optional prologue: the
 //             previous BatchNorm's f32 scale/shift), y = conv(xn, w), and the
 //             BatchNorm statistics s1 = sum_rows(y), s2 = sum_rows(y^2) taken
 //             from the f32 accumulator before y is rounded to bf16.
-//   backward  dyc = bf16(dy + gs1 + 2 y gs2) (the statistics' cotangent folded
-//             into dy; K7 recomputes y, K8 reads the saved y), dw = xn^T dyc
-//             (f32), dxn = dyc w^T, and with the prologue du = dxn [u > 0],
-//             dx = bf16(du a), da = sum(du x), db = sum(du).
+//   backward  (K7) dyc = bf16(dy + gs1 + 2 y gs2) (the statistics' cotangent
+//             folded into dy, y recomputed), dw = xn^T dyc (f32), dxn = dyc w^T,
+//             and with the prologue du = dxn [u > 0], dx = bf16(du a),
+//             da = sum(du x), db = sum(du).
 // The 3x3 conv is an implicit GEMM over K = 9 cin: tap t = 3 di + dj reads xn at
 // (i + di - 1, j + dj - 1), and the halo is zero in xn (the prologue is not
-// applied to it), as the Pallas kernel pads after the prologue. Its dxn is the
-// correlation of dyc with the flipped taps: tap t reads dyc at
-// (i - di + 1, j - dj + 1).
+// applied to it), as the Pallas kernel pads after the prologue.
 //
 // Work split. The TPU kernels run their grid in order and carry s1/s2, dw, da
 // and db in VMEM from one grid step to the next. Hopper's CTAs run in parallel
@@ -30,17 +29,15 @@
 //                     CTA (BN = 128, or 64 for 64 channels), 8 warps of 32 x
 //                     BN/2; A is x (forward, with the prologue applied in
 //                     shared memory after the copy lands) or dyc (dx), shifted
-//                     per tap. Epilogues: y + s1/s2 partials; dyc; dx +
-//                     da/db partials; each stages its output tile (and the
+//                     per tap in K8's forward. Epilogues: y + s1/s2 partials;
+//                     dyc; dx + da/db partials; each stages its output tile (and the
 //                     dy or x tile it reads) in shared memory, so device
 //                     memory sees whole 16-byte row pieces.
 //   gemm_dw_kernel    dw partials: a BM x BN tile of [cin, cout] per CTA, one
 //                     tap, one chunk of rows (split-K over M), A = xn^T from
 //                     rows of x through the transposing ldmatrix.
-//   dyc_kernel        K8's dyc from the saved y (elementwise).
 //   col_reduce_kernel out[c] = sum_t part[t][c] in a fixed order.
-// K7 backward is dyc (GEMM recomputing y), dx, dw and two reductions; K8
-// backward is dyc (elementwise), dx, dw and two reductions.
+// K7 backward is dyc (GEMM recomputing y), dx, dw and two reductions.
 //
 // Products go through the tensor cores with mma.sync m16n8k16 (bf16 operands
 // from shared memory through ldmatrix, f32 accumulators in registers); tiles of
@@ -553,26 +550,6 @@ __global__ void __launch_bounds__(kThreads) gemm_dw_kernel(DwArgs p) {
     }
 }
 
-// K8's dyc = bf16(dy + gs1 + 2 y gs2) from the saved y, 8 elements a thread.
-__global__ void dyc_kernel(const bf16* dy, const bf16* y, const float* gs1, const float* gs2,
-                           bf16* dyc, long long total, int N) {
-  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 8;
-  if (i >= total) return;
-  const int c = static_cast<int>(i % N);
-  uint4 dv = *reinterpret_cast<const uint4*>(dy + i);
-  const uint4 yv = *reinterpret_cast<const uint4*>(y + i);
-  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(&dv);
-  const __nv_bfloat162* yy = reinterpret_cast<const __nv_bfloat162*>(&yv);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 df = __bfloat1622float2(d[k]), yf = __bfloat1622float2(yy[k]);
-    const int cc = c + 2 * k;
-    d[k] = __floats2bfloat162_rn(df.x + gs1[cc] + 2.f * yf.x * gs2[cc],
-                                 df.y + gs1[cc + 1] + 2.f * yf.y * gs2[cc + 1]);
-  }
-  *reinterpret_cast<uint4*>(dyc + i) = dv;
-}
-
 // out[c] = sum_{t < T} part[t][c], in a fixed order: each of 16 row groups sums
 // its rows t = ty, ty + 16, ... in turn, then the 16 group sums are added in
 // order. Grid: ceil(C / 32); block (32, 16).
@@ -676,33 +653,22 @@ extern "C" int resnet_unit_fwd(const void* x, const void* w, const float* a, con
   return reduce(part, stats, (M + kBM - 1) / kBM, 2LL * cout, st);
 }
 
-// Backward of K7 (taps = 1) or K8 (taps = 9).
-//   y: K8's saved forward output [M, cout] (unused for K7, which recomputes it).
+// Backward of K7.
 //   dy [M, cout] bf16, gs1/gs2 [cout] f32; scratch dyc [M, cout] bf16,
-//   part_dx [ceil(M / 128), 2, cin] f32, part_dw [splits, taps, cin, cout] f32.
-//   Outputs dx [M, cin] bf16, dw [taps, cin, cout] f32, dadb [2, cin] f32 (da,
+//   part_dx [ceil(M / 128), 2, cin] f32, part_dw [splits, 1, cin, cout] f32.
+//   Outputs dx [M, cin] bf16, dw [1, cin, cout] f32, dadb [2, cin] f32 (da,
 //   db; with a prologue only). splits chunks of ksplit rows (a multiple of 32)
 //   cover M.
 extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, const float* b,
-                               const void* y, const void* dy, const float* gs1, const float* gs2,
-                               void* dyc, void* dx, float* part_dx, float* dadb, float* part_dw,
-                               float* dw, int M, int cin, int cout, int h, int wd, int taps,
-                               int splits, int ksplit, void* stream) {
+                               const void* dy, const float* gs1, const float* gs2, void* dyc,
+                               void* dx, float* part_dx, float* dadb, float* part_dw, float* dw,
+                               int M, int cin, int cout, int splits, int ksplit, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pro = a != nullptr;
-  if ((taps != 1 && taps != 9) || (taps == 9 && (!pro || y == nullptr)) ||
-      (pro && b == nullptr) || ksplit % kBK != 0 ||
-      static_cast<long long>(splits) * ksplit < M)
+  if ((pro && b == nullptr) || ksplit % kBK != 0 || static_cast<long long>(splits) * ksplit < M)
     return static_cast<int>(cudaErrorInvalidValue);
-  // 1. dyc
-  if (taps == 9) {
-    const long long total = static_cast<long long>(M) * cout;
-    const long long threads = total / 8;
-    dyc_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
-        static_cast<const bf16*>(dy), static_cast<const bf16*>(y), gs1, gs2,
-        static_cast<bf16*>(dyc), total, cout);
-    RU_TRY(static_cast<int>(cudaGetLastError()));
-  } else {
+  // 1. dyc, recomputing y
+  {
     RowsArgs p{};
     p.src = static_cast<const bf16*>(x);
     p.w = static_cast<const bf16*>(w);
@@ -710,13 +676,13 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.dy = static_cast<const bf16*>(dy);
     p.gs1 = gs1, p.gs2 = gs2;
     p.out = static_cast<bf16*>(dyc);
-    p.M = M, p.N = cout, p.Ca = cin, p.h = h, p.wd = wd;
+    p.M = M, p.N = cout, p.Ca = cin, p.h = 1, p.wd = 1;
     if (pro)
       RU_TRY((rows_any<1, 1, true, true, kEpiDyc, false>(p, st)));
     else
       RU_TRY((rows_any<1, 1, false, true, kEpiDyc, false>(p, st)));
   }
-  // 2. dx (with the mask, da/db partials) over the flipped taps
+  // 2. dx (with the mask, da/db partials)
   {
     RowsArgs p{};
     p.src = static_cast<const bf16*>(dyc);
@@ -725,10 +691,8 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.xe = static_cast<const bf16*>(x);
     p.out = static_cast<bf16*>(dx);
     p.part = part_dx;
-    p.M = M, p.N = cin, p.Ca = cout, p.h = h, p.wd = wd;
-    if (taps == 9)
-      RU_TRY((rows_any<9, -1, false, false, kEpiDx, true>(p, st)));
-    else if (pro)
+    p.M = M, p.N = cin, p.Ca = cout, p.h = 1, p.wd = 1;
+    if (pro)
       RU_TRY((rows_any<1, 1, false, false, kEpiDx, true>(p, st)));
     else
       RU_TRY((rows_any<1, 1, false, false, kEpiDx, false>(p, st)));
@@ -740,15 +704,13 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.dyc = static_cast<const bf16*>(dyc);
     p.a = a, p.b = b;
     p.part = part_dw;
-    p.M = M, p.Cin = cin, p.N = cout, p.h = h, p.wd = wd, p.ksplit = ksplit;
-    if (taps == 9)
-      RU_TRY((dw_any<9, true>(p, splits, st)));
-    else if (pro)
+    p.M = M, p.Cin = cin, p.N = cout, p.h = 1, p.wd = 1, p.ksplit = ksplit;
+    if (pro)
       RU_TRY((dw_any<1, true>(p, splits, st)));
     else
       RU_TRY((dw_any<1, false>(p, splits, st)));
   }
-  RU_TRY(reduce(part_dw, dw, splits, static_cast<long long>(taps) * cin * cout, st));
+  RU_TRY(reduce(part_dw, dw, splits, static_cast<long long>(cin) * cout, st));
   if (pro) RU_TRY(reduce(part_dx, dadb, (M + kBM - 1) / kBM, 2LL * cin, st));
   return 0;
 }

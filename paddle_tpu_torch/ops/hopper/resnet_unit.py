@@ -5,9 +5,10 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/resnet_unit.py``:
 ``fused_conv1x1_bn`` (K7: ``_fwd_kernel`` via ``_fwd_impl``, ``_bwd_kernel``
 via ``_bwd_impl``) and ``fused_conv3x3_bn`` (K8: ``_conv3_fwd_kernel``,
 ``_conv3_bwd_kernel``). The kernels are CUDA C++ for ``sm_90a`` in
-``paddle_tpu_torch/csrc/resnet_unit.cu``, built with ``nvcc`` on first use
-and called through ``ctypes``; the source's header note says how they
-work.
+``paddle_tpu_torch/csrc/resnet_unit.cu`` (K7, K8's forward) and
+``paddle_tpu_torch/csrc/conv3x3_bn_bwd.cu`` (K8's backward), built with
+``nvcc`` on first use and called through ``ctypes``; each source's header
+note says how its kernels work.
 
 Forward, over NHWC rows: ``xn = relu(x * a + b)`` rounded to x's dtype
 (the optional prologue: the previous BatchNorm's f32 scale and shift),
@@ -52,9 +53,20 @@ import torch.nn.functional as F
 from ._build import build_library
 
 _SOURCES = ["resnet_unit.cu"]
+_CONV3_BWD_SOURCES = ["conv3x3_bn_bwd.cu"]
 _ROW_TILE = 128     # rows of a CTA tile in the kernels' row GEMMs
 _K_TILE = 32        # rows of a split-K chunk must be a multiple of this
 _MAX_ROW_TILES = 65535
+
+# K8's backward works on bands (conv3x3_bn_bwd.cu): 64-channel tiles of
+# 128-byte shared-memory rows, at most 256 positions a band for the dx
+# kernel's two warpgroups, within the shared memory a block may opt into
+# on an H100 less 5 KB for the kernels' static shared memory
+_C3_TILE = 64
+_C3_ROW_BYTES = 128
+_C3_MAX_M = 256
+_C3_SMEM = 232448 - 5120
+_C3_W_BYTES = 9 * _C3_TILE * _C3_TILE * 2
 
 
 # -- routing predicates (copied from the JAX package) -----------------------
@@ -192,16 +204,34 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.resnet_unit_fwd.restype = i
-    lib.resnet_unit_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
+    lib.resnet_unit_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.resnet_unit_bwd.restype = i
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _conv3_bwd_library():
+    path, _ = build_library("conv3x3_bn_bwd", _CONV3_BWD_SOURCES)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_bn_bwd.argtypes = [p] * 14 + [i] * 9 + [p]
+    lib.conv3x3_bn_bwd.restype = i
+    return lib
+
+
 def build() -> str:
-    """Build (or reuse) the kernel library now; returns the compiler log
-    ("" when an earlier build was reused)."""
+    """Build (or reuse) K7's and K8's forward library now; returns the
+    compiler log ("" when an earlier build was reused)."""
     _, log = build_library("resnet_unit", _SOURCES)
     _library()
+    return log
+
+
+def build_conv3x3_bwd() -> str:
+    """Build (or reuse) K8's backward library now; returns the compiler
+    log ("" when an earlier build was reused)."""
+    _, log = build_library("conv3x3_bn_bwd", _CONV3_BWD_SOURCES)
+    _conv3_bwd_library()
     return log
 
 
@@ -273,33 +303,156 @@ def dw_splits(rows, cin, cout, taps, sms):
     return -(-rows // ksplit), ksplit
 
 
-def _launch_bwd(x, w, a, b, y, gy, gs1, gs2, rows, cin, cout, h, wd, taps):
+def _launch_bwd(x, w, a, b, gy, gs1, gs2, rows, cin, cout):
+    """K7's backward: dyc, dx and the split-K dw with their reductions."""
     dev = x.device
     pro = a is not None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, ksplit = dw_splits(rows, cin, cout, taps, sms)
+    splits, ksplit = dw_splits(rows, cin, cout, 1, sms)
     f32 = dict(device=dev, dtype=torch.float32)
     dyc = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
     dx = torch.empty((rows, cin), device=dev, dtype=torch.bfloat16)
     part_dx = (torch.empty((-(-rows // _ROW_TILE), 2, cin), **f32) if pro
                else None)
     dadb = torch.empty((2, cin), **f32) if pro else None
-    part_dw = torch.empty((splits, taps, cin, cout), **f32)
-    dw = torch.empty((taps, cin, cout), **f32)
+    part_dw = torch.empty((splits, 1, cin, cout), **f32)
+    dw = torch.empty((1, cin, cout), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().resnet_unit_bwd(
-            x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), _ptr(y),
-            gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), dyc.data_ptr(),
-            dx.data_ptr(), _ptr(part_dx), _ptr(dadb), part_dw.data_ptr(),
-            dw.data_ptr(), rows, cin, cout, h, wd, taps, splits, ksplit,
-            stream)
+            x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), gy.data_ptr(),
+            gs1.data_ptr(), gs2.data_ptr(), dyc.data_ptr(), dx.data_ptr(),
+            _ptr(part_dx), _ptr(dadb), part_dw.data_ptr(), dw.data_ptr(),
+            rows, cin, cout, splits, ksplit, stream)
     if rc != 0:
         raise RuntimeError(f"resnet_unit backward launch failed: CUDA error "
                            f"{rc}")
     if pro:
         return dx, dw, dadb[0], dadb[1]
     return dx, dw, None, None
+
+
+# -- K8's backward: the band plan ---------------------------------------------
+#
+# conv3x3_bn_bwd.cu mirrors these: a band is ``rows`` image rows of one
+# image (a piece of ``cols`` columns of them when the image is wide), kept
+# in shared memory with a halo row above and below and a halo column on
+# each side, so a band row holds ``cols + 2`` positions. Bands are
+# numbered image-major, then down the image, then across it, and each CTA
+# of a persistent grid takes a contiguous range of them.
+
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def conv3_band_geometry(rows, cols):
+    """(pitch, computed, dx_computed, window) of a band of ``rows`` x
+    ``cols``: the positions of a band row (``cols + 2``), the positions
+    the dw kernel sums (``rows * pitch`` up to a multiple of 16) and the
+    dx kernel computes (up to a multiple of 64, wgmma's M; the pad
+    columns are computed and discarded), and the dyc window's slots
+    (``dx_computed`` plus a halo row above and below and two more; the
+    kernels add seven zero slots ahead of the window's box)."""
+    pitch = cols + 2
+    dx_computed = _up(rows * pitch, 64)
+    return (pitch, _up(rows * pitch, 16), dx_computed,
+            dx_computed + 2 * pitch + 2)
+
+
+def conv3_smem(rows, cols, cout):
+    """Dynamic shared memory (dw kernel, dx kernel) in bytes, with 1 KB to
+    align the start to 1024 bytes. A dyc window is chunk-major: 8 chunks of
+    ``window + 7`` 16-byte slots, each rounded up to 128 bytes. dw keeps two
+    stages of xn rows and a window, each stage rounded up to 1 KB; dx the
+    nine 64 x 64 weight tiles (one resident copy at cout = 64, else one per
+    stage) and two windows."""
+    _, computed, _, window = conv3_band_geometry(rows, cols)
+    chunk = _up((window + 7) * 16, 128)
+    dw = 1024 + 2 * _up(computed * _C3_ROW_BYTES + 8 * chunk, 1024)
+    dx = (1024 + (2 if cout > _C3_TILE else 1) * _C3_W_BYTES
+          + 2 * 8 * chunk)
+    return dw, dx
+
+
+def _band_fits(rows, cols, cout):
+    return conv3_band_geometry(rows, cols)[2] <= _C3_MAX_M and \
+        max(conv3_smem(rows, cols, cout)) <= _C3_SMEM
+
+
+def conv3_band_plan(h, w, cout):
+    """(rows, cols) of K8's backward bands for ``h x w`` images. Whole
+    image rows when they fit (the widest rows split into the fewest even
+    pieces that do); of the row counts that fit, the one whose bands
+    cost the dx kernel the fewest positions (each band computes whole
+    64-position tiles, plus ~64 positions' worth of halo and set-up),
+    the larger on a tie, evened out over the image: 56 rows of 56 -> 14
+    bands of 4, 28 of 28 at 128 channels -> 5 of 6 (the last of 4), 14
+    of 14 -> 1 of 14."""
+    pieces = 1
+    while True:
+        cols = -(-w // pieces)
+        fits = [r for r in range(1, min(h, _C3_MAX_M // (cols + 2)) + 1)
+                if _band_fits(r, cols, cout)]
+        if fits:
+            best = min(fits, key=lambda r: (
+                -(-h // r) * (conv3_band_geometry(r, cols)[2] + 64), -r))
+            return -(-h // -(-h // best)), cols
+        pieces += 1
+
+
+def conv3_bands(n, h, w, rows, cols):
+    """Every band as (image, i0, rows here, j0, cols here), in the
+    kernels' order; the last band down (across) an image may be short."""
+    for img in range(n):
+        for i0 in range(0, h, rows):
+            for j0 in range(0, w, cols):
+                yield img, i0, min(rows, h - i0), j0, min(cols, w - j0)
+
+
+def group_bands(grp, groups, bands):
+    """The bands of CTA ``grp`` of ``groups``: a contiguous range, sizes
+    differing by at most one."""
+    return range(grp * bands // groups, (grp + 1) * bands // groups)
+
+
+def conv3_work_split(n, h, w, cin, cout, sms):
+    """K8's backward work split: the band plan and the CTAs per channel
+    tile of each product, so that each grid fills the SMs once (dw: one
+    CTA per (cin, cout) tile and group; dx: per cin tile and group)."""
+    rows, cols = conv3_band_plan(h, w, cout)
+    bands = n * -(-h // rows) * -(-w // cols)
+    dw_tiles = (cin // _C3_TILE) * (cout // _C3_TILE)
+    dx_tiles = cin // _C3_TILE
+    return dict(rows=rows, cols=cols, bands=bands,
+                dw_groups=max(1, min(bands, sms // dw_tiles)),
+                dx_groups=max(1, min(bands, sms // dx_tiles)))
+
+
+def _launch_conv3_bwd(x, w9, a, b, y, gy, gs1, gs2):
+    n, h, wd, cin = x.shape
+    cout = w9.shape[2]
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = conv3_work_split(n, h, wd, cin, cout, sms)
+    f32 = dict(device=dev, dtype=torch.float32)
+    dyc = torch.empty((n, h, wd, cout), device=dev, dtype=torch.bfloat16)
+    dx = torch.empty((n, h, wd, cin), device=dev, dtype=torch.bfloat16)
+    part_dw = torch.empty((plan["dw_groups"], 9, cin, cout), **f32)
+    part_dx = torch.empty((plan["dx_groups"], 2, cin), **f32)
+    dw = torch.empty((9, cin, cout), **f32)
+    dadb = torch.empty((2, cin), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _conv3_bwd_library().conv3x3_bn_bwd(
+            x.data_ptr(), w9.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+            dyc.data_ptr(), dx.data_ptr(), part_dw.data_ptr(),
+            part_dx.data_ptr(), dw.data_ptr(), dadb.data_ptr(), n, h, wd,
+            cin, cout, plan["rows"], plan["cols"], plan["dw_groups"],
+            plan["dx_groups"], stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_bn_bwd launch failed: CUDA error {rc}")
+    return dx, dw, dadb[0], dadb[1]
 
 
 def conv1x1_bn_fwd_cuda(x2d, w, a=None, b=None):
@@ -334,8 +487,7 @@ def conv1x1_bn_bwd_cuda(x2d, w, a, b, gy, gs1, gs2):
                          f"match y [{rows}, {cout}]")
     _check_cuda(dict(x=x2d, w=w, a=a, b=b, gy=gy, gs1=gs1, gs2=gs2))
     _check_channels(rows, cin, cout)
-    out = _launch_bwd(x2d, w, a, b, None, gy, gs1, gs2, rows, cin, cout, 1,
-                      1, 1)
+    out = _launch_bwd(x2d, w, a, b, gy, gs1, gs2, rows, cin, cout)
     conv1x1_bn_bwd_cuda.launches += 1
     return out
 
@@ -368,8 +520,9 @@ conv3x3_bn_fwd_cuda.launches = 0
 
 def conv3x3_bn_bwd_cuda(x, w9, a, b, y, gy, gs1, gs2):
     """Launch K8's backward (CUDA, bfloat16) from the saved ``y``: the
-    dyc, dx and split-K dw kernels and their reductions, counted as one
-    launch. Same contract as :func:`conv3x3_bn_bwd_reference`."""
+    dyc kernel, the band kernels for dw and dx and their reductions
+    (``csrc/conv3x3_bn_bwd.cu``), counted as one launch. Same contract as
+    :func:`conv3x3_bn_bwd_reference`."""
     _check_3x3(x, w9)
     n, h, wd, cin = x.shape
     cout = w9.shape[2]
@@ -381,10 +534,9 @@ def conv3x3_bn_bwd_cuda(x, w9, a, b, y, gy, gs1, gs2):
     _check_cuda(dict(x=x, w=w9, a=a, b=b, y=y, gy=gy, gs1=gs1, gs2=gs2),
                 prologue_needed=True)
     _check_channels(n * h * wd, cin, cout)
-    dx, dw, da, db = _launch_bwd(x, w9, a, b, y, gy, gs1, gs2, n * h * wd,
-                                 cin, cout, h, wd, 9)
+    out = _launch_conv3_bwd(x, w9, a, b, y, gy, gs1, gs2)
     conv3x3_bn_bwd_cuda.launches += 1
-    return dx.reshape(n, h, wd, cin), dw, da, db
+    return out
 
 
 conv3x3_bn_bwd_cuda.launches = 0

@@ -183,6 +183,94 @@ def test_dw_splits_cover_the_rows():
         assert (splits - 1) * ksplit < rows
 
 
+def _window_pos(h, w, band, pitch, slot):
+    """The image position whose dyc window ``slot`` of ``band`` holds, or
+    None where it is zero, as conv3x3_bn_bwd.cu fills it: slot v holds
+    band position v - 1 = rr pitch + cc, image (i0 - 1 + rr, j0 - 1 +
+    cc), up to one halo row and column past the band."""
+    img, i0, rows, j0, cols = band
+    if slot < 1:
+        return None
+    rr, cc = divmod(slot - 1, pitch)
+    i, j = i0 - 1 + rr, j0 - 1 + cc
+    if rr > rows + 1 or cc > cols + 1 or not (0 <= i < h and 0 <= j < w):
+        return None
+    return img, i, j
+
+
+def _output_pos(band, pitch, k):
+    """The image position of output slot ``k`` (band row k // pitch,
+    column k % pitch - 1), or None on a pad column or past the band, as
+    the kernels' ``interior_pos``."""
+    img, i0, rows, j0, cols = band
+    r, cc = divmod(k, pitch)
+    if r >= rows or not 1 <= cc <= cols:
+        return None
+    return img, i0 + r, j0 + cc - 1
+
+
+@pytest.mark.parametrize("w", [56, 28, 14, 9])
+def test_conv3_bands_cover_every_position_once(w):
+    """K8's backward bands: the plan's, rows that do not divide the
+    height, and rows cut into two column pieces all cover every position
+    of every image exactly once, and every tap of every output slot
+    reads the window slot holding dyc at (i - di + 1, j - dj + 1), or a
+    zero slot outside the image."""
+    n = 2
+    for h, rows, cols in ((w, *hop_ru.conv3_band_plan(w, w, 64)),
+                          (w + 3, 5, w), (w, 3, -(-w // 2))):
+        pitch, computed, dx_computed, window = hop_ru.conv3_band_geometry(
+            rows, cols)
+        assert computed <= dx_computed
+        bands = list(hop_ru.conv3_bands(n, h, w, rows, cols))
+        seen = {}
+        for band in bands:
+            assert 1 <= band[2] <= rows and 1 <= band[4] <= cols
+            for k in range(dx_computed):
+                pos = _output_pos(band, pitch, k)
+                if pos is None:
+                    continue
+                seen[pos] = seen.get(pos, 0) + 1
+                img, i, j = pos
+                for t in range(9):
+                    di, dj = divmod(t, 3)
+                    slot = k + (2 - di) * pitch + (2 - dj)
+                    assert 0 <= slot < window
+                    assert k < computed
+                    ii, jj = i - di + 1, j - dj + 1
+                    want = ((img, ii, jj) if 0 <= ii < h and 0 <= jj < w
+                            else None)
+                    assert _window_pos(h, w, band, pitch, slot) == want
+        assert sorted(seen) == [(img, i, j) for img in range(n)
+                                for i in range(h) for j in range(w)]
+        assert set(seen.values()) == {1}
+        for groups in (1, 7, len(bands)):
+            got = [b for g in range(groups)
+                   for b in hop_ru.group_bands(g, groups, len(bands))]
+            assert got == list(range(len(bands)))
+
+
+@pytest.mark.parametrize("shape", [(56, 56, 64, 64), (28, 28, 128, 128),
+                                   (14, 14, 256, 256), (9, 9, 64, 128),
+                                   (4, 300, 64, 64), (4, 300, 64, 128),
+                                   (4, 1650, 64, 64), (16, 64, 512, 512)])
+def test_conv3_band_plan_fits_the_kernels(shape):
+    """The plan's bands fit the dx kernel's 256 positions and both
+    kernels' shared memory, wide rows split into even column pieces, and
+    the work split fills 132 SMs at most once per channel tile."""
+    h, w, cin, cout = shape
+    rows, cols = hop_ru.conv3_band_plan(h, w, cout)
+    _, _, dx_computed, _ = hop_ru.conv3_band_geometry(rows, cols)
+    assert 1 <= rows <= h and 1 <= cols <= w and dx_computed <= 256
+    assert max(hop_ru.conv3_smem(rows, cols, cout)) <= 232448 - 5120
+    assert -(-w // -(-w // cols)) == cols   # even pieces
+    split = hop_ru.conv3_work_split(256, h, w, cin, cout, sms=132)
+    assert split["bands"] == 256 * -(-h // rows) * -(-w // cols)
+    assert split["dw_groups"] * max(1, (cin // 64) * (cout // 64)) <= max(
+        132, (cin // 64) * (cout // 64))
+    assert 1 <= split["dx_groups"] <= split["bands"]
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The raw CUDA wrappers take only CUDA tensors; the CPU runs the
     plain versions through the Functions instead."""
@@ -264,6 +352,34 @@ def test_conv3x3_bn_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     for name, g, wnt in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
                             (y, s1, s2, *gotb), (*want, *wantb)):
+        _card_close(g, wnt, name)
+
+
+K8_BWD_CARD_CASES = {
+    # (n, h, w, cin, cout): K8's backward bands on ragged and wide images
+    # (a 9-row band, two column pieces of 150 or four of 75) and at the
+    # main path's three widths
+    "n1_9x9_64x128": (1, 9, 9, 64, 128),
+    "n1_9x9_128x64": (1, 9, 9, 128, 64),
+    "n1_4x300_64": (1, 4, 300, 64, 64),
+    "n1_4x300_64x128": (1, 4, 300, 64, 128),
+    "n2_56x56_64": (2, 56, 56, 64, 64),
+    "n2_28x28_128": (2, 28, 28, 128, 128),
+    "n2_14x14_256": (2, 14, 14, 256, 256),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K8_BWD_CARD_CASES))
+def test_conv3x3_bn_bwd_bands_match_plain(cuda, case):
+    n, h, wd, cin, cout = K8_BWD_CARD_CASES[case]
+    x, w9, a, b, cy, c1, c2 = _card_case(cuda, (n, h, wd), cin, cout, True,
+                                         (9, cin, cout), 13)
+    y = hop_ru.conv3x3_bn_fwd_reference(x, w9, a, b)[0]
+    got = hop_ru.conv3x3_bn_bwd_cuda(x, w9, a, b, y, cy, c1, c2)
+    want = hop_ru.conv3x3_bn_bwd_reference(x, w9, a, b, y, cy, c1, c2)
+    torch.cuda.synchronize()
+    for name, g, wnt in zip(("dx", "dw", "da", "db"), got, want):
         _card_close(g, wnt, name)
 
 
