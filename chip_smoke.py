@@ -4,7 +4,11 @@ H100: the quickest proof that the port builds, runs and is right on the
 card. Run from the repository root with ``python3 chip_smoke.py``;
 ``python3 chip_smoke.py --k8-bwd`` builds and runs only K8's backward
 at ResNet-50's three shapes (check, timings, device time by part), the
-quick loop for that kernel.
+quick loop for that kernel. ``python3 chip_smoke.py --k5`` does the same
+for K5 at all its cases (check, timings, device ms of its split and
+merge kernels, host microseconds per call, both bodies at each span
+widths); ``--k5 --root DIR`` runs it on the port of another checkout
+(an earlier commit's, unpacked into DIR) for a comparison on one card.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -14,7 +18,10 @@ the run with a non-zero exit code and no result line:
    four started together, while Triton compiles K6 and K9).
 2. K5 (ragged paged attention, CUDA) against its plain version on the
    same bf16 pool: decode at mixed depths with an idle row, prefill at
-   position 0 and 256, a ragged 100-row chunk, and GQA decode.
+   position 0 and 256, a ragged 100-row chunk, GQA decode, decode at
+   phase 7's depths, rows whose horizon ends one column before, on and
+   after a span boundary with the full table and an idle row, and an f32
+   pool; two calls give equal bits (the fixed-order merge).
 3. K6 (RMSNorm forward, Triton) against its plain version, bf16; the
    RMSNorm autograd Function's dx/dw on the card against plain autograd.
 4. The flash-attention forward, dq and dkv kernels (CUDA) against their
@@ -28,7 +35,9 @@ the run with a non-zero exit code and no result line:
 7. Serving at full Llama-2-7B (bf16, 32 layers): 8 requests through the
    engine; throughput, TTFT/TPOT, peak memory, exact launch counts; then
    a short torch.profiler window: device time by kernel family and the
-   device's idle share.
+   device's idle share; then one prefill and one decode-only dispatch
+   from the window replayed under the profiler, by family and with K5's
+   split and merge kernels apart.
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
    the CPU (plain versions), then a 3-step TrainStep loss trajectory.
@@ -62,8 +71,10 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +151,34 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_ms_graph(fn, iters=20, replays=5):
+    """Mean milliseconds of ``fn`` on the card per call: ``iters`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events. For a call shorter than its own host enqueue, back-to-back
+    timing (:func:`time_ms`) measures the host; a replay leaves the
+    host's launch cost out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 # -- phase 1 ------------------------------------------------------------------
 
 def phase_device():
@@ -187,16 +226,18 @@ def phase_build():
 
 # -- phase 2 and 5: K5 --------------------------------------------------------
 
-def k5_case(gen, *, b, s, h, kv, d, bs, max_blocks, positions, idle=()):
-    """Seeded bf16 q and pool with per-row block tables covering each
-    row's context; idle rows read scratch block 0 at position 0."""
+def k5_case(gen, *, b, s, h, kv, d, bs, max_blocks, positions, idle=(),
+            dtype=torch.bfloat16):
+    """Seeded q and pool (bf16 unless said) with per-row block tables
+    covering each row's context; idle rows read scratch block 0 at
+    position 0."""
     dev = torch.device("cuda")
     num_blocks = 1 + b * max_blocks
-    q = torch.randn(b, s, h, d, device=dev, generator=gen).bfloat16()
+    q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
     kbuf = torch.randn(num_blocks, bs, kv, d, device=dev,
-                       generator=gen).bfloat16()
+                       generator=gen).to(dtype)
     vbuf = torch.randn(num_blocks, bs, kv, d, device=dev,
-                       generator=gen).bfloat16()
+                       generator=gen).to(dtype)
     perm = torch.randperm(num_blocks - 1, device=dev, generator=gen) + 1
     tables = torch.zeros(b, max_blocks, dtype=torch.int32, device=dev)
     for i, p in enumerate(positions):
@@ -251,61 +292,233 @@ def k5_library_fn(c):
     return lambda: sdpa(qt, k, v, attn_mask=mask)
 
 
-def phase_k5():
-    from paddle_tpu_torch.ops.hopper.paged_attention import (
-        paged_attend_cuda, paged_attend_reference)
+def serving_depths():
+    """Decode positions at phase 7's depths: its 8 seeded prompt lengths
+    (128-512) half way through their 64 new tokens."""
+    lengths = np.random.default_rng(7).integers(128, 513, 8)
+    return (lengths + 32).tolist()
 
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+
+def k5_cases(gen):
+    """Every K5 case: name -> inputs."""
     mb = 4096 // 16
-    cases = {
-        "decode_b8_h32": k5_case(gen, b=8, s=1, h=32, kv=32, d=128, bs=16,
-                                 max_blocks=mb, positions=DECODE_POSITIONS,
-                                 idle=(0,)),
-        "prefill_s128_pos0": k5_case(gen, b=1, s=128, h=32, kv=32, d=128,
-                                     bs=16, max_blocks=mb, positions=[0]),
-        "prefill_s128_pos256": k5_case(gen, b=1, s=128, h=32, kv=32, d=128,
-                                       bs=16, max_blocks=mb, positions=[256]),
-        "ragged_s100": k5_case(gen, b=2, s=100, h=32, kv=32, d=128, bs=16,
-                               max_blocks=mb, positions=[37, 300]),
+    mha = dict(h=32, kv=32, d=128, bs=16, max_blocks=mb)
+    return {
+        "decode_b8_h32": k5_case(gen, b=8, s=1, positions=DECODE_POSITIONS,
+                                 idle=(0,), **mha),
+        "prefill_s128_pos0": k5_case(gen, b=1, s=128, positions=[0], **mha),
+        "prefill_s128_pos256": k5_case(gen, b=1, s=128, positions=[256],
+                                       **mha),
+        "ragged_s100": k5_case(gen, b=2, s=100, positions=[37, 300], **mha),
         "gqa_decode_h64_kv8": k5_case(gen, b=8, s=1, h=64, kv=8, d=128,
                                       bs=16, max_blocks=mb,
                                       positions=DECODE_POSITIONS, idle=(0,)),
+        "decode_serving_depths": k5_case(gen, b=8, s=1,
+                                         positions=serving_depths(), **mha),
+        # horizons one column before, on and after the span boundaries at
+        # 256 and 512 columns, the full table, an idle row
+        "decode_split_edges": k5_case(
+            gen, b=8, s=1, positions=[254, 255, 256, 510, 511, 512, 4095, 0],
+            idle=(7,), **mha),
+        "decode_b8_full_table": k5_case(gen, b=8, s=1, positions=[4095] * 8,
+                                        **mha),
+        "decode_b8_h32_f32": k5_case(gen, b=8, s=1,
+                                     positions=DECODE_POSITIONS, idle=(0,),
+                                     dtype=torch.float32, **mha),
     }
+
+
+def k5_check(name, got, want):
+    """Max abs error of a K5 output against the plain version; fails
+    outside K5_ATOL + K5_RTOL * |want| or on a non-finite value."""
+    check(bool(torch.isfinite(got).all()), f"K5 {name}: non-finite")
+    err = (got - want).abs()
+    ok = bool((err <= K5_ATOL + K5_RTOL * want.abs()).all())
+    check(ok, f"K5 {name}: kernel disagrees with the plain version "
+          f"(max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def phase_k5():
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
-    for name, c in cases.items():
+    for name, c in k5_cases(gen).items():
         args = (c["q"], c["kbuf"], c["vbuf"], c["tables"], c["positions"])
         kw = dict(kv_heads=c["kv"], head_dim=c["d"])
-        got = paged_attend_cuda(*args, **kw)
-        want = paged_attend_reference(*args, **kw)
+        got = pa.paged_attend_cuda(*args, **kw)
+        want = pa.paged_attend_reference(*args, **kw)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K5 {name}: non-finite")
-        err = (got - want).abs()
-        max_err = float(err.max())
-        ok = bool((err <= K5_ATOL + K5_RTOL * want.abs()).all())
+        max_err = k5_check(name, got, want)
         log(f"[k5] {name} shape=q{tuple(c['q'].shape)} "
-            f"pool{tuple(c['kbuf'].shape)} max_abs_err={max_err} "
-            f"tol=atol {K5_ATOL} rtol {K5_RTOL} ok={ok}")
-        check(ok, f"K5 {name}: kernel disagrees with the plain version")
+            f"pool{tuple(c['kbuf'].shape)} {c['q'].dtype} "
+            f"max_abs_err={max_err} tol=atol {K5_ATOL} rtol {K5_RTOL} ok=True")
         results[name] = dict(case=c, args=args, kw=kw, max_err=max_err)
+    # the merge sums each row's spans in a fixed order: equal bits twice
+    r = results["decode_b8_h32"]
+    first = pa.paged_attend_cuda(*r["args"], **r["kw"])
+    again = pa.paged_attend_cuda(*r["args"], **r["kw"])
+    check(torch.equal(first, again), "K5 decode_b8_h32: two calls differ")
+    log("[k5] decode_b8_h32 bitwise repeatable=True")
     return results
 
 
-def time_k5(results):
+def time_k5(results, keep=False):
     from paddle_tpu_torch.ops.hopper.paged_attention import (
         paged_attend_cuda, paged_attend_reference)
 
     for name, r in results.items():
         args, kw = r["args"], r["kw"]
-        r["ms"] = time_ms(lambda: paged_attend_cuda(*args, **kw))
+        # K5 and SDPA take less card time than their host enqueue: each is
+        # timed from CUDA-graph replays, the host's cost apart (k5_host_us)
+        r["ms"] = time_ms_graph(lambda: paged_attend_cuda(*args, **kw))
         r["plain_ms"] = time_ms(lambda: paged_attend_reference(*args, **kw),
                                 iters=5, warmup=1)
-        r["library_ms"] = time_ms(k5_library_fn(r["case"]))
+        r["library_ms"] = time_ms_graph(k5_library_fn(r["case"]))
         r["bound_ms"], r["bound_by"] = k5_bound(r["case"])
         log(f"[time] k5 {name} ms={r['ms']} plain_ms={r['plain_ms']} "
             f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} "
             f"({r['bound_by']}) bound_share={r['bound_ms'] / r['ms']}")
-        del r["case"], r["args"]     # the pools: ~0.5 GB per case
+        if not keep:
+            del r["case"], r["args"]     # the pools: ~0.5 GB per case
     torch.cuda.empty_cache()
+
+
+def k5_entry(launches, results):
+    """The kernels line's K5 entry: decode_b8_h32 with every other case
+    under ``other_shapes``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return dict(
+        kernel_entry("paged_attention", "cuda",
+                     "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "paddle_tpu/ops/pallas/paged_attention.py:256",
+                     launches, results, "decode_b8_h32"),
+        other_shapes={n: dict({k: r[k] for k in keys},
+                              max_abs_err=r["max_err"])
+                      for n, r in results.items() if n != "decode_b8_h32"})
+
+
+def k5_by_kernel(kernels, n):
+    """K5's device ms per call (``n`` calls) by kernel and template, from
+    :func:`device_events`' kernel dict."""
+    parts = {}
+    for key, us in kernels.items():
+        found = re.search(r"paged_attend_kernel\w*(<[^>]*>)?", key)
+        if found:
+            parts[found.group(0)] = parts.get(found.group(0), 0.0) + us / 1e3 / n
+    return parts
+
+
+def k5_parts(results, calls=10):
+    """Device ms per call of K5's split and merge kernels at each case,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
+
+    for name, r in results.items():
+        paged_attend_cuda(*r["args"], **r["kw"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                paged_attend_cuda(*r["args"], **r["kw"])
+            torch.cuda.synchronize()
+        kernels, _ = device_events(prof)
+        log(f"[k5-parts] {name} device_ms_per_call="
+            f"{json.dumps(k5_by_kernel(kernels, calls))}")
+
+
+def k5_host_us(results, calls=100, rounds=5):
+    """Host microseconds per wrapper call (enqueue only: the calls run
+    back to back without a synchronise, well inside the launch queue),
+    ``rounds`` rounds per case taken in turns; prints each round."""
+    from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
+
+    names = ("decode_b8_h32", "decode_serving_depths", "prefill_s128_pos256")
+    rounds_us = {n: [] for n in names}
+    for _ in range(rounds):
+        for name in names:
+            r = results[name]
+            for _ in range(5):
+                paged_attend_cuda(*r["args"], **r["kw"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                paged_attend_cuda(*r["args"], **r["kw"])
+            rounds_us[name].append((time.perf_counter() - t0) * 1e6 / calls)
+            torch.cuda.synchronize()
+    for name, us in rounds_us.items():
+        log(f"[k5-host] {name} host_us_per_call min={min(us)} "
+            f"median={sorted(us)[len(us) // 2]} rounds={us}")
+
+
+def k5_host_parts(results, calls=100):
+    """Host microseconds of each part of a wrapper call at decode_b8_h32
+    (the least of 5 rounds of ``calls`` back-to-back calls, enqueue
+    only): the checks, one allocation, the stream lookup, and the
+    library call (both kernels' launches)."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    r = results["decode_b8_h32"]
+    q, kbuf, vbuf, tables, pos = r["args"]
+    kv, d = r["kw"]["kv_heads"], r["kw"]["head_dim"]
+    b, s, h, _ = q.shape
+    n = b * s * h * d
+    buf = torch.empty(n * 40, device=q.device, dtype=torch.float32)
+    lib = pa._library()
+
+    def launch():
+        lib.paged_attend_launch(
+            q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), tables.data_ptr(),
+            pos.data_ptr(), buf.data_ptr(), buf.data_ptr() + n * 4, b, s, h,
+            kv, d, kbuf.shape[1], tables.shape[1], 1, d ** -0.5, 0, 0,
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+
+    parts = {
+        "check": lambda: pa._check(q, kbuf, vbuf, tables, pos, kv, d),
+        "empty": lambda: torch.empty(n * 40, device=q.device,
+                                     dtype=torch.float32),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(q.device.index),
+        "library_call": launch,
+    }
+    us = {}
+    for name, fn in parts.items():
+        for _ in range(5):          # rounds of enqueue only; the least
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t = (time.perf_counter() - t0) * 1e6 / calls
+            torch.cuda.synchronize()
+            us[name] = min(us.get(name, t), t)
+    log(f"[k5-host] parts_us_per_call={json.dumps(us)}")
+
+
+def k5_sweep(results, widths=(0, 64, 128, 256, 512)):
+    """Each case through both bodies (the tensor cores for bf16/f16
+    only) at each span width (0: the kernel's own choice): checked
+    against the plain version, timed. The wrapper's body is marked."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    for name, r in results.items():
+        q = r["args"][0]
+        kv = r["kw"]["kv_heads"]
+        want = pa.paged_attend_reference(*r["args"], **r["kw"])
+        chosen = pa._tensor_cores(q.dtype, q.shape[1], q.shape[2] // kv)
+        bodies = (False,) if q.dtype == torch.float32 else (False, True)
+        for tc in bodies:
+            for w in widths:
+                call = functools.partial(
+                    pa._launch, *r["args"], kv, r["kw"]["head_dim"],
+                    tensor_cores=tc, split_cols=w)
+                err = k5_check(f"{name} sweep", call(), want)
+                log(f"[k5-sweep] {name} body={'tc' if tc else 'cc'} "
+                    f"split_cols={w or 'chosen'} ms={time_ms_graph(call)} "
+                    f"max_abs_err={err}"
+                    f"{' (the wrapper body)' if tc == chosen else ''}")
 
 
 # -- phase 3 and 5: K6 --------------------------------------------------------
@@ -664,6 +877,7 @@ def phase_serving():
     return k5, k6
 
 
+# K5's family: its split kernels (paged_attend_kernel_cc, _tc) and merge
 KERNEL_FAMILIES = (("k5_paged_attention", ("paged_attend_kernel",)),
                    ("k6_rms_norm", ("rms_norm_fwd",)),
                    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")))
@@ -712,7 +926,9 @@ def profile_window(engine, vocab, steps=4):
     then ``steps`` more under torch.profiler (whose own host cost makes
     its wall time useless). Prints device time per dispatch by kernel
     family and the device's idle share: 1 - device time per dispatch
-    (profiled steps) / wall time per dispatch (unprofiled steps)."""
+    (profiled steps) / wall time per dispatch (unprofiled steps). Then
+    the same by dispatch kind (:func:`profile_dispatch_kinds`) once the
+    window's requests have finished."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(11)
@@ -722,11 +938,28 @@ def profile_window(engine, vocab, steps=4):
     for _ in range(2):
         engine.step()
     torch.cuda.synchronize()
+    captured = {}
+    dispatch = engine._dispatch
+
+    def capturing_dispatch(ids, positions, lengths, block_tables):
+        # the fullest decode batch and the latest full prefill chunk
+        if ids.shape[0] == engine.max_slots:
+            kind, key = "decode", (int((lengths > 0).sum()),
+                                   int(positions.sum()))
+        else:
+            kind, key = "prefill", (int(lengths[0]), int(positions[0]))
+        if key > captured.get(kind, ((-1, -1),))[0]:
+            captured[kind] = (key, [a.copy() for a in (ids, positions,
+                                                       lengths, block_tables)])
+        return dispatch(ids, positions, lengths, block_tables)
+
+    engine._dispatch = capturing_dispatch
     d0, t0 = engine.dispatches, time.perf_counter()
     for _ in range(steps):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / (engine.dispatches - d0)
+    engine._dispatch = dispatch
     d0 = engine.dispatches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -740,7 +973,38 @@ def profile_window(engine, vocab, steps=4):
         f"device_busy_ms={busy_ms} device_idle_share={1 - busy_ms / wall_ms}"
         f" ({n_prof} profiled dispatches)")
     log(f"[profile] device_ms_per_dispatch_by_family={json.dumps(device_ms)}")
+    engine._dispatch = capturing_dispatch
     engine.run()
+    engine._dispatch = dispatch
+    profile_dispatch_kinds(engine, captured)
+
+
+def profile_dispatch_kinds(engine, captured, reps=3):
+    """Device ms of one prefill dispatch and of one decode-only dispatch,
+    each replayed ``reps`` times under torch.profiler from the arguments
+    captured in the window and the run after it (the latest full prefill
+    chunk, the fullest decode batch): by kernel family, and K5's split
+    and merge kernels apart. The requests have finished, so what a
+    replay writes into their freed blocks reaches nothing live."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for kind in ("prefill", "decode"):
+        check(kind in captured, f"no {kind} dispatch in the window")
+        (live, _), args = captured[kind]
+        engine._dispatch(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                engine._dispatch(*args)
+            torch.cuda.synchronize()
+        device_ms = device_ms_by_family(prof, KERNEL_FAMILIES, reps)
+        k5 = k5_by_kernel(device_events(prof)[0], reps)
+        log(f"[profile] {kind} dispatch (ids {tuple(args[0].shape)}, "
+            f"{live} {'live rows' if kind == 'decode' else 'tokens'}, "
+            f"positions {args[1].tolist()}): device_busy_ms="
+            f"{sum(device_ms.values())} by_family={json.dumps(device_ms)} "
+            f"k5_by_kernel={json.dumps(k5)}")
 
 
 # -- phase 8: training parity at full width -----------------------------------
@@ -1558,16 +1822,48 @@ def k8_bwd_only():
     return 0
 
 
+def k5_only():
+    """``--k5``: build K5 alone, then check and time it at every case:
+    the timings beside SDPA and the bound, the device ms of its split
+    and merge kernels, the wrapper's host microseconds per call, and
+    (where the wrapper has them) both bodies at span widths 64, 128,
+    256, 512 and the kernel's own choice. Prints no result line."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    phase_device()
+    log(f"[k5] implementation={os.path.dirname(pa.__file__)}")
+    t0 = time.perf_counter()
+    for line in pa.build().splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] seconds={time.perf_counter() - t0}")
+    results = phase_k5()
+    k5_host_us(results)
+    time_k5(results, keep=True)
+    k5_parts(results)
+    if hasattr(pa, "_launch"):
+        k5_host_parts(results)
+        k5_sweep(results)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
               "on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    argv = sys.argv[1:]
+    root = HERE
+    if argv[:1] == ["--k5"] and argv[1:2] == ["--root"] and len(argv) == 3:
+        # another checkout's port (an earlier commit's), timed the same way
+        root, argv = os.path.abspath(argv[2]), argv[:1]
+    sys.path.insert(0, root)
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    if sys.argv[1:] == ["--k8-bwd"]:
+    if argv == ["--k8-bwd"]:
         return k8_bwd_only()
+    if argv == ["--k5"]:
+        return k5_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()
@@ -1593,10 +1889,7 @@ def main() -> int:
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
     kernels = [
-        kernel_entry("paged_attention", "cuda",
-                     "paddle_tpu_torch/csrc/paged_attention.cu",
-                     "paddle_tpu/ops/pallas/paged_attention.py:256",
-                     k5_launches, k5, "decode_b8_h32"),
+        k5_entry(k5_launches, k5),
         kernel_entry("rms_norm", "triton",
                      "paddle_tpu_torch/ops/hopper/rms_norm.py",
                      "paddle_tpu/ops/pallas/rms_norm.py:55",

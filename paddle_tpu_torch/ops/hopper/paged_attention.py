@@ -11,14 +11,24 @@ pages once and does a few flops per byte, so it is bound by HBM bytes.
 The design reads the pages in place through the block tables (no
 gathered copy of the context), stops at each q tile's causal horizon,
 and shares every K/V load among the ``g`` query heads of a GQA group.
-It does not yet split a long row across CTAs; at 8 decode slots the
-grid is ``8 x kv_heads`` CTAs.
+It splits each row's columns into spans (flash decoding): a persistent
+grid writes one partial softmax per span, and a second kernel merges a
+row's partials by their log-sum-exp in a fixed order.
+:func:`_tensor_cores` picks the body from the dtype and the shape alone
+(CUDA cores for f32 and MHA decode, tensor cores for bf16/f16 with 8 or
+more query vectors per tile); the kernel picks the span among
+``SPAN_CHOICES`` from the positions on the card, and the wrapper reads
+nothing back. ``_launch`` can fix the body and the span, which
+``chip_smoke.py --k5`` and the card's tests use to measure and check
+each choice.
 
 :func:`paged_attend_reference` is the plain PyTorch version: it gathers
 each row's whole table and runs the masked softmax in f32. The tests
 use it on the CPU, and ``chip_smoke.py`` holds the kernel against it on
-the card. :func:`paged_attend_cuda` launches the kernel and raises on a
-shape it does not take; it never falls back to the plain version.
+the card. :func:`paged_attend_split_reference` computes the same
+function the kernel's way, per span and merged, for the CPU tests.
+:func:`paged_attend_cuda` launches the kernel and raises on a shape it
+does not take; it never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from ._build import build_library
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 64          # query heads per KV head a CTA can hold
+TC_MIN_QUERIES = 8      # s * g from which bf16/f16 take the tensor cores
+SPAN_CHOICES = (128, 256, 512)  # the spans the kernel chooses among
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -60,13 +72,65 @@ def paged_attend_reference(q, kbuf, vbuf, block_tables, positions, *,
     return torch.einsum("bqkgt,btkd->bqkgd", p, vg.float())
 
 
+def paged_attend_split_reference(q, kbuf, vbuf, block_tables, positions, *,
+                                 kv_heads, head_dim, split_cols):
+    """The kernel's algorithm in plain PyTorch, f32: the table's columns
+    in spans of ``split_cols``; per span a partial softmax (o normalised,
+    log-sum-exp), where a span with no visible column for a row gives
+    that row lse ``NEG_INF`` and o 0; the partials merged in span order,
+    ``o = sum exp(lse_i - max) o_i / sum exp(lse_i - max)``. Same
+    contract as :func:`paged_attend_reference`; for the tests."""
+    b, s, h, d = q.shape
+    bs = kbuf.shape[1]
+    t_total = block_tables.shape[1] * bs
+    tables = block_tables.long()
+    kg = kbuf[tables].reshape(b, t_total, kv_heads, head_dim).float()
+    vg = vbuf[tables].reshape(b, t_total, kv_heads, head_dim).float()
+    g = h // kv_heads
+    qg = q.reshape(b, s, kv_heads, g, d).float()
+    scores = torch.einsum("bqkgd,btkd->bqkgt", qg, kg) / float(head_dim) ** 0.5
+    idx = (positions.long()[:, None]
+           + torch.arange(s, device=q.device)[None, :])          # [B, s]
+    mask = (torch.arange(t_total, device=q.device)[None, None, :]
+            <= idx[:, :, None])[:, :, None, None, :]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    parts = []
+    for c0 in range(0, t_total, split_cols):
+        sc = scores[..., c0:c0 + split_cols]
+        m = sc.amax(-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(sc - m)                  # 0 at every masked column
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bqkgt,btkd->bqkgd", p,
+                         vg[:, c0:c0 + split_cols]) / l.clamp_min(1e-30)
+        parts.append((torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                                  torch.full_like(l, NEG_INF)), o))
+    top = torch.stack([lse for lse, _ in parts]).amax(0)
+    acc = torch.zeros_like(parts[0][1])
+    wsum = torch.zeros_like(top)
+    for lse, o in parts:
+        w = torch.exp(lse - top)
+        acc = acc + w * o
+        wsum = wsum + w
+    return acc / wsum
+
+
+def _tensor_cores(dtype, s, g):
+    """The body of a call, fixed by the dtype and the shape: f32 stays on
+    the CUDA cores (the f32 parity runs and the tests); bf16/f16 take the
+    tensor cores once a q tile holds ``TC_MIN_QUERIES`` query vectors
+    (GQA decode, prefill)."""
+    return dtype != torch.float32 and s * g >= TC_MIN_QUERIES
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     path, _ = build_library("paged_attention", ["paged_attention.cu"])
     lib = ctypes.CDLL(str(path))
     fn = lib.paged_attend_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -119,21 +183,46 @@ def paged_attend_cuda(q, kbuf, vbuf, block_tables, positions, *,
     Raises ``ValueError`` on inputs the kernel does not take and
     ``RuntimeError`` when the launch fails."""
     _check(q, kbuf, vbuf, block_tables, positions, kv_heads, head_dim)
+    tc = _tensor_cores(q.dtype, q.shape[1], q.shape[2] // kv_heads)
+    return _launch(q, kbuf, vbuf, block_tables, positions, kv_heads,
+                   head_dim, tensor_cores=tc)
+
+
+def _launch(q, kbuf, vbuf, block_tables, positions, kv_heads, head_dim, *,
+            tensor_cores, split_cols=0):
+    """One call of K5 with a given body (checked inputs): the split
+    kernel, then the merge kernel when a row can need two spans. The span
+    is the kernel's own choice among ``SPAN_CHOICES`` unless
+    ``split_cols`` fixes it. Nothing is read back from the card."""
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return _launch(q, kbuf, vbuf, block_tables, positions, kv_heads,
+                           head_dim, tensor_cores=tensor_cores,
+                           split_cols=split_cols)
     b, s, h, d = q.shape
     q = q.contiguous()
     block_tables = block_tables.contiguous()
     positions = positions.contiguous()
-    g = h // kv_heads
-    out = torch.empty((b, s, kv_heads, g, d), device=q.device,
+    total_q = b * s * h
+    spans = -(-block_tables.shape[1] * kbuf.shape[1]
+              // (split_cols or SPAN_CHOICES[0]))
+    out = torch.empty((b, s, kv_heads, h // kv_heads, d), device=q.device,
                       dtype=torch.float32)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_attend_launch(
-            q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, s, h, kv_heads, d, kbuf.shape[1], block_tables.shape[1],
-            _DTYPE_CODES[q.dtype], 1.0 / float(head_dim) ** 0.5, stream)
+    # partials [spans, total_q, d], their lse, and the chosen span (an int)
+    scratch = None
+    if spans > 1:
+        scratch = torch.empty(spans * total_q * (d + 1) + 1, device=q.device,
+                              dtype=torch.float32)
+    rc = _library().paged_attend_launch(
+        q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        b, s, h, kv_heads, d, kbuf.shape[1], block_tables.shape[1],
+        _DTYPE_CODES[q.dtype], 1.0 / float(head_dim) ** 0.5, split_cols,
+        int(tensor_cores),
+        # the current stream's handle, as Triton's launcher reads it: the
+        # public torch.cuda.current_stream() costs a few microseconds more
+        torch._C._cuda_getCurrentRawStream(q.device.index))
     if rc != 0:
         raise RuntimeError(f"paged_attend kernel launch failed: CUDA error "
                            f"{rc}")

@@ -73,33 +73,88 @@ def _paged_inputs(rng, *, bs, max_blocks, s, positions, lengths, kv, g, d,
                 lengths=np.asarray(lengths, np.int32))
 
 
-@pytest.mark.parametrize("g", [2, 4])
-@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: c[0])
-def test_paged_attend_plain_matches_jax(ref, case, g):
-    """The port's plain paged attention equals the JAX Pallas kernel
-    (interpret mode) and the JAX plain version."""
-    _, bs, max_blocks, s, positions, lengths = case
-    kv, d = 2, 8
+_JAX_PAGED = {}
+
+
+def _jax_paged(ref, case, g, kv=2, d=8):
+    """The case's inputs and the JAX side's outputs (the Pallas kernel in
+    interpret mode and the plain version, compiled together once per
+    case and group size)."""
+    name, bs, max_blocks, s, positions, lengths = case
+    if (name, g) in _JAX_PAGED:
+        return _JAX_PAGED[name, g]
     x = _paged_inputs(np.random.RandomState(7), bs=bs, max_blocks=max_blocks,
                       s=s, positions=positions, lengths=lengths, kv=kv, g=g,
                       d=d)
-    got = torch_pa.paged_attend(
-        torch.from_numpy(x["q"]), torch.from_numpy(x["kbuf"]),
-        torch.from_numpy(x["vbuf"]), torch.from_numpy(x["tables"]),
-        torch.from_numpy(x["positions"]), kv_heads=kv, head_dim=d).numpy()
     args = tuple(ref.jnp.asarray(x[n])
                  for n in ("q", "kbuf", "vbuf", "tables", "positions"))
 
     def jax_side(*a):
-        # the kernel and the plain version, compiled together once
         return (ref.paged_attend_pallas(*a, kv_heads=kv, head_dim=d,
                                         interpret=True),
                 ref.pa.paged_attend(*a, kv_heads=kv, head_dim=d))
 
     want_kernel, want_plain = map(np.asarray, ref.jax.jit(jax_side)(*args))
-    assert got.shape == (len(positions), s, kv, g, d)
+    _JAX_PAGED[name, g] = x, want_kernel, want_plain
+    return _JAX_PAGED[name, g]
+
+
+def _torch_args(x):
+    return tuple(torch.from_numpy(x[n])
+                 for n in ("q", "kbuf", "vbuf", "tables", "positions"))
+
+
+@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: c[0])
+def test_paged_attend_plain_matches_jax(ref, case, g):
+    """The port's plain paged attention equals the JAX Pallas kernel
+    (interpret mode) and the JAX plain version."""
+    x, want_kernel, want_plain = _jax_paged(ref, case, g)
+    got = torch_pa.paged_attend(*_torch_args(x), kv_heads=2,
+                                head_dim=8).numpy()
+    assert got.shape == (len(case[4]), case[3], 2, g, 8)
     np.testing.assert_allclose(got, want_kernel, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got, want_plain, atol=ATOL, rtol=RTOL)
+
+
+def _split_widths(case):
+    """One page, and the widest row horizon short of the table width: a
+    span boundary that falls exactly on that row's last visible column."""
+    _, bs, max_blocks, s, positions, _ = case
+    width = bs * max_blocks
+    return {"page": bs,
+            "horizon": max(p + s for p in positions if p + s < width)}
+
+
+@pytest.mark.parametrize("split", ["page", "horizon"])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: c[0])
+def test_paged_attend_split_plan_matches_jax(ref, case, split):
+    """K5's algorithm (per-span partial softmaxes merged by log-sum-exp,
+    spans fully masked for a row at weight 0) equals the JAX Pallas
+    kernel (interpret mode) and the JAX plain version, and the port's
+    plain version."""
+    x, want_kernel, want_plain = _jax_paged(ref, case, 2)
+    args = _torch_args(x)
+    got = hop_pa.paged_attend_split_reference(
+        *args, kv_heads=2, head_dim=8,
+        split_cols=_split_widths(case)[split]).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_kernel, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, want_plain, atol=ATOL, rtol=RTOL)
+    plain = hop_pa.paged_attend_reference(*args, kv_heads=2,
+                                          head_dim=8).numpy()
+    np.testing.assert_allclose(got, plain, atol=ATOL, rtol=RTOL)
+
+
+def test_paged_attend_body_is_fixed_by_dtype_and_shape():
+    """f32 never takes the tensor cores; bf16/f16 take them from
+    TC_MIN_QUERIES query vectors per tile; the spans the kernel chooses
+    among are whole 64-key stages within its limit."""
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for s, g in ((1, 1), (1, 8), (4, 1), (128, 1), (1, 64)):
+            assert hop_pa._tensor_cores(dt, s, g) == (
+                dt != torch.float32 and s * g >= hop_pa.TC_MIN_QUERIES)
+    assert all(c % 64 == 0 and 64 <= c <= 1024 for c in hop_pa.SPAN_CHOICES)
 
 
 def test_paged_write_kv_matches_jax(ref):
@@ -265,15 +320,30 @@ def cuda():
     return torch.device("cuda")
 
 
+# on the card only (their tables are too wide for interpret mode): decode
+# rows whose horizon ends one column before, on and after the span
+# boundaries at 256 and 512 columns (of every span the kernel chooses
+# among), the full table and an idle row; prefill tiles whose horizon does
+# the same at 256, so that a second span is fully masked for the tile's
+# early rows
+SPLIT_EDGE_CASES = [
+    ("decode_split_edges", 16, 256, 1, [254, 255, 256, 510, 511, 512, 4095, 0],
+     [1, 1, 1, 1, 1, 1, 1, 0]),
+    ("prefill_split_edges", 16, 24, 64, [191, 192, 193], [64, 64, 64]),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: c[0])
-def test_paged_attend_kernel_matches_plain(cuda, case, g, dtype):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("g", [1, 4, 64])
+@pytest.mark.parametrize("case", PAGED_CASES + SPLIT_EDGE_CASES,
+                         ids=lambda c: c[0])
+def test_paged_attend_kernel_matches_plain(cuda, case, g, dtype, d):
     """Kernel K5 equals the plain version on the same pool: f32
     accumulation on both sides, so 1e-3 covers summation order."""
     _, bs, max_blocks, s, positions, lengths = case
-    kv, d = 2, 128
+    kv = 2
     x = _paged_inputs(np.random.RandomState(7), bs=bs, max_blocks=max_blocks,
                       s=s, positions=positions, lengths=lengths, kv=kv, g=g,
                       d=d)
@@ -288,6 +358,45 @@ def test_paged_attend_kernel_matches_plain(cuda, case, g, dtype):
                                          head_dim=d)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def _edge_inputs(cuda, case, dtype, g=4, seed=5):
+    _, bs, max_blocks, s, positions, lengths = case
+    x = _paged_inputs(np.random.RandomState(seed), bs=bs,
+                      max_blocks=max_blocks, s=s, positions=positions,
+                      lengths=lengths, kv=2, g=g, d=128)
+    q, kb, vb = (torch.from_numpy(x[n]).to(cuda, dtype)
+                 for n in ("q", "kbuf", "vbuf"))
+    return (q, kb, vb, torch.from_numpy(x["tables"]).to(cuda),
+            torch.from_numpy(x["positions"]).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split_cols", [128, 256, 512])
+@pytest.mark.parametrize("tensor_cores", [False, True])
+@pytest.mark.parametrize("case", SPLIT_EDGE_CASES, ids=lambda c: c[0])
+def test_paged_attend_kernel_matches_plain_at_every_span(cuda, case,
+                                                         tensor_cores,
+                                                         split_cols):
+    """Both bodies at each span the kernel may choose, on rows whose
+    horizon falls around span boundaries: equal to the plain version."""
+    args = _edge_inputs(cuda, case, torch.bfloat16)
+    got = hop_pa._launch(*args, 2, 128, tensor_cores=tensor_cores,
+                         split_cols=split_cols)
+    want = hop_pa.paged_attend_reference(*args, kv_heads=2, head_dim=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_EDGE_CASES, ids=lambda c: c[0])
+def test_paged_attend_kernel_is_bitwise_repeatable(cuda, case):
+    """The merge sums a row's spans in a fixed order: two calls on the
+    same inputs give equal bits."""
+    args = _edge_inputs(cuda, case, torch.bfloat16)
+    first = hop_pa.paged_attend_cuda(*args, kv_heads=2, head_dim=128)
+    second = hop_pa.paged_attend_cuda(*args, kv_heads=2, head_dim=128)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
