@@ -4,7 +4,11 @@ H100: the quickest proof that the port builds, runs and is right on the
 card. Run from the repository root with ``python3 chip_smoke.py``;
 ``python3 chip_smoke.py --k8-bwd`` builds and runs only K8's backward
 at ResNet-50's three shapes (check, timings, device time by part), the
-quick loop for that kernel. ``python3 chip_smoke.py --k5`` does the same
+quick loop for that kernel; ``--k8-fwd`` does the same for K8's forward
+(check, bitwise repeatability, timings beside ``F.conv2d``, the plain
+version and the bound, device ms of the band kernel and the reduction),
+and ``--k8-fwd --root DIR`` runs that loop on the port of another
+checkout unpacked into DIR. ``python3 chip_smoke.py --k5`` does the same
 for K5 at all its cases (check, timings, device ms of its split and
 merge kernels, host microseconds per call, both bodies at each span
 widths); ``--k5 --root DIR`` runs it on the port of another checkout
@@ -50,9 +54,10 @@ the run with a non-zero exit code and no result line:
     ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
     (layer 1's second 1x1, 64 -> 256) and without (layer 4's first,
     2048 -> 512), K8 at layer 1 (56^2, 64), layer 3 (14^2, 256) and
-    layer 2 (28^2, 128), K9 at 802,816 x 256 and 12,544 x 2048; then
-    their timings beside a PyTorch call and the bound, and K8
-    backward's device time by part (dyc, dw, dx, reductions).
+    layer 2 (28^2, 128) (its forward also twice, for equal bits), K9 at
+    802,816 x 256 and 12,544 x 2048; then their timings beside a
+    PyTorch call and the bound, and K8's device time by part (forward:
+    band kernel, reduction; backward: dyc, dw, dx, reductions).
 11. One layer-1 bottleneck (256 -> 64 -> 256, 56^2, batch 8, bf16, both
     ResNet flags on): the card (kernels) against the CPU (plain
     versions), and the fused composition against the default one on
@@ -206,7 +211,7 @@ def phase_build():
         nvcc = [pool.submit(paged_attention.build),
                 pool.submit(flash_attention.build),
                 pool.submit(resnet_unit.build),
-                pool.submit(resnet_unit.build_conv3x3_bwd)]
+                pool.submit(resnet_unit.build_conv3x3)]
         x = torch.ones(8, 4096, device="cuda", dtype=torch.bfloat16)
         rms_norm.rms_norm_cuda(x, x[0], 1e-5)
         bn_stats.bn_stats_cuda(x)
@@ -1307,10 +1312,10 @@ def _rel_err(got, want):
     return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
-def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES):
-    """K7 and K8 (forward and backward) and K9 against their plain
-    versions at ResNet-50 shapes; the backward versions both take the
-    plain forward's y."""
+def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES, backward=True):
+    """K7 and K8 (forward and, with ``backward``, backward) and K9 against
+    their plain versions at ResNet-50 shapes; K8's forward twice, for
+    equal bits. The backward versions both take the plain forward's y."""
     from paddle_tpu_torch.ops.hopper import bn_stats as bn
 
     gen = torch.Generator(device="cuda").manual_seed(2024)
@@ -1320,8 +1325,12 @@ def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES):
         fwd_k, fwd_p, bwd_k, bwd_p = _ru_fns(kind)
         got = fwd_k(c["x"], c["w"], c["a"], c["b"])
         want = fwd_p(c["x"], c["w"], c["a"], c["b"])
-        gotb = bwd_k(*_bwd_args(kind, c, want[0]))
-        wantb = bwd_p(*_bwd_args(kind, c, want[0]))
+        if kind == "k8":
+            check(all(torch.equal(g, r) for g, r in zip(
+                got, fwd_k(c["x"], c["w"], c["a"], c["b"]))),
+                f"{name}: two forward calls differ (fixed-order sums)")
+        gotb = bwd_k(*_bwd_args(kind, c, want[0])) if backward else ()
+        wantb = bwd_p(*_bwd_args(kind, c, want[0])) if backward else ()
         torch.cuda.synchronize()
         errs = {}
         for key, g, wnt in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
@@ -1418,30 +1427,29 @@ def _ru_library(kind, c, y):
     return fwd, bwd
 
 
-def k8_bwd_parts(bargs, iters=5):
-    """Device ms per launch of each part of K8's backward (dyc, dw, dx,
-    the reductions), from a torch.profiler window over ``iters``
-    launches."""
+def k8_parts(fn, args, iters=5):
+    """Device ms per launch of each part of one K8 wrapper (forward: band
+    kernel, reduction; backward: dyc, dw, dx, the reductions), from a
+    torch.profiler window over ``iters`` launches. A kernel outside
+    K8_PARTS (another checkout's port) is booked under its own name."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
-
-    ru.conv3x3_bn_bwd_cuda(*bargs)
+    fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            ru.conv3x3_bn_bwd_cuda(*bargs)
+            fn(*args)
         torch.cuda.synchronize()
     parts = {}
     for key, dev_us in device_events(prof)[0].items():
-        part = next((what or "reductions" for kernel, _, what in K8_BWD_PARTS
-                     if kernel in key), "other")
+        part = next((what or "reductions" for kernel, _, what in K8_PARTS
+                     if kernel in key), key[:60])
         parts[part] = parts.get(part, 0.0) + dev_us / 1e3 / iters
     return parts
 
 
-def time_resnet_kernels(results):
+def time_resnet_kernels(results, backward=True):
     from paddle_tpu_torch.ops.hopper import bn_stats as bn
 
     timing = {}
@@ -1467,22 +1475,24 @@ def time_resnet_kernels(results):
         bargs = _bwd_args(kind, c, y)
         lib_f, lib_b = _ru_library(kind, c, y)
         (bf, byf), (bb, byb) = _ru_bounds(kind, c)
-        t = {
-            "fwd": dict(ms=time_ms(lambda: fwd_k(*fargs)),
-                        plain_ms=time_ms(lambda: fwd_p(*fargs), iters=3,
-                                         warmup=1),
-                        library_ms=time_ms(lib_f), bound_ms=bf,
-                        bound_by=byf),
-            "bwd": dict(ms=time_ms(lambda: bwd_k(*bargs)),
-                        plain_ms=time_ms(lambda: bwd_p(*bargs), iters=3,
-                                         warmup=1),
-                        library_ms=time_ms(lib_b), bound_ms=bb,
-                        bound_by=byb),
-        }
+        t = {"fwd": dict(ms=time_ms(lambda: fwd_k(*fargs)),
+                         plain_ms=time_ms(lambda: fwd_p(*fargs), iters=3,
+                                          warmup=1),
+                         library_ms=time_ms(lib_f), bound_ms=bf,
+                         bound_by=byf)}
+        parts = [("fwd", fwd_k, fargs)]
+        if backward:
+            t["bwd"] = dict(ms=time_ms(lambda: bwd_k(*bargs)),
+                            plain_ms=time_ms(lambda: bwd_p(*bargs), iters=3,
+                                             warmup=1),
+                            library_ms=time_ms(lib_b), bound_ms=bb,
+                            bound_by=byb)
+            parts.append(("bwd", bwd_k, bargs))
         if kind == "k8":
-            t["bwd"]["parts"] = k8_bwd_parts(bargs)
-            log(f"[time] k8 bwd {name} device ms per launch by part: "
-                f"{json.dumps(t['bwd']['parts'])}")
+            for d, fn, args in parts:
+                t[d]["parts"] = k8_parts(fn, args)
+                log(f"[time] k8 {d} {name} device ms per launch by part: "
+                    f"{json.dumps(t[d]['parts'])}")
         timing[name] = t
         for d, tt in t.items():
             log(f"[time] {kind} {d} {name} ms={tt['ms']} plain_ms="
@@ -1612,23 +1622,22 @@ def _reset_resnet_counts():
         fn.launches = 0
 
 
-# K8's backward kernels (csrc/conv3x3_bn_bwd.cu) by name, with their part;
+# K8's kernels (csrc/conv3x3_bn.cu) by name, with their family and part;
 # their names hold "conv", so they are matched before cuDNN's keywords
-K8_BWD_PARTS = (("conv3_dyc_kernel", "k8", "backward dyc (elementwise)"),
-                ("conv3_dw_band_kernel", "k8", "backward dw (bands, 9 taps)"),
-                ("conv3_dx_band_kernel", "k8", "backward dx (bands)"),
-                ("conv3_reduce_kernel", "k7_k8_reduce", None))
+K8_PARTS = (("conv3_fwd_band_kernel", "k8", "forward (bands)"),
+            ("conv3_dyc_kernel", "k8", "backward dyc (elementwise)"),
+            ("conv3_dw_band_kernel", "k8", "backward dw (bands, 9 taps)"),
+            ("conv3_dx_band_kernel", "k8", "backward dx (bands)"),
+            ("conv3_reduce_kernel", "k7_k8_reduce", None))
 
 
 def resnet_family(name):
     """Kernel family of a device kernel name in a ResNet step."""
-    for kernel, fam, _ in K8_BWD_PARTS:
+    for kernel, fam, _ in K8_PARTS:
         if kernel in name:
             return fam
-    for kernel, arg in (("gemm_rows_kernel<", 1), ("gemm_dw_kernel<", 2)):
-        if kernel in name:
-            taps = int(name.split(kernel)[1].split(",")[arg])
-            return "k8" if taps == 9 else "k7"
+    if "gemm_rows_kernel<" in name or "gemm_dw_kernel<" in name:
+        return "k7"
     if "col_reduce_kernel" in name:
         return "k7_k8_reduce"
     if "bn_stats_" in name:
@@ -1643,19 +1652,19 @@ def resnet_family(name):
 
 
 def resnet_part(name):
-    """Which part of K7/K8 a kernel is: by name for K8's backward, by its
-    template arguments for resnet_unit.cu (``gemm_rows_kernel<BN, TAPS,
-    SIGN, APRO, BTRANS, EPI, EMASK>``, ``gemm_dw_kernel<BM, BN, TAPS,
-    APRO>``); None for other kernels."""
+    """Which part of K7/K8 a kernel is: by name for K8, by its template
+    arguments for resnet_unit.cu (``gemm_rows_kernel<BN, APRO, BTRANS,
+    EPI, EMASK>``, ``gemm_dw_kernel<BM, BN, APRO>``); None for other
+    kernels."""
     fam = resnet_family(name)
     if fam not in ("k7", "k8", "k7_k8_reduce"):
         return None
-    part = next((what for kernel, _, what in K8_BWD_PARTS
+    part = next((what for kernel, _, what in K8_PARTS
                  if kernel in name and what), None)
     if part is not None:
         what = part
     elif "gemm_rows_kernel<" in name:
-        epi = int(name.split("gemm_rows_kernel<")[1].split(",")[5])
+        epi = int(name.split("gemm_rows_kernel<")[1].split(",")[3])
         what = ("forward", "backward dyc", "backward dx")[epi]
     elif "gemm_dw_kernel<" in name:
         what = "backward dw (split-K partials)"
@@ -1805,20 +1814,28 @@ def timed_entry(name, route, source, replaces, launches, max_err, r, shape):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
-def k8_bwd_only():
-    """``--k8-bwd``: build, then K8's backward alone at the main path's
-    shapes (with its forward, which gives it y): the check against the
-    plain version, the timings beside convolution_backward and the
-    bound, and the device time of each part. Prints no result line."""
+def k8_only(backward):
+    """``--k8-bwd`` (both directions) and ``--k8-fwd`` (the forward
+    alone): build, then K8 at the main path's three 3x3 shapes: the
+    check against the plain version (the forward twice, for equal bits),
+    the timings beside F.conv2d / convolution_backward, the plain version
+    and the bound, and the device ms of each part. Works on another
+    checkout's port too (``--root``), whose K8 may live in other sources.
+    Prints no result line."""
     from paddle_tpu_torch.ops.hopper import resnet_unit
 
     phase_device()
-    for log_text in (resnet_unit.build(), resnet_unit.build_conv3x3_bwd()):
-        for line in log_text.splitlines():
+    log(f"[k8] implementation={os.path.dirname(resnet_unit.__file__)}")
+    t0 = time.perf_counter()
+    builds = [getattr(resnet_unit, f) for f in ("build", "build_conv3x3")
+              if hasattr(resnet_unit, f)]
+    for build in builds:
+        for line in build().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] seconds={time.perf_counter() - t0}")
     cases = [c for c in RU_CASES if c[1] == "k8"]
-    time_resnet_kernels(phase_resnet_kernels(cases, k9_cases=()))
+    time_resnet_kernels(phase_resnet_kernels(cases, (), backward), backward)
     return 0
 
 
@@ -1854,14 +1871,15 @@ def main() -> int:
         return 2
     argv = sys.argv[1:]
     root = HERE
-    if argv[:1] == ["--k5"] and argv[1:2] == ["--root"] and len(argv) == 3:
+    if argv[:1] in (["--k5"], ["--k8-fwd"]) and argv[1:2] == ["--root"] \
+            and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
         root, argv = os.path.abspath(argv[2]), argv[:1]
     sys.path.insert(0, root)
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    if argv == ["--k8-bwd"]:
-        return k8_bwd_only()
+    if argv in (["--k8-bwd"], ["--k8-fwd"]):
+        return k8_only(backward=argv == ["--k8-bwd"])
     if argv == ["--k5"]:
         return k5_only()
     t_start = time.perf_counter()
@@ -1910,13 +1928,13 @@ def main() -> int:
              also_replaces=[f"{pallas}:610"]),
     ]
     ru_src = "paddle_tpu_torch/csrc/resnet_unit.cu"
+    k8_src = "paddle_tpu_torch/csrc/conv3x3_bn.cu"
     ru_pallas = "paddle_tpu/ops/pallas/resnet_unit.py"
     for kname, kind, d, line, err_key, source in (
             ("resnet_unit_conv1x1_fwd", "k7", "fwd", 103, "y", ru_src),
             ("resnet_unit_conv1x1_bwd", "k7", "bwd", 201, "dx", ru_src),
-            ("resnet_unit_conv3x3_fwd", "k8", "fwd", 354, "y", ru_src),
-            ("resnet_unit_conv3x3_bwd", "k8", "bwd", 433, "dx",
-             "paddle_tpu_torch/csrc/conv3x3_bn_bwd.cu")):
+            ("resnet_unit_conv3x3_fwd", "k8", "fwd", 354, "y", k8_src),
+            ("resnet_unit_conv3x3_bwd", "k8", "bwd", 433, "dx", k8_src)):
         cases = [c for c, kd, _ in RU_CASES if kd == kind]
         kernels.append(dict(
             timed_entry(kname, "cuda", source, f"{ru_pallas}:{line}",

@@ -1,51 +1,75 @@
-// K8's backward for NVIDIA Hopper (sm_90a): the gradient of the fused 3x3 conv
-// (stride 1, pad 1) + BatchNorm-statistics unit of the port.
+// K8 for NVIDIA Hopper (sm_90a): the fused 3x3 conv (stride 1, pad 1) +
+// BatchNorm-statistics unit of the port, forward and backward.
 //
-// Replaces the Pallas TPU kernel paddle_tpu/ops/pallas/resnet_unit.py
-// `_conv3_bwd_impl` -> `_conv3_bwd_kernel`. Function (NHWC, bf16 activations
-// and weights, f32 accumulation), from the saved forward output y:
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/resnet_unit.py:
+//   forward   `_conv3_fwd_impl` -> `_conv3_fwd_kernel`   (conv3x3_bn_fwd)
+//   backward  `_conv3_bwd_impl` -> `_conv3_bwd_kernel`   (conv3x3_bn_bwd)
+// Function (NHWC, bf16 activations and weights, f32 accumulation):
+//   xn  = bf16(relu(x a + b)), zero in the halo  (the Pallas kernels pad
+//                                                  after the prologue)
+//   y[q] = sum_t xn[q + s_t] w_t               forward, t = 3 di + dj
+//   s1 = sum_q y[q], s2 = sum_q y[q]^2          from the f32 sums, before y
+//                                                is rounded to bf16
+// and from the saved forward output y:
 //   dyc = bf16(dy + gs1 + 2 y gs2)          the statistics' cotangents folded in
-//   xn  = relu(x a + b), zero in the halo   (the Pallas kernel pads after the
-//                                            prologue)
-//   dw[t] = sum_q xn[q]^T dyc[q - s_t]      f32, t = 3 di + dj
+//   dw[t] = sum_q xn[q]^T dyc[q - s_t]      f32
 //   dxn[q] = sum_t dyc[q - s_t] w_t^T       the correlation with the flipped taps
 //   du = dxn [u > 0], dx = bf16(du a), da = sum(du x), db = sum(du)
-// where s_t = (di - 1, dj - 1) is tap t's offset and dyc is zero outside the
-// image. Both products read dyc shifted by -s_t against an unshifted operand
-// at the output position q (xn for dw, the output itself for dx).
+// where s_t = (di - 1, dj - 1) is tap t's offset and xn, dyc are zero
+// outside the image. The forward reads xn shifted by +s_t, both products
+// of the backward read dyc shifted by -s_t, each against an unshifted
+// operand at the output position q.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at ResNet-50's
 // three stride-1 3x3 shapes (batch 256: 56^2 x 64, 28^2 x 128, 14^2 x 256)
-// both products do 29.6 G multiply-adds each, ~0.12 ms of tensor-core time,
-// about as long as moving x, y, dy and dx once (bytes bound the 64-channel
-// shape, operations the others). The kernel it replaces took 9-16x that: its
-// dw CTAs each owned one tap and streamed x and dyc nine times over (about
-// 1.85 GB from device memory at 56^2 x 64, where the two do not fit in L2 side
-// by side), re-applied the prologue per tap, and its dx re-copied a shifted
-// 128-row tile of dyc for every tap.
+// each product does 29.6 G multiply-adds, ~0.06 ms of tensor-core time,
+// about as long as moving its activations once: the forward's x and y take
+// 0.061 ms at 56^2 x 64 (bytes bound it there, operations at the others),
+// the backward's x, y, dy and dx twice that. The kernels they replace took
+// 6-16x that: the first forms ran a generic row GEMM over 9 taps, which
+// re-copied a shifted 128-row tile of x (or dyc) for every tap and
+// channel-tile pair, re-applied the prologue to each copy, and multiplied
+// with mma.sync; the backward's dw CTAs each owned one tap and streamed x and
+// dyc nine times over.
 //
 // Design. A work item is a band: R whole image rows of one image (or a piece
 // of Wp columns of them, for wide images), held in shared memory with one
 // halo row above and below and one halo column on each side, so a band row
 // has P = Wp + 2 positions. Every tap is then a flat shift of the band's
-// positions, (2 - di) P + (2 - dj) slots into the dyc window, with no per-row
-// halo test. The two pad columns of each band row are computed and discarded
-// (3.4% more work at W = 56, 12.5% at W = 14). The dyc window is stored
-// chunk-major ([8-channel chunk][position][16 bytes]): any 8 consecutive
-// positions of a chunk are one contiguous 128-byte core matrix, so a tap's
-// shifted operand is a plain (unswizzled) wgmma descriptor at any position,
-// and every product reads both operands from shared memory: each band's
-// wgmma steps issue back to back, with nothing in registers to wait for. A
-// band arrives by TMA: a 5-D box [1, R + 2, P, 1, 8] of dyc per chunk (and a
-// 4-D box [1, R, P, 64] of x, 128-byte swizzle, where it is wgmma's other
-// operand), whose out-of-image rows and columns the hardware fills with
-// zeros; one thread issues the next band's boxes while the CTA computes on
-// this one, and an mbarrier says when they have landed. Grids are
-// persistent: each CTA owns a channel tile and walks a contiguous range of
-// bands (conv3_band_plan and group_range mirror the Python plan in
-// ops/hopper/resnet_unit.py).
-//   conv3_dyc_kernel      dyc, elementwise: read by both products, so it is
-//                         written once instead of being recomputed in both.
+// positions, di P + dj slots into the forward's xn window and (2 - di) P +
+// (2 - dj) into the backward's dyc window, with no per-row halo test. The
+// two pad columns of each band row are computed and discarded (3.4% more
+// work at W = 56, 12.5% at W = 14). A window is stored chunk-major
+// ([8-channel chunk][position][16 bytes]): any 8 consecutive positions of a
+// chunk are one contiguous 128-byte core matrix, so a tap's shifted operand
+// is a plain (unswizzled) wgmma descriptor at any position, and every
+// product reads both operands from shared memory: each band's wgmma steps
+// issue back to back, with nothing in registers to wait for. A band arrives
+// by TMA: a 5-D box [1, R + 2, P, 1, 8] of x or dyc per chunk (and a 4-D box
+// [1, R, P, 64] of x, 128-byte swizzle, where x is wgmma's other operand),
+// whose out-of-image rows and columns the hardware fills with zeros; one
+// thread issues the next band's boxes while the CTA computes on this one,
+// and an mbarrier says when they have landed. Grids are persistent: each
+// CTA owns a channel tile and walks a contiguous range of bands
+// (conv3_band_plan and group_range mirror the Python plan in
+// ops/hopper/resnet_unit.py; the forward takes the plan at cin).
+//   conv3_fwd_band_kernel one 64-wide cout tile of a band's positions per CTA
+//                         (two warpgroups of two m64 tiles), K = 9 taps x cin
+//                         in 64-wide chunks: x's window arrives raw and takes
+//                         the prologue once per band and chunk, in shared
+//                         memory, four slots a thread at a time; the slots
+//                         outside the image keep TMA's zeros (relu(b) is not
+//                         zero). wgmma takes the xn window shifted
+//                         (K-major, plain) and w_t [cin chunk x cout tile]
+//                         (MN-major, 128-byte swizzle: w9's own layout); at
+//                         cin = 64 the whole w9 tile stays resident, above it
+//                         each chunk rides with its window. Epilogue: y
+//                         rounded and stored, and the s1/s2 partials summed
+//                         from the f32 accumulators, for interior positions
+//                         only (not the pad columns, not past a short band).
+//   conv3_dyc_kernel      dyc, elementwise: read by both backward products,
+//                         so it is written once instead of being recomputed
+//                         in both.
 //   conv3_dw_band_kernel  one 64 (cin) x 64 (cout) tile of all nine taps per
 //                         CTA, the nine f32 accumulators in registers: three
 //                         warpgroups, one tap row di each, three taps a
@@ -56,22 +80,33 @@
 //                         all nine taps) and dyc shifted (MN-major, plain).
 //                         One [9, 64, 64] partial per CTA.
 //   conv3_dx_band_kernel  one 64-wide cin tile of a band's positions per CTA
-//                         (two warpgroups of two m64 tiles), K = 9 taps x cout
-//                         in 64-wide chunks: wgmma takes dyc shifted (K-major,
-//                         plain) and w_t (K-major, 128-byte swizzle); at cout
-//                         = 64 the whole w9 tile stays resident, above it each
-//                         chunk rides with its dyc window. Epilogue: x loaded
-//                         into registers before the band's last products, the
-//                         mask from u = x a + b, dx = du a, da/db partials per
-//                         CTA.
-//   conv3_reduce_kernel   out[c] = sum_g part[g][c] in a fixed order (dw
-//                         over the dw CTAs of a tile, da/db over the dx CTAs).
+//                         (two warpgroups of two m64 tiles), K = 9 taps x
+//                         cout in 64-wide chunks: wgmma takes dyc shifted
+//                         (K-major, plain) and w_t (K-major, 128-byte
+//                         swizzle); at cout = 64 the whole w9 tile stays
+//                         resident, above it each chunk rides with its dyc
+//                         window. Epilogue: x loaded into registers before
+//                         the band's last products, the mask from u = x a +
+//                         b, dx = du a, da/db partials per CTA.
+//   conv3_reduce_kernel   out[c] = sum_g part[g][c] in a fixed order (s1/s2
+//                         over the forward's CTAs, dw over the dw CTAs of a
+//                         tile, da/db over the dx CTAs).
 // No atomics: the results are deterministic.
+//
+// What bounds the forward as built (clock64 phase timers on an H100, per band
+// at 56^2 x 64): the products take ~4.6k cycles, the tensor cores' own time,
+// but a warpgroup that issues wgmma waits until the tensor cores have taken
+// them, so the prologue of the next unit (~3k) and the epilogue (~2.3k) run
+// after them rather than beside them. Giving the TMA and the prologue a
+// warpgroup of their own did not help: with both operands read from shared
+// memory, the products use most of its bandwidth and the prologue slowed to
+// twice its time (PERF.md has the steps tried).
 //
 // Interface: plain C, loaded with ctypes. The caller allocates outputs and
 // scratch, checks shapes, dtypes, devices, contiguity and 16-byte alignment,
-// and picks the band shape; conv3x3_bn_bwd returns the first cudaError_t (or
-// cudaErrorInvalidValue when a tensor map cannot be made).
+// and picks the band shape; conv3x3_bn_fwd and conv3x3_bn_bwd return the
+// first cudaError_t (or cudaErrorInvalidValue when a tensor map cannot be
+// made).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,11 +119,12 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kC = 64;                // channels of a tile: one 128-byte smem row
 constexpr int kDwThreads = 384;       // 3 warpgroups
-constexpr int kDxThreads = 256;       // 2 warpgroups
-constexpr int kDxMaxM = 256;          // band positions of a dx CTA: 2 warpgroups x 2 m64 tiles
+constexpr int kDxThreads = 256;       // 2 warpgroups (the forward's too)
+constexpr int kDxMaxM = 256;          // band positions of a dx or forward CTA: 2 warpgroups x 2 m64 tiles
 constexpr int kWElems = 9 * kC * kC;  // the nine 64 x 64 weight tiles of a chunk
 // dynamic shared memory a block takes: the H100's 227 KB less room for the
-// kernels' static shared memory (dx: its da/db reduction, a, b, barriers)
+// kernels' static shared memory (dx: its da/db reduction, a, b, barriers;
+// the forward: its s1/s2 reduction, barriers)
 constexpr int kSmemDynamic = 232448 - 5120;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -229,8 +265,8 @@ struct Geo {
   int n, h, w;        // images
   int R, Wp, P;       // band rows, band columns, positions per band row (Wp + 2)
   int Mp, Md, V;      // positions dw sums per band (R P up to a multiple of 16)
-                      // and dx computes (up to a multiple of 64, wgmma's M),
-                      // dyc window slots (Md + 2 P + 2)
+                      // and dx and the forward compute (up to a multiple of
+                      // 64, wgmma's M), window slots (Md + 2 P + 2)
   int bh, bw, bands;  // bands down an image, across it, in all
 };
 
@@ -248,13 +284,14 @@ Geo make_geo(int n, int h, int w, int R, int Wp) {
 // Shared-memory layout from the 1024-byte aligned base (mirrors conv3_smem in
 // resnet_unit.py):
 //   dw: two stages of [Mp] xn rows, then the window.
-//   dx: the weight tiles (one or two copies), then two windows.
-// A dyc window is chunk-major: for each 8-channel chunk c, its V + 7 slots of
-// 16 bytes, cbytes(g) apart (128-byte aligned). Slots 0-7 and those past the
-// box are zero; the box (slot 8 on, 128-byte aligned) holds band position
-// slot - 8. Any 8
-// consecutive slots of a chunk are one contiguous 128-byte core matrix, so a
-// tap's shift is a descriptor's start address.
+//   dx and the forward: the weight tiles (one or two copies), then two
+//   windows; the forward's is dx_smem at cin (its chunks run over cin).
+// A window (dyc, or the forward's xn) is chunk-major: for each 8-channel
+// chunk c, its V + 7 slots of 16 bytes, cbytes(g) apart (128-byte aligned).
+// Slots 0-7 and those past the box are zero; the box (slot 8 on, 128-byte
+// aligned) holds band position slot - 8. Any 8 consecutive slots of a chunk
+// are one contiguous 128-byte core matrix, so a tap's shift is a
+// descriptor's start address.
 __host__ __device__ __forceinline__ int cbytes(const Geo& g) { return ((g.V + 7) * 16 + 127) / 128 * 128; }
 __host__ __device__ __forceinline__ int up1024(int v) { return (v + 1023) / 1024 * 1024; }
 // dw stage (bytes): [Mp] xn rows (128-byte swizzle), then the window
@@ -262,8 +299,9 @@ __host__ __device__ __forceinline__ int dw_stage_bytes(const Geo& g) {
   return up1024(g.Mp * 128 + 8 * cbytes(g));
 }
 int dw_smem(const Geo& g) { return 1024 + 2 * dw_stage_bytes(g); }
-int dx_smem(const Geo& g, int cout) {
-  return 1024 + (cout > kC ? 2 : 1) * kWElems * 2 + 2 * 8 * cbytes(g);
+// c: the channels the units chunk (cout for dx, cin for the forward)
+int dx_smem(const Geo& g, int c) {
+  return 1024 + (c > kC ? 2 : 1) * kWElems * 2 + 2 * 8 * cbytes(g);
 }
 
 struct Band {
@@ -309,12 +347,13 @@ __device__ __forceinline__ void group_range(int grp, int groups, int bands, int&
   b1 = static_cast<int>(static_cast<long long>(grp + 1) * bands / groups);
 }
 
-// Window slot v (of each chunk) holds dyc at band position v - 8 = rr P + cc,
-// image (i0 - 1 + rr, j0 - 1 + cc): the box [1, R + 2, P, 1, 8] from (img,
-// i0 - 1, j0 - 1) lands at slot 8, zero outside the image. Rows and columns
-// past the band's halo (a short last band or piece) hold whatever the box
-// brings: only outputs that are discarded, or multiplied by a zero xn, read
-// them.
+// Window slot v (of each chunk) holds dyc (or x, then xn) at band position
+// v - 8 = rr P + cc, image (i0 - 1 + rr, j0 - 1 + cc): the box [1, R + 2, P,
+// 1, 8] from (img, i0 - 1, j0 - 1) lands at slot 8, zero outside the image.
+// Rows and columns past the band's halo (a short last band or piece) hold
+// whatever the box brings: only outputs that are discarded, or multiplied by
+// a zero xn, read them. (They lie outside the image, so the forward's
+// prologue leaves them zero.)
 //
 // Output slot k is band position k + P (interior row k / P, column k % P - 1
 // of the piece): its flat NHWC position, or -1 off the band's interior (a pad
@@ -339,9 +378,14 @@ struct SlotWalk {
   }
 };
 
-// Output slot k under tap t = 3 di + dj reads window slot k + tap_slot(t).
+// Output slot k under tap t = 3 di + dj reads window slot k + tap_slot(t):
+// the backward's flipped tap, dyc at band position k + P - s_t ...
 __device__ __forceinline__ int tap_slot(const Geo& g, int di, int dj) {
   return (2 - di) * g.P + (2 - dj) + 7;
+}
+// ... and the forward's, xn at band position k + P + s_t.
+__device__ __forceinline__ int fwd_tap_slot(const Geo& g, int di, int dj) {
+  return di * g.P + dj + 7;
 }
 
 // dx's products for one unit, for a warpgroup that owns NT m64 tiles from
@@ -373,10 +417,40 @@ __device__ __forceinline__ void dx_products(float (&acc)[2][32], uint32_t win_u,
   wgmma_wait<0>();
 }
 
+// The forward's products for one unit, for a warpgroup that owns NT m64
+// tiles from tile0: acc[i] += sum_t xn_shifted(t) w_t over the 64-wide cin
+// chunk, every operand from shared memory, issued without waiting (the
+// caller waits after the next unit's prologue). A = xn shifted by tap t
+// (positions x cin chunk): the chunk-major window read as a K-major plain
+// descriptor, as dx_products reads dyc; B = w_t [cin chunk x cout tile] as
+// w9 stores it, N contiguous: MN-major with the 128-byte swizzle (8-row
+// groups along K 1024 bytes apart, one 64-wide atom along N).
+template <int NT>
+__device__ __forceinline__ void fwd_products(float (&acc)[2][32], uint32_t win_u, uint32_t wt_u,
+                                             int tile0, const Geo& g) {
+  const uint32_t cb = cbytes(g);
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t) {
+    const uint32_t a0 = win_u + (tile0 * 64 + fwd_tap_slot(g, t / 3, t % 3)) * 16;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kC / 16; ++ks) {
+      const uint64_t desc_b = smem_desc(wt_u + (t * kC + ks * 16) * 128, 1, 64);
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        wgmma_ss<0, 1>(acc[i], smem_desc_plain(a0 + 2 * ks * cb + i * 64 * 16, cb / 16, 8),
+                       desc_b);
+    }
+    wgmma_commit();
+  }
+}
+
 struct Args {
   const bf16* x;      // [n, h, w, cin]
   const float* a;     // [cin]
   const float* b;
+  bf16* y;            // forward: [n, h, w, cout]
+  float* part_y;      // forward: [groups, 2, cout]: s1, s2
   bf16* dx;           // [n, h, w, cin]
   float* part_dw;     // [dw groups, 9, cin, cout]
   float* part_dx;     // [dx groups, 2, cin]: da, db
@@ -387,6 +461,197 @@ struct Args {
 // Zero `elems` bf16 from p (16-byte aligned, a multiple of 8) with all threads.
 __device__ __forceinline__ void zero_smem(bf16* p, int elems, int tid, int threads) {
   for (int i = tid; i < elems / 8; i += threads) reinterpret_cast<uint4*>(p)[i] = make_uint4(0, 0, 0, 0);
+}
+
+// y and the s1/s2 partials. Grid: (cout / 64) tiles x groups CTAs; CTA
+// (tile, grp) walks its bands, each in cin / 64 chunks (a unit = one band,
+// one chunk). map_x: boxes [1, R + 2, P, 1, 8] of x, one per 8-channel
+// chunk; map_w: [9, 64, 64] of w9.
+__global__ void __launch_bounds__(kDxThreads, 1)
+    conv3_fwd_band_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w, Args p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[8][2][kC];
+  __shared__ __align__(8) uint64_t full[2];
+  bf16* const base = reinterpret_cast<bf16*>(align1024(smem));
+  const Geo g = p.geo;
+  const int nch = p.cin / kC;
+  const int wstages = nch > 1 ? 2 : 1;
+  // window s at wins + s * win_stride
+  bf16* const wins = base + wstages * kWElems;
+  const int cb = cbytes(g), win_stride = 8 * cb / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x / p.groups, grp = blockIdx.x % p.groups;
+  const int co0 = tile * kC;
+  int b0, b1;
+  group_range(grp, p.groups, g.bands, b0, b1);
+
+  zero_smem(wins, 2 * win_stride, tid, kDxThreads);
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+    prefetch_map(&map_x);
+    prefetch_map(&map_w);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int win_bytes = (g.R + 2) * g.P * kC * 2;
+  // thread 0 issues the boxes of unit 0, 1, ... (band b0 + u / nch, cin
+  // chunk u % nch) in turn
+  BandCursor cur;
+  cur.start(g, b0);
+  int cur_kc = 0;
+  auto issue = [&](int u, int s) {
+    const bool with_w = nch > 1 || u == 0;
+    const int i0 = cur.rb * g.R, j0 = cur.cb * g.Wp;
+    mbar_expect_tx(&full[s], win_bytes + (with_w ? kWElems * 2 : 0));
+    const uint32_t win = smem_u32(wins + s * win_stride);
+#pragma unroll 1
+    for (int c = 0; c < 8; ++c)
+      tma_5d(win + c * cb + 128, &map_x, &full[s], 0, cur_kc * 8 + c, j0 - 1, i0 - 1, cur.img);
+    // rows 64 t + ci of the weight stage: w9[t][kc * 64 + ci][co0 ..]
+    if (with_w)
+      tma_3d(smem_u32(base + (nch > 1 ? s : 0) * kWElems), &map_w, &full[s], co0, cur_kc * kC,
+             0);
+    if (++cur_kc == nch) cur_kc = 0, cur.next(g);
+  };
+
+  // the prologue of a unit's window in stage s: relu(x a + b) on the slots
+  // whose position lies in the image, the band's halo included (a real
+  // neighbour there); the slots outside the image keep the zeros TMA wrote.
+  // Warp w transforms 8-channel chunk w, lane l the slots l, l + 32, ...: a
+  // warp touches 512 contiguous bytes at a time.
+  auto prologue = [&](int s, int band, int kc) {
+    const Band bd = band_rect(g, band);
+    const int c0 = kc * kC + warp * 8;
+    float av[8], bv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) av[e] = __ldg(p.a + c0 + e), bv[e] = __ldg(p.b + c0 + e);
+    unsigned char* const chunk =
+        reinterpret_cast<unsigned char*>(wins + s * win_stride) + warp * cb + 128;
+    const int slots = (g.R + 2) * g.P;
+    SlotWalk wk(lane, 32, g.P);
+    for (int q0 = lane; q0 < slots; q0 += 128) {
+      bool in[4];
+      uint4 v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e, wk.next()) {
+        const int i = bd.i0 - 1 + wk.r, j = bd.j0 - 1 + wk.c;
+        in[e] = q0 + 32 * e < slots && i >= 0 && i < g.h && j >= 0 && j < g.w;
+        if (in[e]) v[e] = *reinterpret_cast<const uint4*>(chunk + (q0 + 32 * e) * 16);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!in[e]) continue;
+        __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&v[e]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(x2[k]);
+          x2[k] = __floats2bfloat162_rn(fmaxf(f.x * av[2 * k] + bv[2 * k], 0.f),
+                                        fmaxf(f.y * av[2 * k + 1] + bv[2 * k + 1], 0.f));
+        }
+        *reinterpret_cast<uint4*>(chunk + (q0 + 32 * e) * 16) = v[e];
+      }
+    }
+    fence_proxy_async();
+  };
+
+  // warpgroup wg = warp / 4 computes the band's m64 tiles 2 wg and 2 wg + 1
+  // (y [positions x cout tile] = xn_shifted w_t), warp wl = warp % 4 holding
+  // rows 16 wl .. 16 wl + 15 of each; lane 4 gq + t4 holds rows gq, gq + 8 of
+  // those and channels 8 j + 2 t4, 8 j + 2 t4 + 1
+  const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, t4 = lane & 3;
+  const int mtiles = g.Md / 64;
+  float s1[8][2], s2[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+  float acc[2][32];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+
+  // one unit ahead: while unit u's products run on the tensor cores, its
+  // successor's boxes land and get their prologue
+  const int units = (b1 - b0) * nch;
+  if (units > 0) {
+    if (tid == 0) issue(0, 0);
+    mbar_wait(&full[0], 0);
+    prologue(0, b0, 0);
+    __syncthreads();
+  }
+  for (int u = 0; u < units; ++u) {
+    const int s = u & 1;
+    // stage s ^ 1 was freed by the barrier that ended the previous unit
+    if (tid == 0 && u + 1 < units) issue(u + 1, s ^ 1);
+    const uint32_t win_u = smem_u32(wins + s * win_stride);
+    const uint32_t wt_u = smem_u32(base + (nch > 1 ? s : 0) * kWElems);
+    // the tile count is uniform over a warpgroup and tested outside the
+    // pipelined products
+    if (2 * wg + 1 < mtiles)
+      fwd_products<2>(acc, win_u, wt_u, 2 * wg, g);
+    else if (2 * wg < mtiles)
+      fwd_products<1>(acc, win_u, wt_u, 2 * wg, g);
+    if (u + 1 < units) {
+      mbar_wait(&full[s ^ 1], ((u + 1) >> 1) & 1);
+      prologue(s ^ 1, b0 + (u + 1) / nch, (u + 1) % nch);
+    }
+    wgmma_wait<0>();
+    if (u % nch == nch - 1) {
+      // the band's epilogue: interior positions only, the statistics from
+      // the f32 sums
+      const Band bd = band_rect(g, b0 + u / nch);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long pos = interior_pos(g, bd, (2 * wg + i) * 64 + wl * 16 + gq + half * 8);
+          if (pos < 0) continue;
+          bf16* const out = p.y + pos * p.cout + co0 + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float v0 = acc[i][4 * j + 2 * half], v1 = acc[i][4 * j + 2 * half + 1];
+            s1[j][0] += v0, s1[j][1] += v1;
+            s2[j][0] += v0 * v0, s2[j][1] += v1 * v1;
+            *reinterpret_cast<__nv_bfloat162*>(out + j * 8) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+      }
+    }
+    __syncthreads();  // every warp is done with stage s before it is refilled
+  }
+
+  // s1/s2 over the CTA's positions in a fixed order: the 8 row groups of a
+  // warp by shuffles, then the 8 warps through shared memory
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], o);
+        s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], o);
+      }
+  if (gq == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp][0][j * 8 + 2 * t4 + e] = s1[j][e];
+        red[warp][1][j * 8 + 2 * t4 + e] = s2[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * kC) {
+    const int which = tid / kC, c = tid % kC;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sum += red[w][which][c];
+    p.part_y[(static_cast<long long>(grp) * 2 + which) * p.cout + co0 + c] = sum;
+  }
 }
 
 // dyc = bf16(dy + gs1 + 2 y gs2), 8 elements a thread.
@@ -793,6 +1058,50 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim
   } while (0)
 
 }  // namespace
+
+// K8 forward. x [n, h, w, cin], w9 [9, cin, cout] bf16; a, b [cin] f32.
+// Scratch: part [groups, 2, cout] f32. Outputs: y [n, h, w, cout] bf16,
+// stats [2, cout] f32 (s1, s2). Bands of R rows x Wp columns; groups CTAs
+// per cout tile share the bands.
+extern "C" int conv3x3_bn_fwd(const void* x, const void* w9, const float* a, const float* b,
+                              void* y, float* part, float* stats, int n, int h, int wd, int cin,
+                              int cout, int R, int Wp, int groups, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a == nullptr || b == nullptr || n < 1 || h < 1 || wd < 1 || cin < kC || cin % kC != 0 ||
+      cout < kC || cout % kC != 0 || R < 1 || R > h || Wp < 1 || Wp > wd || groups < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo g = make_geo(n, h, wd, R, Wp);
+  const int smem = dx_smem(g, cin);
+  // TMA boxes hold at most 256 elements a side
+  if (g.Md > kDxMaxM || g.P > 256 || R + 2 > 256 || smem > kSmemDynamic)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int attr = static_cast<int>(cudaFuncSetAttribute(
+      conv3_fwd_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynamic));
+  C3_TRY(attr);
+
+  CUtensorMap map_x, map_w;
+  // x as [n, h, w, cin / 8, 8]: one box per 8-channel chunk
+  const cuuint64_t dims_x[5] = {8, static_cast<cuuint64_t>(cin / 8), static_cast<cuuint64_t>(wd),
+                                static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t dims_w[3] = {static_cast<cuuint64_t>(cout), static_cast<cuuint64_t>(cin), 9};
+  const cuuint32_t box_x[5] = {8, 1, static_cast<cuuint32_t>(g.P), static_cast<cuuint32_t>(R + 2),
+                               1};
+  const cuuint32_t box_w[3] = {kC, kC, 9};
+  if (!make_map(&map_x, x, 5, dims_x, box_x, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map(&map_w, w9, 3, dims_w, box_w, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  Args p{};
+  p.x = static_cast<const bf16*>(x);
+  p.a = a, p.b = b;
+  p.y = static_cast<bf16*>(y);
+  p.part_y = part;
+  p.cin = cin, p.cout = cout, p.groups = groups;
+  p.geo = g;
+  conv3_fwd_band_kernel<<<(cout / kC) * groups, kDxThreads, smem, st>>>(map_x, map_w, p);
+  C3_TRY(static_cast<int>(cudaGetLastError()));
+  return reduce(part, stats, groups, 2LL * cout, st);
+}
 
 // K8 backward. x [n, h, w, cin], w9 [9, cin, cout], y, dy [n, h, w, cout] bf16;
 // a, b [cin], gs1, gs2 [cout] f32. Scratch: dyc [n, h, w, cout] bf16, part_dw

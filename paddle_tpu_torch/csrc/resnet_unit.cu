@@ -1,40 +1,36 @@
-// Fused convolution + BatchNorm kernels for NVIDIA Hopper (sm_90a): kernels K7
-// (1x1 conv) and K8 (3x3 conv, stride 1, pad 1) of the port.
+// Fused 1x1 convolution + BatchNorm kernels for NVIDIA Hopper (sm_90a): kernel
+// K7 of the port.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/resnet_unit.py:
-//   K7 forward  `_fwd_impl` -> `_fwd_kernel`        (resnet_unit_fwd, taps = 1)
-//   K7 backward `_bwd_impl` -> `_bwd_kernel`        (resnet_unit_bwd, taps = 1)
-//   K8 forward  `_conv3_fwd_impl` -> `_conv3_fwd_kernel`  (resnet_unit_fwd, taps = 9)
-// K8's backward (`_conv3_bwd_impl` -> `_conv3_bwd_kernel`) has its own source,
-// conv3x3_bn_bwd.cu, built around bands of whole image rows in shared memory.
+//   K7 forward  `_fwd_impl` -> `_fwd_kernel`        (resnet_unit_fwd)
+//   K7 backward `_bwd_impl` -> `_bwd_kernel`        (resnet_unit_bwd)
+// K8, the 3x3 conv (`_conv3_fwd_impl`, `_conv3_bwd_impl`), has its own source,
+// conv3x3_bn.cu, built around bands of whole image rows in shared memory.
 //
-// Function (NHWC rows, bf16 activations and weights, f32 accumulation):
+// Function (rows of NHWC, bf16 activations and weights, f32 accumulation):
 //   forward   xn = relu(x * a + b) rounded to bf16 (the optional prologue: the
-//             previous BatchNorm's f32 scale/shift), y = conv(xn, w), and the
+//             previous BatchNorm's f32 scale/shift), y = xn w, and the
 //             BatchNorm statistics s1 = sum_rows(y), s2 = sum_rows(y^2) taken
 //             from the f32 accumulator before y is rounded to bf16.
-//   backward  (K7) dyc = bf16(dy + gs1 + 2 y gs2) (the statistics' cotangent
+//   backward  dyc = bf16(dy + gs1 + 2 y gs2) (the statistics' cotangent
 //             folded into dy, y recomputed), dw = xn^T dyc (f32), dxn = dyc w^T,
 //             and with the prologue du = dxn [u > 0], dx = bf16(du a),
 //             da = sum(du x), db = sum(du).
-// The 3x3 conv is an implicit GEMM over K = 9 cin: tap t = 3 di + dj reads xn at
-// (i + di - 1, j + dj - 1), and the halo is zero in xn (the prologue is not
-// applied to it), as the Pallas kernel pads after the prologue.
 //
 // Work split. The TPU kernels run their grid in order and carry s1/s2, dw, da
 // and db in VMEM from one grid step to the next. Hopper's CTAs run in parallel
 // and in no order, so every cross-CTA sum here is a partial per CTA followed by
 // a second, deterministic pass (col_reduce_kernel: fixed order, no atomics):
-//   gemm_rows_kernel  C[M, N] = sum_t A_t[M, Ca] B_t[Ca, N], a 128 x BN tile per
-//                     CTA (BN = 128, or 64 for 64 channels), 8 warps of 32 x
+//   gemm_rows_kernel  C[M, N] = A[M, Ca] B[Ca, N], a 128 x BN tile per CTA
+//                     (BN = 128, or 64 for 64 channels), 8 warps of 32 x
 //                     BN/2; A is x (forward, with the prologue applied in
-//                     shared memory after the copy lands) or dyc (dx), shifted
-//                     per tap in K8's forward. Epilogues: y + s1/s2 partials;
+//                     shared memory after the copy lands) or dyc (dx).
+//                     Epilogues: y + s1/s2 partials;
 //                     dyc; dx + da/db partials; each stages its output tile (and the
 //                     dy or x tile it reads) in shared memory, so device
 //                     memory sees whole 16-byte row pieces.
 //   gemm_dw_kernel    dw partials: a BM x BN tile of [cin, cout] per CTA, one
-//                     tap, one chunk of rows (split-K over M), A = xn^T from
+//                     chunk of rows (split-K over M), A = xn^T from
 //                     rows of x through the transposing ldmatrix.
 //   col_reduce_kernel out[c] = sum_t part[t][c] in a fixed order.
 // K7 backward is dyc (GEMM recomputing y), dx, dw and two reductions.
@@ -43,13 +39,13 @@
 // from shared memory through ldmatrix, f32 accumulators in registers); tiles of
 // 32 rows (K) stream through a four-stage cp.async pipeline (three tiles in
 // flight ahead of the one in use, one barrier a tile), and cp.async zero-fills
-// rows that lie past M or in the halo.
+// rows that lie past M.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at ResNet-50's
 // shapes (batch 256, 224^2) the 1x1 convs of stage 1 do cin cout / (cin + cout)
 // = 32-51 operations per byte and are bound by bytes; stage 4's 1x1 (2048 ->
-// 512, 12,544 rows) and the 3x3s do 290-1,150 and are bound by operations
-// (the card's balance point is ~295). The design reads each activation once per GEMM and keeps xn,
+// 512, 12,544 rows) does ~1,150 and is bound by operations (the card's
+// balance point is ~295). The design reads each activation once per GEMM and keeps xn,
 // y (K7 backward) and the statistics out of device memory. It is the simple
 // form: mma.sync instead of wgmma, cp.async instead of TMA; those are the
 // steps toward the bound.
@@ -166,18 +162,6 @@ __device__ __forceinline__ void prologue8(bf16* p, const float* a, const float* 
   *reinterpret_cast<uint4*>(p) = v;
 }
 
-// Where tap t of row m (image row i, column j) reads: the source row, or -1 in
-// the halo or past M. sign = +1: the forward taps (i + di - 1, j + dj - 1);
-// -1: the flipped taps. Rows are 32-bit (the wrapper bounds M).
-template <int TAPS, int SIGN>
-__device__ __forceinline__ int tap_row(int m, int i, int j, int M, int t, int h, int w) {
-  if (m >= M) return -1;
-  if (TAPS == 1) return m;
-  const int dh = SIGN * (t / 3 - 1), dw = SIGN * (t % 3 - 1);
-  if (i + dh < 0 || i + dh >= h || j + dw < 0 || j + dw >= w) return -1;
-  return m + dh * w + dw;
-}
-
 // Shared-memory tiles of gemm_rows_kernel: A [128][PA] and B ([32][PB] when
 // stored [k][n], [BN][PB] when stored [n][k]), kStages of each.
 template <int BN, bool BTRANS>
@@ -201,7 +185,7 @@ struct DwTile {
 
 struct RowsArgs {
   const bf16* src;    // A rows [M, Ca]: x, or dyc for dx
-  const bf16* w;      // weights: [taps, Ca, N] (BTRANS) or [taps, N, Ca]
+  const bf16* w;      // weights: [Ca, N] (BTRANS) or [N, Ca]
   const float* a;     // prologue / mask scale [channels of x], or null
   const float* b;     // prologue / mask shift
   const bf16* xe;     // dx epilogue: x [M, N]
@@ -210,12 +194,12 @@ struct RowsArgs {
   const float* gs2;
   bf16* out;          // y, dyc or dx [M, N]
   float* part;        // column partials [M tiles, 2, N] (y: s1, s2; dx: da, db)
-  int M, N, Ca, h, wd;  // rows, output channels, A channels, image size
+  int M, N, Ca;       // rows (32-bit: the wrapper bounds M), output channels, A channels
 };
 
-// C[M, N] = sum_t A_t[M, Ca] B_t[Ca, N] with one of three epilogues.
+// C[M, N] = A[M, Ca] B[Ca, N] with one of three epilogues.
 // Grid: (N / BN, ceil(M / 128)).
-template <int BN, int TAPS, int SIGN, bool APRO, bool BTRANS, int EPI, bool EMASK>
+template <int BN, bool APRO, bool BTRANS, int EPI, bool EMASK>
 __global__ void __launch_bounds__(kThreads) gemm_rows_kernel(RowsArgs p) {
   constexpr int WN = BN / 2;      // warp tile: 32 rows x WN columns
   constexpr int NT = WN / 8;      // 8-column MMA tiles per warp
@@ -230,41 +214,36 @@ __global__ void __launch_bounds__(kThreads) gemm_rows_kernel(RowsArgs p) {
   const int warp_m = warp & 3, warp_n = warp >> 2;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * kBM;
-  const int kc_per_tap = p.Ca / kBK;
-  const int steps = TAPS * kc_per_tap;
-  // the two rows whose A chunks this thread copies, with their image
-  // coordinates (computed once: the taps only shift them)
-  int rm[2], ri[2], rj[2];
+  const int steps = p.Ca / kBK;
+  // the two rows whose A chunks this thread copies
+  int rm[2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    rm[q] = m0 + ((tid + q * kThreads) >> 2);
-    rj[q] = rm[q] % p.wd;
-    ri[q] = (rm[q] / p.wd) % p.h;
-  }
+  for (int q = 0; q < 2; ++q) rm[q] = m0 + ((tid + q * kThreads) >> 2);
 
   auto load_stage = [&](int step, int buf) {
-    const int t = step / kc_per_tap, c0 = (step % kc_per_tap) * kBK;
-    // A: 128 rows x 4 chunks of 8 channels; two chunks a thread
+    const int c0 = step * kBK;
+    // A: 128 rows x 4 chunks of 8 channels; two chunks a thread (rows past M
+    // zero-filled)
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int r = (tid + q * kThreads) >> 2, cc = (tid & 3) * 8;
-      const int src = tap_row<TAPS, SIGN>(rm[q], ri[q], rj[q], p.M, t, p.h, p.wd);
-      const bf16* from = src >= 0 ? p.src + static_cast<long long>(src) * p.Ca + c0 + cc : p.src;
-      cp_async16(sA + buf * T::kAElems + r * PA + cc, from, src >= 0);
+      const bool ok = rm[q] < p.M;
+      const bf16* from = ok ? p.src + static_cast<long long>(rm[q]) * p.Ca + c0 + cc : p.src;
+      cp_async16(sA + buf * T::kAElems + r * PA + cc, from, ok);
     }
-    // B: the weights of tap t, rows k = c0.., columns n0..
+    // B: rows k = c0.., columns n0..
     if (BTRANS) {
       constexpr int kChunks = kBK * BN / 8;
       for (int chunk = tid; chunk < kChunks; chunk += kThreads) {
         const int k = chunk / (BN / 8), nn = (chunk % (BN / 8)) * 8;
-        const bf16* from = p.w + (static_cast<long long>(t) * p.Ca + c0 + k) * p.N + n0 + nn;
+        const bf16* from = p.w + static_cast<long long>(c0 + k) * p.N + n0 + nn;
         cp_async16(sB + buf * T::kBElems + k * PB + nn, from, true);
       }
     } else {
       constexpr int kChunks = BN * kBK / 8;
       for (int chunk = tid; chunk < kChunks; chunk += kThreads) {
         const int nn = chunk >> 2, k = (chunk & 3) * 8;
-        const bf16* from = p.w + (static_cast<long long>(t) * p.N + n0 + nn) * p.Ca + c0 + k;
+        const bf16* from = p.w + static_cast<long long>(n0 + nn) * p.Ca + c0 + k;
         cp_async16(sB + buf * T::kBElems + nn * PB + k, from, true);
       }
     }
@@ -292,14 +271,12 @@ __global__ void __launch_bounds__(kThreads) gemm_rows_kernel(RowsArgs p) {
     const bf16* a_tile = sA + buf * T::kAElems;
     const bf16* b_tile = sB + buf * T::kBElems;
     if (APRO) {
-      // apply the prologue to this thread's own chunks, but not to the zero
-      // halo or rows past M
-      const int t = step / kc_per_tap, c0 = (step % kc_per_tap) * kBK;
+      // apply the prologue to this thread's own chunks, but not to the
+      // zero-filled rows past M
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int r = (tid + q * kThreads) >> 2, cc = (tid & 3) * 8;
-        if (tap_row<TAPS, SIGN>(rm[q], ri[q], rj[q], p.M, t, p.h, p.wd) >= 0)
-          prologue8(sA + buf * T::kAElems + r * PA + cc, p.a, p.b, c0 + cc);
+        if (rm[q] < p.M) prologue8(sA + buf * T::kAElems + r * PA + cc, p.a, p.b, step * kBK + cc);
       }
     }
     // tile `step` is complete for every thread, and every warp is done with
@@ -431,14 +408,14 @@ struct DwArgs {
   const bf16* dyc;    // [M, N]
   const float* a;     // prologue, or null
   const float* b;
-  float* part;        // [splits, taps, Cin, N]
-  int M, Cin, N, h, wd, ksplit;
+  float* part;        // [splits, Cin, N]
+  int M, Cin, N, ksplit;
 };
 
-// dw partials: part[split][t] = sum over the split's rows m of
-// xn_t[m]^T dyc[m], a BM x BN tile of [Cin, N] per CTA.
-// Grid: ((Cin / BM) * (N / BN), taps, splits).
-template <int BM, int BN, int TAPS, bool APRO>
+// dw partials: part[split] = sum over the split's rows m of xn[m]^T dyc[m],
+// a BM x BN tile of [Cin, N] per CTA.
+// Grid: ((Cin / BM) * (N / BN), 1, splits).
+template <int BM, int BN, bool APRO>
 __global__ void __launch_bounds__(kThreads) gemm_dw_kernel(DwArgs p) {
   constexpr int WARPS_M = BM / 32, WARPS_N = 8 / WARPS_M;
   constexpr int WN = BN / WARPS_N, NT = WN / 8;
@@ -452,24 +429,19 @@ __global__ void __launch_bounds__(kThreads) gemm_dw_kernel(DwArgs p) {
   const int warp_m = warp % WARPS_M, warp_n = warp / WARPS_M;
   const int tiles_m = p.Cin / BM;
   const int ci0 = (blockIdx.x % tiles_m) * BM, co0 = (blockIdx.x / tiles_m) * BN;
-  const int t = blockIdx.y;
   const int k_begin = blockIdx.z * p.ksplit;
   const int k_end = k_begin + p.ksplit < p.M ? k_begin + p.ksplit : p.M;
   const int steps = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
-  // the source row of tap t for row m of the chunk, or -1
-  auto src_row = [&](int m) -> int {
-    if (m >= k_end) return -1;
-    return TAPS == 1 ? m : tap_row<TAPS, 1>(m, (m / p.wd) % p.h, m % p.wd, p.M, t, p.h, p.wd);
-  };
 
   auto load_stage = [&](int step, int buf) {
     const int r0 = k_begin + step * kBK;
     constexpr int kAChunks = kBK * BM / 8;
     for (int chunk = tid; chunk < kAChunks; chunk += kThreads) {
       const int r = chunk / (BM / 8), cc = (chunk % (BM / 8)) * 8;
-      const int src = src_row(r0 + r);
-      const bf16* from = src >= 0 ? p.x + static_cast<long long>(src) * p.Cin + ci0 + cc : p.x;
-      cp_async16(sA + buf * T::kAElems + r * PA + cc, from, src >= 0);
+      const int m = r0 + r;
+      const bool ok = m < k_end;
+      const bf16* from = ok ? p.x + static_cast<long long>(m) * p.Cin + ci0 + cc : p.x;
+      cp_async16(sA + buf * T::kAElems + r * PA + cc, from, ok);
     }
     constexpr int kBChunks = kBK * BN / 8;
     for (int chunk = tid; chunk < kBChunks; chunk += kThreads) {
@@ -505,7 +477,7 @@ __global__ void __launch_bounds__(kThreads) gemm_dw_kernel(DwArgs p) {
       constexpr int kAChunks = kBK * BM / 8;
       for (int chunk = tid; chunk < kAChunks; chunk += kThreads) {
         const int r = chunk / (BM / 8), cc = (chunk % (BM / 8)) * 8;
-        if (src_row(r0 + r) >= 0)
+        if (r0 + r < k_end)
           prologue8(sA + buf * T::kAElems + r * PA + cc, p.a, p.b, ci0 + cc);
       }
     }
@@ -535,7 +507,7 @@ __global__ void __launch_bounds__(kThreads) gemm_dw_kernel(DwArgs p) {
   cp_async_wait<0>();
 
   const int g = lane >> 2, t4 = lane & 3;
-  float* out = p.part + ((static_cast<long long>(blockIdx.z) * TAPS + t) * p.Cin) * p.N;
+  float* out = p.part + static_cast<long long>(blockIdx.z) * p.Cin * p.N;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -581,9 +553,9 @@ int reduce(const float* part, float* out, int T, long long C, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, int TAPS, int SIGN, bool APRO, bool BTRANS, int EPI, bool EMASK>
+template <int BN, bool APRO, bool BTRANS, int EPI, bool EMASK>
 int launch_rows(const RowsArgs& p, cudaStream_t st) {
-  const auto kernel = gemm_rows_kernel<BN, TAPS, SIGN, APRO, BTRANS, EPI, EMASK>;
+  const auto kernel = gemm_rows_kernel<BN, APRO, BTRANS, EPI, EMASK>;
   constexpr int bytes = RowsTile<BN, BTRANS>::kBytes;
   // dynamic shared memory above the default 48 KB is opted into once per kernel
   static const int attr = static_cast<int>(
@@ -595,42 +567,42 @@ int launch_rows(const RowsArgs& p, cudaStream_t st) {
 }
 
 // The row GEMM for a given output width (BN = 128 when it divides N, else 64).
-template <int TAPS, int SIGN, bool APRO, bool BTRANS, int EPI, bool EMASK>
+template <bool APRO, bool BTRANS, int EPI, bool EMASK>
 int rows_any(const RowsArgs& p, cudaStream_t st) {
-  return p.N % 128 == 0 ? launch_rows<128, TAPS, SIGN, APRO, BTRANS, EPI, EMASK>(p, st)
-                        : launch_rows<64, TAPS, SIGN, APRO, BTRANS, EPI, EMASK>(p, st);
+  return p.N % 128 == 0 ? launch_rows<128, APRO, BTRANS, EPI, EMASK>(p, st)
+                        : launch_rows<64, APRO, BTRANS, EPI, EMASK>(p, st);
 }
 
-template <int BM, int BN, int TAPS, bool APRO>
+template <int BM, int BN, bool APRO>
 int launch_dw(const DwArgs& p, int splits, cudaStream_t st) {
-  const auto kernel = gemm_dw_kernel<BM, BN, TAPS, APRO>;
+  const auto kernel = gemm_dw_kernel<BM, BN, APRO>;
   constexpr int bytes = DwTile<BM, BN>::kBytes;
   static const int attr = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   RU_TRY(attr);
-  const dim3 grid((p.Cin / BM) * (p.N / BN), TAPS, splits);
+  const dim3 grid((p.Cin / BM) * (p.N / BN), 1, splits);
   kernel<<<grid, kThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TAPS, bool APRO>
+template <bool APRO>
 int dw_any(const DwArgs& p, int splits, cudaStream_t st) {
   const bool m128 = p.Cin % 128 == 0, n128 = p.N % 128 == 0;
-  if (m128 && n128) return launch_dw<128, 128, TAPS, APRO>(p, splits, st);
-  if (m128) return launch_dw<128, 64, TAPS, APRO>(p, splits, st);
-  if (n128) return launch_dw<64, 128, TAPS, APRO>(p, splits, st);
-  return launch_dw<64, 64, TAPS, APRO>(p, splits, st);
+  if (m128 && n128) return launch_dw<128, 128, APRO>(p, splits, st);
+  if (m128) return launch_dw<128, 64, APRO>(p, splits, st);
+  if (n128) return launch_dw<64, 128, APRO>(p, splits, st);
+  return launch_dw<64, 64, APRO>(p, splits, st);
 }
 
 }  // namespace
 
-// Forward of K7 (taps = 1) or K8 (taps = 9; then a, b are required).
-//   x [M, cin] bf16 (NHWC rows; h, w the image size for taps = 9), w [taps, cin,
-//   cout] bf16, a/b [cin] f32 or null, y [M, cout] bf16, part [ceil(M / 128),
-//   2, cout] f32 scratch, stats [2, cout] f32 (s1, s2).
+// Forward of K7.
+//   x [M, cin] bf16 (NHWC rows), w [cin, cout] bf16, a/b [cin] f32 or null,
+//   y [M, cout] bf16, part [ceil(M / 128), 2, cout] f32 scratch, stats [2,
+//   cout] f32 (s1, s2).
 extern "C" int resnet_unit_fwd(const void* x, const void* w, const float* a, const float* b,
                                void* y, float* part, float* stats, int M, int cin, int cout,
-                               int h, int wd, int taps, void* stream) {
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   RowsArgs p{};
   p.src = static_cast<const bf16*>(x);
@@ -638,25 +610,18 @@ extern "C" int resnet_unit_fwd(const void* x, const void* w, const float* a, con
   p.a = a, p.b = b;
   p.out = static_cast<bf16*>(y);
   p.part = part;
-  p.M = M, p.N = cout, p.Ca = cin, p.h = h, p.wd = wd;
-  if (taps == 9) {
-    if (a == nullptr || b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    RU_TRY((rows_any<9, 1, true, true, kEpiY, false>(p, st)));
-  } else if (taps == 1) {
-    if (a != nullptr)
-      RU_TRY((rows_any<1, 1, true, true, kEpiY, false>(p, st)));
-    else
-      RU_TRY((rows_any<1, 1, false, true, kEpiY, false>(p, st)));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  p.M = M, p.N = cout, p.Ca = cin;
+  if (a != nullptr)
+    RU_TRY((rows_any<true, true, kEpiY, false>(p, st)));
+  else
+    RU_TRY((rows_any<false, true, kEpiY, false>(p, st)));
   return reduce(part, stats, (M + kBM - 1) / kBM, 2LL * cout, st);
 }
 
 // Backward of K7.
 //   dy [M, cout] bf16, gs1/gs2 [cout] f32; scratch dyc [M, cout] bf16,
-//   part_dx [ceil(M / 128), 2, cin] f32, part_dw [splits, 1, cin, cout] f32.
-//   Outputs dx [M, cin] bf16, dw [1, cin, cout] f32, dadb [2, cin] f32 (da,
+//   part_dx [ceil(M / 128), 2, cin] f32, part_dw [splits, cin, cout] f32.
+//   Outputs dx [M, cin] bf16, dw [cin, cout] f32, dadb [2, cin] f32 (da,
 //   db; with a prologue only). splits chunks of ksplit rows (a multiple of 32)
 //   cover M.
 extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, const float* b,
@@ -676,11 +641,11 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.dy = static_cast<const bf16*>(dy);
     p.gs1 = gs1, p.gs2 = gs2;
     p.out = static_cast<bf16*>(dyc);
-    p.M = M, p.N = cout, p.Ca = cin, p.h = 1, p.wd = 1;
+    p.M = M, p.N = cout, p.Ca = cin;
     if (pro)
-      RU_TRY((rows_any<1, 1, true, true, kEpiDyc, false>(p, st)));
+      RU_TRY((rows_any<true, true, kEpiDyc, false>(p, st)));
     else
-      RU_TRY((rows_any<1, 1, false, true, kEpiDyc, false>(p, st)));
+      RU_TRY((rows_any<false, true, kEpiDyc, false>(p, st)));
   }
   // 2. dx (with the mask, da/db partials)
   {
@@ -691,11 +656,11 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.xe = static_cast<const bf16*>(x);
     p.out = static_cast<bf16*>(dx);
     p.part = part_dx;
-    p.M = M, p.N = cin, p.Ca = cout, p.h = 1, p.wd = 1;
+    p.M = M, p.N = cin, p.Ca = cout;
     if (pro)
-      RU_TRY((rows_any<1, 1, false, false, kEpiDx, true>(p, st)));
+      RU_TRY((rows_any<false, false, kEpiDx, true>(p, st)));
     else
-      RU_TRY((rows_any<1, 1, false, false, kEpiDx, false>(p, st)));
+      RU_TRY((rows_any<false, false, kEpiDx, false>(p, st)));
   }
   // 3. dw partials per row chunk, then their sum
   {
@@ -704,11 +669,11 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     p.dyc = static_cast<const bf16*>(dyc);
     p.a = a, p.b = b;
     p.part = part_dw;
-    p.M = M, p.Cin = cin, p.N = cout, p.h = 1, p.wd = 1, p.ksplit = ksplit;
+    p.M = M, p.Cin = cin, p.N = cout, p.ksplit = ksplit;
     if (pro)
-      RU_TRY((dw_any<1, true>(p, splits, st)));
+      RU_TRY((dw_any<true>(p, splits, st)));
     else
-      RU_TRY((dw_any<1, false>(p, splits, st)));
+      RU_TRY((dw_any<false>(p, splits, st)));
   }
   RU_TRY(reduce(part_dw, dw, splits, static_cast<long long>(cin) * cout, st));
   if (pro) RU_TRY(reduce(part_dx, dadb, (M + kBM - 1) / kBM, 2LL * cin, st));

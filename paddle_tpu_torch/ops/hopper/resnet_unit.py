@@ -5,10 +5,11 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/resnet_unit.py``:
 ``fused_conv1x1_bn`` (K7: ``_fwd_kernel`` via ``_fwd_impl``, ``_bwd_kernel``
 via ``_bwd_impl``) and ``fused_conv3x3_bn`` (K8: ``_conv3_fwd_kernel``,
 ``_conv3_bwd_kernel``). The kernels are CUDA C++ for ``sm_90a`` in
-``paddle_tpu_torch/csrc/resnet_unit.cu`` (K7, K8's forward) and
-``paddle_tpu_torch/csrc/conv3x3_bn_bwd.cu`` (K8's backward), built with
-``nvcc`` on first use and called through ``ctypes``; each source's header
-note says how its kernels work.
+``paddle_tpu_torch/csrc/resnet_unit.cu`` (K7) and
+``paddle_tpu_torch/csrc/conv3x3_bn.cu`` (K8, both directions, on bands
+of whole image rows), built with ``nvcc`` on first use and called
+through ``ctypes``; each source's header note says how its kernels
+work.
 
 Forward, over NHWC rows: ``xn = relu(x * a + b)`` rounded to x's dtype
 (the optional prologue: the previous BatchNorm's f32 scale and shift),
@@ -25,7 +26,8 @@ taps.
 
 What bounds them on an H100: the 1x1 convs of ResNet-50's first stage
 (64 and 256 channels) do too few operations per byte and are bound by
-bytes; the wide 1x1 convs and the 3x3 convs are bound by operations.
+bytes, as is the 3x3 conv at 64 channels; the wide 1x1 convs and the
+wider 3x3 convs are bound by operations.
 The kernels read each activation once per product, keep xn and the
 statistics out of device memory, and replace the TPU kernels' sums
 carried through a sequential grid with per-CTA partials and a second,
@@ -53,15 +55,15 @@ import torch.nn.functional as F
 from ._build import build_library
 
 _SOURCES = ["resnet_unit.cu"]
-_CONV3_BWD_SOURCES = ["conv3x3_bn_bwd.cu"]
+_CONV3_SOURCES = ["conv3x3_bn.cu"]
 _ROW_TILE = 128     # rows of a CTA tile in the kernels' row GEMMs
 _K_TILE = 32        # rows of a split-K chunk must be a multiple of this
 _MAX_ROW_TILES = 65535
 
-# K8's backward works on bands (conv3x3_bn_bwd.cu): 64-channel tiles of
-# 128-byte shared-memory rows, at most 256 positions a band for the dx
-# kernel's two warpgroups, within the shared memory a block may opt into
-# on an H100 less 5 KB for the kernels' static shared memory
+# K8 works on bands (conv3x3_bn.cu): 64-channel tiles of 128-byte
+# shared-memory rows, at most 256 positions a band for the two warpgroups
+# of the forward and dx kernels, within the shared memory a block may opt
+# into on an H100 less 5 KB for the kernels' static shared memory
 _C3_TILE = 64
 _C3_ROW_BYTES = 128
 _C3_MAX_M = 256
@@ -202,7 +204,7 @@ def _library():
     path, _ = build_library("resnet_unit", _SOURCES)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.resnet_unit_fwd.restype = i
     lib.resnet_unit_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.resnet_unit_bwd.restype = i
@@ -210,28 +212,30 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def _conv3_bwd_library():
-    path, _ = build_library("conv3x3_bn_bwd", _CONV3_BWD_SOURCES)
+def _conv3_library():
+    path, _ = build_library("conv3x3_bn", _CONV3_SOURCES)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_bn_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.conv3x3_bn_fwd.restype = i
     lib.conv3x3_bn_bwd.argtypes = [p] * 14 + [i] * 9 + [p]
     lib.conv3x3_bn_bwd.restype = i
     return lib
 
 
 def build() -> str:
-    """Build (or reuse) K7's and K8's forward library now; returns the
-    compiler log ("" when an earlier build was reused)."""
+    """Build (or reuse) K7's library now; returns the compiler log (""
+    when an earlier build was reused)."""
     _, log = build_library("resnet_unit", _SOURCES)
     _library()
     return log
 
 
-def build_conv3x3_bwd() -> str:
-    """Build (or reuse) K8's backward library now; returns the compiler
-    log ("" when an earlier build was reused)."""
-    _, log = build_library("conv3x3_bn_bwd", _CONV3_BWD_SOURCES)
-    _conv3_bwd_library()
+def build_conv3x3() -> str:
+    """Build (or reuse) K8's library (forward and backward) now; returns
+    the compiler log ("" when an earlier build was reused)."""
+    _, log = build_library("conv3x3_bn", _CONV3_SOURCES)
+    _conv3_library()
     return log
 
 
@@ -274,7 +278,7 @@ def _check_channels(rows, cin, cout):
                          f"{_ROW_TILE * _MAX_ROW_TILES}")
 
 
-def _launch_fwd(x, w, a, b, rows, cin, cout, h, wd, taps):
+def _launch_fwd(x, w, a, b, rows, cin, cout):
     dev = x.device
     y = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
     part = torch.empty((-(-rows // _ROW_TILE), 2, cout), device=dev,
@@ -284,8 +288,7 @@ def _launch_fwd(x, w, a, b, rows, cin, cout, h, wd, taps):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().resnet_unit_fwd(
             x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), rows, cin, cout, h, wd, taps,
-            stream)
+            part.data_ptr(), stats.data_ptr(), rows, cin, cout, stream)
     if rc != 0:
         raise RuntimeError(f"resnet_unit forward launch failed: CUDA error "
                            f"{rc}")
@@ -332,9 +335,9 @@ def _launch_bwd(x, w, a, b, gy, gs1, gs2, rows, cin, cout):
     return dx, dw, None, None
 
 
-# -- K8's backward: the band plan ---------------------------------------------
+# -- K8: the band plan ----------------------------------------------------------
 #
-# conv3x3_bn_bwd.cu mirrors these: a band is ``rows`` image rows of one
+# conv3x3_bn.cu mirrors these: a band is ``rows`` image rows of one
 # image (a piece of ``cols`` columns of them when the image is wide), kept
 # in shared memory with a halo row above and below and a halo column on
 # each side, so a band row holds ``cols + 2`` positions. Bands are
@@ -349,8 +352,8 @@ def conv3_band_geometry(rows, cols):
     """(pitch, computed, dx_computed, window) of a band of ``rows`` x
     ``cols``: the positions of a band row (``cols + 2``), the positions
     the dw kernel sums (``rows * pitch`` up to a multiple of 16) and the
-    dx kernel computes (up to a multiple of 64, wgmma's M; the pad
-    columns are computed and discarded), and the dyc window's slots
+    dx and forward kernels compute (up to a multiple of 64, wgmma's M;
+    the pad columns are computed and discarded), and a window's slots
     (``dx_computed`` plus a halo row above and below and two more; the
     kernels add seven zero slots ahead of the window's box)."""
     pitch = cols + 2
@@ -361,11 +364,12 @@ def conv3_band_geometry(rows, cols):
 
 def conv3_smem(rows, cols, cout):
     """Dynamic shared memory (dw kernel, dx kernel) in bytes, with 1 KB to
-    align the start to 1024 bytes. A dyc window is chunk-major: 8 chunks of
+    align the start to 1024 bytes. A window is chunk-major: 8 chunks of
     ``window + 7`` 16-byte slots, each rounded up to 128 bytes. dw keeps two
     stages of xn rows and a window, each stage rounded up to 1 KB; dx the
     nine 64 x 64 weight tiles (one resident copy at cout = 64, else one per
-    stage) and two windows."""
+    stage) and two windows. The forward kernel keeps dx's layout with its
+    chunks over cin: its shared memory is dx's at ``cout = cin``."""
     _, computed, _, window = conv3_band_geometry(rows, cols)
     chunk = _up((window + 7) * 16, 128)
     dw = 1024 + 2 * _up(computed * _C3_ROW_BYTES + 8 * chunk, 1024)
@@ -379,15 +383,17 @@ def _band_fits(rows, cols, cout):
         max(conv3_smem(rows, cols, cout)) <= _C3_SMEM
 
 
+@functools.lru_cache(maxsize=None)
 def conv3_band_plan(h, w, cout):
-    """(rows, cols) of K8's backward bands for ``h x w`` images. Whole
+    """(rows, cols) of K8's bands for ``h x w`` images, fitting the band
+    kernels at ``cout`` channels (the forward takes it at cin). Whole
     image rows when they fit (the widest rows split into the fewest even
     pieces that do); of the row counts that fit, the one whose bands
     cost the dx kernel the fewest positions (each band computes whole
     64-position tiles, plus ~64 positions' worth of halo and set-up),
     the larger on a tie, evened out over the image: 56 rows of 56 -> 14
     bands of 4, 28 of 28 at 128 channels -> 5 of 6 (the last of 4), 14
-    of 14 -> 1 of 14."""
+    of 14 -> 1 of 14. Cached: the wrappers ask for it on every call."""
     pieces = 1
     while True:
         cols = -(-w // pieces)
@@ -415,6 +421,63 @@ def group_bands(grp, groups, bands):
     return range(grp * bands // groups, (grp + 1) * bands // groups)
 
 
+def conv3_fwd_work_split(n, h, w, cin, cout, sms):
+    """K8's forward work split: the band plan at ``cin`` (the forward's
+    chunks run over cin, so the backward's plan at cout = cin fits its
+    shared memory and positions) and the CTAs per 64-wide cout tile, so
+    that the grid fills the SMs once."""
+    rows, cols = conv3_band_plan(h, w, cin)
+    bands = n * -(-h // rows) * -(-w // cols)
+    return dict(rows=rows, cols=cols, bands=bands,
+                groups=max(1, min(bands, sms // (cout // _C3_TILE))))
+
+
+def conv3x3_bn_fwd_bands_reference(x, w9, a, b, *, rows, cols, groups):
+    """K8's forward the band kernel's way, in plain PyTorch, for the
+    tests: per band a window of ``rows + 2`` rows of ``cols + 2``
+    positions from one halo row and column before the band (zero
+    outside the image, as TMA fills it), the prologue applied only to
+    the window's positions inside the image, output slot k summing tap
+    t = 3 di + dj from window slot ``k + di (cols + 2) + dj`` (slot v
+    holds window position v - 1; slot 0 is zero), the pad columns and
+    the positions past a short band computed and discarded, and the
+    statistics as one partial per group of bands (``group_bands``),
+    summed in group order. Same contract as
+    :func:`conv3x3_bn_fwd_reference`."""
+    n, h, wd, cin = x.shape
+    cout = w9.shape[2]
+    pitch, _, computed, window = conv3_band_geometry(rows, cols)
+    bands = list(conv3_bands(n, h, wd, rows, cols))
+    w = w9.float()
+    y = torch.zeros(n, h, wd, cout)
+    part = torch.zeros(groups, 2, cout)
+    rr = torch.arange(rows + 2)[:, None]
+    cc = torch.arange(pitch)[None, :]
+    for grp in range(groups):
+        for band in group_bands(grp, groups, len(bands)):
+            img, i0, here_r, j0, here_c = bands[band]
+            i, j = i0 - 1 + rr, j0 - 1 + cc
+            inside = ((i >= 0) & (i < h) & (j >= 0) & (j < wd))
+            box = x[img, i.clamp(0, h - 1), j.clamp(0, wd - 1)]
+            xn, _ = _prologue(box, a, b)
+            win = torch.zeros(window, cin)
+            win[1:1 + box.shape[0] * pitch] = torch.where(
+                inside[..., None], xn.float(), 0.0).reshape(-1, cin)
+            acc = sum(win[shift:shift + computed] @ w[t] for t, shift in
+                      enumerate(di * pitch + dj for di in range(3)
+                                for dj in range(3)))
+            k = torch.arange(computed)
+            r, c = k // pitch, k % pitch
+            keep = (r < here_r) & (c >= 1) & (c <= here_c)
+            y[img, i0 + r[keep], j0 + c[keep] - 1] = acc[keep]
+            part[grp, 0] += acc[keep].sum(0)
+            part[grp, 1] += (acc[keep] * acc[keep]).sum(0)
+    s1, s2 = part[0].clone()
+    for grp in range(1, groups):
+        s1, s2 = s1 + part[grp, 0], s2 + part[grp, 1]
+    return y.to(x.dtype), s1, s2
+
+
 def conv3_work_split(n, h, w, cin, cout, sms):
     """K8's backward work split: the band plan and the CTAs per channel
     tile of each product, so that each grid fills the SMs once (dw: one
@@ -426,6 +489,27 @@ def conv3_work_split(n, h, w, cin, cout, sms):
     return dict(rows=rows, cols=cols, bands=bands,
                 dw_groups=max(1, min(bands, sms // dw_tiles)),
                 dx_groups=max(1, min(bands, sms // dx_tiles)))
+
+
+def _launch_conv3_fwd(x, w9, a, b):
+    n, h, wd, cin = x.shape
+    cout = w9.shape[2]
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = conv3_fwd_work_split(n, h, wd, cin, cout, sms)
+    y = torch.empty((n, h, wd, cout), device=dev, dtype=torch.bfloat16)
+    part = torch.empty((plan["groups"], 2, cout), device=dev,
+                       dtype=torch.float32)
+    stats = torch.empty((2, cout), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _conv3_library().conv3x3_bn_fwd(
+            x.data_ptr(), w9.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), part.data_ptr(), stats.data_ptr(), n, h, wd, cin,
+            cout, plan["rows"], plan["cols"], plan["groups"], stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_bn_fwd launch failed: CUDA error {rc}")
+    return y, stats[0], stats[1]
 
 
 def _launch_conv3_bwd(x, w9, a, b, y, gy, gs1, gs2):
@@ -443,7 +527,7 @@ def _launch_conv3_bwd(x, w9, a, b, y, gy, gs1, gs2):
     dadb = torch.empty((2, cin), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _conv3_bwd_library().conv3x3_bn_bwd(
+        rc = _conv3_library().conv3x3_bn_bwd(
             x.data_ptr(), w9.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
             dyc.data_ptr(), dx.data_ptr(), part_dw.data_ptr(),
@@ -466,7 +550,7 @@ def conv1x1_bn_fwd_cuda(x2d, w, a=None, b=None):
     cout = w.shape[1]
     _check_cuda(dict(x=x2d, w=w, a=a, b=b))
     _check_channels(rows, cin, cout)
-    out = _launch_fwd(x2d, w, a, b, rows, cin, cout, 1, 1, 1)
+    out = _launch_fwd(x2d, w, a, b, rows, cin, cout)
     conv1x1_bn_fwd_cuda.launches += 1
     return out
 
@@ -503,16 +587,17 @@ def _check_3x3(x, w9):
 
 
 def conv3x3_bn_fwd_cuda(x, w9, a, b):
-    """Launch K8's forward (CUDA, bfloat16). Same contract as
-    :func:`conv3x3_bn_fwd_reference`."""
+    """Launch K8's forward (CUDA, bfloat16): the band kernel and the
+    reduction of its statistics (``csrc/conv3x3_bn.cu``), counted as one
+    launch. Same contract as :func:`conv3x3_bn_fwd_reference`."""
     _check_3x3(x, w9)
     n, h, wd, cin = x.shape
     cout = w9.shape[2]
     _check_cuda(dict(x=x, w=w9, a=a, b=b), prologue_needed=True)
     _check_channels(n * h * wd, cin, cout)
-    y, s1, s2 = _launch_fwd(x, w9, a, b, n * h * wd, cin, cout, h, wd, 9)
+    out = _launch_conv3_fwd(x, w9, a, b)
     conv3x3_bn_fwd_cuda.launches += 1
-    return y.reshape(n, h, wd, cout), s1, s2
+    return out
 
 
 conv3x3_bn_fwd_cuda.launches = 0
@@ -521,7 +606,7 @@ conv3x3_bn_fwd_cuda.launches = 0
 def conv3x3_bn_bwd_cuda(x, w9, a, b, y, gy, gs1, gs2):
     """Launch K8's backward (CUDA, bfloat16) from the saved ``y``: the
     dyc kernel, the band kernels for dw and dx and their reductions
-    (``csrc/conv3x3_bn_bwd.cu``), counted as one launch. Same contract as
+    (``csrc/conv3x3_bn.cu``), counted as one launch. Same contract as
     :func:`conv3x3_bn_bwd_reference`."""
     _check_3x3(x, w9)
     n, h, wd, cin = x.shape

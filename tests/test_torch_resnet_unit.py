@@ -184,10 +184,12 @@ def test_dw_splits_cover_the_rows():
 
 
 def _window_pos(h, w, band, pitch, slot):
-    """The image position whose dyc window ``slot`` of ``band`` holds, or
-    None where it is zero, as conv3x3_bn_bwd.cu fills it: slot v holds
-    band position v - 1 = rr pitch + cc, image (i0 - 1 + rr, j0 - 1 +
-    cc), up to one halo row and column past the band."""
+    """The image position whose window ``slot`` of ``band`` holds (dyc
+    for the backward, xn for the forward), or None where it is zero, as
+    conv3x3_bn.cu fills it: slot v holds band position v - 1 = rr pitch
+    + cc, image (i0 - 1 + rr, j0 - 1 + cc), up to one halo row and column
+    past the band; the forward's prologue leaves the slots outside the
+    image zero."""
     img, i0, rows, j0, cols = band
     if slot < 1:
         return None
@@ -209,16 +211,16 @@ def _output_pos(band, pitch, k):
     return img, i0 + r, j0 + cc - 1
 
 
-@pytest.mark.parametrize("w", [56, 28, 14, 9])
-def test_conv3_bands_cover_every_position_once(w):
-    """K8's backward bands: the plan's, rows that do not divide the
-    height, and rows cut into two column pieces all cover every position
-    of every image exactly once, and every tap of every output slot
-    reads the window slot holding dyc at (i - di + 1, j - dj + 1), or a
-    zero slot outside the image."""
+def _check_band_cover(w, plan, sign):
+    """Bands of ``plan`` (rows, cols of the plan's at w x w), of rows that
+    do not divide the height, and of rows cut into two column pieces all
+    cover every position of every image exactly once, and tap t = 3 di +
+    dj of every output slot reads the window slot holding the position
+    (i + sign (di - 1), j + sign (dj - 1)), or a zero slot outside the
+    image: the forward's taps for sign = 1, the backward's flipped taps
+    for sign = -1."""
     n = 2
-    for h, rows, cols in ((w, *hop_ru.conv3_band_plan(w, w, 64)),
-                          (w + 3, 5, w), (w, 3, -(-w // 2))):
+    for h, rows, cols in ((w, *plan), (w + 3, 5, w), (w, 3, -(-w // 2))):
         pitch, computed, dx_computed, window = hop_ru.conv3_band_geometry(
             rows, cols)
         assert computed <= dx_computed
@@ -234,10 +236,13 @@ def test_conv3_bands_cover_every_position_once(w):
                 img, i, j = pos
                 for t in range(9):
                     di, dj = divmod(t, 3)
-                    slot = k + (2 - di) * pitch + (2 - dj)
+                    if sign > 0:
+                        slot = k + di * pitch + dj
+                    else:
+                        slot = k + (2 - di) * pitch + (2 - dj)
                     assert 0 <= slot < window
                     assert k < computed
-                    ii, jj = i - di + 1, j - dj + 1
+                    ii, jj = i + sign * (di - 1), j + sign * (dj - 1)
                     want = ((img, ii, jj) if 0 <= ii < h and 0 <= jj < w
                             else None)
                     assert _window_pos(h, w, band, pitch, slot) == want
@@ -250,10 +255,30 @@ def test_conv3_bands_cover_every_position_once(w):
             assert got == list(range(len(bands)))
 
 
-@pytest.mark.parametrize("shape", [(56, 56, 64, 64), (28, 28, 128, 128),
-                                   (14, 14, 256, 256), (9, 9, 64, 128),
-                                   (4, 300, 64, 64), (4, 300, 64, 128),
-                                   (4, 1650, 64, 64), (16, 64, 512, 512)])
+@pytest.mark.parametrize("w", [56, 28, 14, 9])
+def test_conv3_bands_cover_every_position_once(w):
+    """K8's backward bands (the plan's at 64 channels, and the ragged
+    and two-piece ones): every position once, every flipped tap from the
+    window slot holding dyc at (i - di + 1, j - dj + 1), or a zero slot."""
+    _check_band_cover(w, hop_ru.conv3_band_plan(w, w, 64), -1)
+
+
+@pytest.mark.parametrize("w", [56, 28, 14, 9])
+def test_conv3_fwd_bands_cover_every_position_once(w):
+    """K8's forward bands (the forward plan's, and the ragged and
+    two-piece ones): every position once, every tap from the window slot
+    holding xn at (i + di - 1, j + dj - 1), or a zero slot outside the
+    image."""
+    split = hop_ru.conv3_fwd_work_split(2, w, w, 64, 64, sms=132)
+    _check_band_cover(w, (split["rows"], split["cols"]), 1)
+
+
+BAND_PLAN_SHAPES = [(56, 56, 64, 64), (28, 28, 128, 128), (14, 14, 256, 256),
+                    (9, 9, 64, 128), (4, 300, 64, 64), (4, 300, 64, 128),
+                    (4, 1650, 64, 64), (16, 64, 512, 512)]
+
+
+@pytest.mark.parametrize("shape", BAND_PLAN_SHAPES)
 def test_conv3_band_plan_fits_the_kernels(shape):
     """The plan's bands fit the dx kernel's 256 positions and both
     kernels' shared memory, wide rows split into even column pieces, and
@@ -269,6 +294,56 @@ def test_conv3_band_plan_fits_the_kernels(shape):
     assert split["dw_groups"] * max(1, (cin // 64) * (cout // 64)) <= max(
         132, (cin // 64) * (cout // 64))
     assert 1 <= split["dx_groups"] <= split["bands"]
+
+
+@pytest.mark.parametrize("shape", BAND_PLAN_SHAPES)
+def test_conv3_fwd_band_plan_fits_the_kernel(shape):
+    """The forward's bands fit its kernel's 256 positions and its shared
+    memory (dx's layout at cin), wide rows split into even column pieces,
+    and its grid fills 132 SMs at most once."""
+    h, w, cin, cout = shape
+    split = hop_ru.conv3_fwd_work_split(256, h, w, cin, cout, sms=132)
+    rows, cols = split["rows"], split["cols"]
+    _, _, computed, _ = hop_ru.conv3_band_geometry(rows, cols)
+    assert 1 <= rows <= h and 1 <= cols <= w and computed <= 256
+    assert hop_ru.conv3_smem(rows, cols, cin)[1] <= 232448 - 5120
+    assert -(-w // -(-w // cols)) == cols
+    assert split["bands"] == 256 * -(-h // rows) * -(-w // cols)
+    assert 1 <= split["groups"] <= split["bands"]
+    assert split["groups"] * (cout // 64) <= max(132, cout // 64)
+
+
+FWD_BAND_CASES = {
+    # (n, h, w, cin, cout, rows, cols, groups): the plan's band of a whole
+    # 14 x 14 image, rows that do not divide the height (a short last
+    # band), and three column pieces of a wide image (a short last piece)
+    "n2_14x14_plan": (2, 14, 14, 8, 16, None, None, 3),
+    "n2_7x9_rows3": (2, 7, 9, 16, 8, 3, 9, 4),
+    "n1_4x30_pieces11": (1, 4, 30, 8, 8, 2, 11, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_BAND_CASES))
+def test_conv3x3_bn_fwd_bands_match_plain(case):
+    """The forward's band algorithm (the prologue only inside the image,
+    flat shifts, pad columns and short bands discarded, one statistics
+    partial per group) equals the plain forward in f32, with a shift b
+    whose relu is not zero: a prologue applied to the zero halo, or a
+    discarded position in s1/s2, would show."""
+    n, h, wd, cin, cout, rows, cols, groups = FWD_BAND_CASES[case]
+    if rows is None:   # the forward's plan at 64 channels
+        split = hop_ru.conv3_fwd_work_split(n, h, wd, 64, 64, sms=132)
+        rows, cols = split["rows"], split["cols"]
+    x, w9, a, b, _, _, _ = _inputs(np.random.RandomState(h * wd + cin),
+                                   (n, h, wd), cin, cout, True,
+                                   (9, cin, cout))
+    assert (np.maximum(b, 0) > 0.1).any()
+    x, w9, a, b = map(torch.from_numpy, (x, w9, a, b))
+    got = hop_ru.conv3x3_bn_fwd_bands_reference(x, w9, a, b, rows=rows,
+                                                cols=cols, groups=groups)
+    want = hop_ru.conv3x3_bn_fwd_reference(x, w9, a, b)
+    for name, g, wnt in zip(("y", "s1", "s2"), got, want):
+        _close(g, wnt.numpy(), name)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -380,6 +455,24 @@ def test_conv3x3_bn_bwd_bands_match_plain(cuda, case):
     want = hop_ru.conv3x3_bn_bwd_reference(x, w9, a, b, y, cy, c1, c2)
     torch.cuda.synchronize()
     for name, g, wnt in zip(("dx", "dw", "da", "db"), got, want):
+        _card_close(g, wnt, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K8_BWD_CARD_CASES))
+def test_conv3x3_bn_fwd_bands_match_plain_on_card(cuda, case):
+    """K8's forward band kernel on ragged and wide images and at the main
+    path's three widths, against the plain version; two calls give
+    equal bits (fixed-order sums, no atomics)."""
+    n, h, wd, cin, cout = K8_BWD_CARD_CASES[case]
+    x, w9, a, b, _, _, _ = _card_case(cuda, (n, h, wd), cin, cout, True,
+                                      (9, cin, cout), 17)
+    got = hop_ru.conv3x3_bn_fwd_cuda(x, w9, a, b)
+    again = hop_ru.conv3x3_bn_fwd_cuda(x, w9, a, b)
+    want = hop_ru.conv3x3_bn_fwd_reference(x, w9, a, b)
+    torch.cuda.synchronize()
+    for name, g, r, wnt in zip(("y", "s1", "s2"), got, again, want):
+        assert torch.equal(g, r), f"{name}: two calls differ"
         _card_close(g, wnt, name)
 
 
