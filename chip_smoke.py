@@ -13,6 +13,10 @@ for K5 at all its cases (check, timings, device ms of its split and
 merge kernels, host microseconds per call, both bodies at each span
 widths); ``--k5 --root DIR`` runs it on the port of another checkout
 (an earlier commit's, unpacked into DIR) for a comparison on one card.
+``python3 chip_smoke.py --flash-fwd [--root DIR]`` is the same loop for
+the flash forward (K1/K3): the build's ptxas report, out and lse against
+the plain version at every bf16 case and the 128-row tile edges, two
+calls bitwise equal, and timings beside SDPA and the bound.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -31,7 +35,8 @@ the run with a non-zero exit code and no result line:
 4. The flash-attention forward, dq and dkv kernels (CUDA) against their
    plain versions: out, lse, dq, dk, dv for causal s=4096 bf16 (the
    training shape), causal s=1024 f32, GQA 32/8, non-causal 256 x 1024,
-   a ragged s=200 and d=64.
+   a ragged s=200 and d=64; bf16 out also row by row, to 4 ulps of each
+   row's largest value.
 5. Timings of every kernel with CUDA events: kernel, plain version, one
    PyTorch library call for the same function, and the bound.
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
@@ -107,7 +112,8 @@ K6_RSTD_RTOL = 1e-5
 # flash attention: f32 sums in other orders on both sides
 FLASH_F32_ATOL = 1e-4
 # bf16: each side rounds its outputs to bf16 and the kernels round P and
-# dS to bf16 before their products: 4 bf16 ulps of the largest value
+# dS to bf16 before their products: 4 bf16 ulps of the largest value (of
+# each row's largest value for the forward's out, flash_out_row_err)
 FLASH_BF16_REL = 2.0 ** -6
 # lse is f32 on both sides (order of summation only)
 FLASH_LSE_ATOL = 1e-4
@@ -628,6 +634,17 @@ FLASH_CASES = [
 ]
 
 
+def flash_out_row_err(got, want):
+    """The worst row of the forward's out: over every (batch, row, head),
+    the largest |got - want| over that row's largest |want|. A row of out
+    is a weighted mean of V rows, so rows that see many keys are far
+    smaller than the first causal rows; a limit scaled to the whole
+    tensor's largest value would pass a fault confined to them."""
+    g, w = got.float(), want.float()
+    err, top = (g - w).abs().amax(-1), w.abs().amax(-1)
+    return float(torch.where(err == 0, 0.0, err / top).max())
+
+
 def phase_flash():
     """Each case: the forward kernel against the plain forward (out,
     lse), then the dq and dkv kernels against the plain FA2 backward
@@ -661,9 +678,15 @@ def phase_flash():
             tol = (FLASH_F32_ATOL if dt == torch.float32 else
                    FLASH_BF16_REL * float(want.float().abs().max()))
             errs[key] = err
-            log(f"[flash] {name} {key} max_abs_err={err} tol={tol}")
+            row_err = (flash_out_row_err(got, want)
+                       if key == "out" and dt != torch.float32 else 0.0)
+            rows = (f" worst_row_rel_err={row_err} row_tol={FLASH_BF16_REL}"
+                    f" (of each row's largest value)" if row_err else "")
+            log(f"[flash] {name} {key} max_abs_err={err} tol={tol}{rows}")
             check(err <= tol, f"flash {name}: {key} disagrees with the "
                   f"plain version")
+            check(row_err <= FLASH_BF16_REL, f"flash {name}: a row of out "
+                  f"disagrees with the plain version")
         errs["lse"] = float((lse - want_lse).abs().max())
         log(f"[flash] {name} lse max_abs_err={errs['lse']} tol="
             f"{FLASH_LSE_ATOL}")
@@ -1839,6 +1862,82 @@ def k8_only(backward):
     return 0
 
 
+# --flash-fwd adds the 128-row tile edges to the bf16 FLASH_CASES: a q tile
+# with no full 128 rows, one and a half tiles, a ragged key end under a
+# non-causal mask, and d=64 with GQA
+FLASH_FWD_EDGES = [
+    ("causal_s100_h8_kv2_d128_bf16", torch.bfloat16, 2, 100, 100, 8, 2, 128,
+     True),
+    ("causal_s192_h8_d128_bf16", torch.bfloat16, 2, 192, 192, 8, 8, 128, True),
+    ("noncausal_sq200_sk1000_bf16", torch.bfloat16, 2, 200, 1000, 8, 8, 128,
+     False),
+    ("d64_gqa_h16_kv4_s520_bf16", torch.bfloat16, 1, 520, 520, 16, 4, 64,
+     True),
+]
+
+
+def flash_fwd_only():
+    """``--flash-fwd``: build the flash library alone (ptxas registers,
+    spills and shared memory), then the bf16 forward at every bf16
+    FLASH_CASE and the tile edges: out and lse against the plain forward,
+    two calls bitwise equal, and its time (CUDA events) beside SDPA's and
+    the bound. Works on another checkout's port too (``--root``). Prints
+    no result line."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    phase_device()
+    log(f"[flash-fwd] implementation={os.path.dirname(fa.__file__)}")
+    t0 = time.perf_counter()
+    for line in fa.build().splitlines():
+        if "Compiling entry" in line:
+            log(f"[build] ptxas: {line.split(chr(39))[1]}")
+        if any(w in line for w in ("registers", "spill", "smem", "arning")):
+            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] seconds={time.perf_counter() - t0}")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES + FLASH_FWD_EDGES:
+        if dt != torch.bfloat16:
+            continue
+        q, k, v = (torch.randn(b, n, heads, d, device="cuda",
+                               generator=gen).to(dt)
+                   for n, heads in ((sq, h), (sk, kv), (sk, kv)))
+        scale = 1.0 / d ** 0.5
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+        out2, lse2 = fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+        want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                              scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+              f"flash-fwd {name}: not finite")
+        err = float((out.float() - want_out.float()).abs().max())
+        tol = FLASH_BF16_REL * float(want_out.float().abs().max())
+        row_err = flash_out_row_err(out, want_out)
+        lse_err = float((lse - want_lse).abs().max())
+        same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+        log(f"[flash-fwd] {name} out max_abs_err={err} tol={tol} "
+            f"worst_row_rel_err={row_err} row_tol={FLASH_BF16_REL} lse "
+            f"max_abs_err={lse_err} tol={FLASH_LSE_ATOL} bitwise_equal={same}")
+        check(err <= tol, f"flash-fwd {name}: out disagrees")
+        check(row_err <= FLASH_BF16_REL, f"flash-fwd {name}: a row of out "
+              f"disagrees")
+        check(lse_err <= FLASH_LSE_ATOL, f"flash-fwd {name}: lse disagrees")
+        check(same, f"flash-fwd {name}: two calls differ")
+        ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal,
+                                                         scale))
+        g = h // kv
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+        bound, by = flash_bound(dict(q=q, k=k, causal=causal), "fwd")
+        log(f"[flash-fwd] {name} ms={ms} sdpa_ms={lib_ms} bound_ms={bound} "
+            f"({by}) x_sdpa={ms / lib_ms} bound_share={bound / ms}")
+        del q, k, v, out, out2, lse, lse2, want_out, want_lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return 0
+
+
 def k5_only():
     """``--k5``: build K5 alone, then check and time it at every case:
     the timings beside SDPA and the bound, the device ms of its split
@@ -1871,7 +1970,8 @@ def main() -> int:
         return 2
     argv = sys.argv[1:]
     root = HERE
-    if argv[:1] in (["--k5"], ["--k8-fwd"]) and argv[1:2] == ["--root"] \
+    if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"]) \
+            and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
         root, argv = os.path.abspath(argv[2]), argv[:1]
@@ -1882,6 +1982,8 @@ def main() -> int:
         return k8_only(backward=argv == ["--k8-bwd"])
     if argv == ["--k5"]:
         return k5_only()
+    if argv == ["--flash-fwd"]:
+        return flash_fwd_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()

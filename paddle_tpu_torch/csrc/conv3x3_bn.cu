@@ -108,10 +108,7 @@
 // first cudaError_t (or cudaErrorInvalidValue when a tensor map cannot be
 // made).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -126,139 +123,6 @@ constexpr int kWElems = 9 * kC * kC;  // the nine 64 x 64 weight tiles of a chun
 // kernels' static shared memory (dx: its da/db reduction, a, b, barriers;
 // the forward: its s1/s2 reduction, barriers)
 constexpr int kSmemDynamic = 232448 - 5120;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The 128-byte swizzle of TMA and wgmma: in a tile of 128-byte rows the
-// 16-byte chunk c of the row at shared address `row` sits at chunk c ^ (row /
-// 128 mod 8). It is a function of the address, so the prologue computes it
-// from the address, and tiles that TMA writes with it or wgmma reads with it
-// start on a 1024-byte boundary.
-__device__ __forceinline__ uint32_t swz(uint32_t row, int col) {
-  return row + ((((col >> 3) ^ (row >> 7)) & 7) << 4);
-}
-
-// wgmma (sm_90a): D[64 x 64] (f32) += A[64 x 16] B[16 x 64], bf16 operands
-// from shared memory through descriptors; TRANS_A = 1 reads A MN-major (M
-// contiguous), TRANS_B = 1 reads B MN-major (N contiguous), 0 K-major. The
-// accumulator fragment: lane 4 g + t of warp w of the warpgroup holds rows
-// 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8 (d[4 j + 2], d[4 j + 3]) at
-// columns 8 j + 2 t, 8 j + 2 t + 1.
-template <int TRANS_A, int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory writes of the generic proxy (st.shared) made visible to the
-// async proxy, which TMA writes and wgmma reads with.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A wgmma descriptor for a tile of 128-byte rows with the 128-byte swizzle
-// (layout type 1) starting at shared address `addr` (at a swizzle atom, or 32
-// bytes per 16 along K into one for K-major); lbo and sbo in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
-         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
-}
-
-// A wgmma descriptor without swizzle (layout type 0): 8 x 16-byte core
-// matrices of 128 contiguous bytes; lbo and sbo in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
-         (static_cast<uint64_t>(sbo) << 32);
-}
-
-// mbarriers: a stage's barrier completes when its TMA boxes have landed.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// TMA tile loads into shared memory, completing on `bar`; coordinates are
-// innermost first and may lie outside the tensor (those elements are zero).
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(c4)
-      : "memory");
-}
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// The dynamic shared memory from its first 1024-byte boundary.
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 // Band geometry (mirrors conv3_band_geometry / conv3_bands in resnet_unit.py).
 struct Geo {
@@ -1014,26 +878,6 @@ int reduce(const float* part, float* out, int T, long long C, cudaStream_t st) {
   conv3_reduce_kernel<<<static_cast<unsigned>((C4 + 31) / 32), dim3(32, 8), 0, st>>>(
       reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), T, C4);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, fetched through the CUDA runtime's entry-point
-// query (the library links the runtime alone).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first, dense), zeros

@@ -19,14 +19,22 @@
 // [B, H, sq]. delta = rowsum(dout * out) f32 [B, H, sq] comes from the caller,
 // as the JAX package computes it outside its kernels. Causal attention needs
 // sq == sk (the wrapper raises otherwise), where top-left and bottom-right
-// alignment agree; ragged lengths (not a multiple of the 64-row tile) are
-// masked here.
+// alignment agree; ragged lengths (not a multiple of the tile) are masked
+// here.
 //
-// Work split: a CTA of 4 warps owns one 64-row tile; each warp owns 16 rows of
-// it and everything computed along those rows, so warps meet only where the
-// CTA stages a shared tile into shared memory (bf16: the streamed tiles are
-// double-buffered with cp.async, the next one copying in while the current
-// one is used):
+// bf16 forward (flash_fwd_kernel_bf16): TMA, wgmma and 128-row tiles, its
+// design in the note above the kernel. A CTA owns a 128-row q tile of one
+// (batch, query head); one thread loads Q once and streams K and V by TMA
+// into a two-stage ring; two consumer warpgroups of 64 rows each multiply
+// with wgmma (S = Q K^T from shared memory, O += P V with P from registers),
+// take turns on the tensor cores so that one's softmax runs beside the
+// other's products, and mask only the diagonal and ragged key tiles.
+//
+// The backward and the f32 forward: a CTA of 4 warps owns one 64-row tile;
+// each warp owns 16 rows of it and everything computed along those rows, so
+// warps meet only where the CTA stages a shared tile into shared memory
+// (bf16: the streamed tiles are double-buffered with cp.async, the next one
+// copying in while the current one is used):
 //   forward: CTA = (q tile, query head, batch). Per 64-key tile: S = Q K^T,
 //            online softmax (running max m, sum l, f32), O = O * alpha + P V.
 //   dq:      CTA = (q tile, query head, batch). Per key tile: P = exp(S - lse),
@@ -39,31 +47,32 @@
 // at its diagonal q tile. Grids are 1-D and ordered so the longest causal
 // tiles launch first.
 //
-// Products: bfloat16 goes through the tensor cores with mma.sync m16n8k16
-// (bf16 operands from shared memory through ldmatrix, f32 accumulators in
-// registers); the score tile S, P and dS stay in registers, where the C
-// fragments of one product are the A fragments of the next. P and dS are
-// rounded to bf16 before their products, as the Pallas kernels cast them to
-// the input dtype. float32 runs on the CUDA cores in f32 FMA with register
-// tiles (no TF32), with S and P staged through shared memory. Softmax and all
-// elementwise math are f32.
+// Products of the backward: bfloat16 goes through the tensor cores with
+// mma.sync m16n8k16 (bf16 operands from shared memory through ldmatrix, f32
+// accumulators in registers); the score tile S, P and dS stay in registers,
+// where the C fragments of one product are the A fragments of the next. P
+// and dS are rounded to bf16 before their products, as the Pallas kernels
+// cast them to the input dtype (the bf16 forward rounds P the same way).
+// float32 runs on the CUDA cores in f32 FMA with register tiles (no TF32),
+// with S and P staged through shared memory. Softmax and all elementwise
+// math are f32.
 //
 // What bounds it on an H100: at Llama training shapes (B=2, H=32, D=128,
 // s=4096, causal) the forward does 4 B H s^2 D / 2 = 0.27 TFLOP against 0.27 GB
 // of q/k/v/out, about 10^3 operations per byte, so it is bound by operations:
 // 0.28 ms at the 989 TFLOP/s bf16 peak; the dq kernel does 1.5 times the
-// forward's products, the dkv kernel 2 times. The design keeps S and P out of
-// device memory and feeds the tensor cores from shared memory. It is still a
-// simple form: 64-row tiles of 4 warps, cp.async instead of TMA, mma.sync
-// instead of wgmma; those are the steps to the bound.
+// forward's products, the dkv kernel 2 times. Every kernel keeps S and P out
+// of device memory; the forward feeds the tensor cores by TMA and wgmma, the
+// backward is still the simple form (64-row tiles of 4 warps, cp.async,
+// mma.sync).
 //
 // Interface: plain C, loaded with ctypes. Each launcher returns the
 // cudaError_t of its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -219,6 +228,7 @@ struct Args {
   float* lse_out;
   long long qs[3], ks[3], vs[3], ds[3];  // batch, sequence, head strides
   int B, H, KV, sq, sk, causal;
+  int group;  // bf16 forward: (batch, head) pairs per group of CTAs
   float scale;
 };
 
@@ -652,120 +662,6 @@ __host__ __device__ constexpr size_t bf16_tile_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel_bf16(Args a) {
-  constexpr int P = D + kPitchBf16Pad;
-  constexpr size_t kT = bf16_tile_bytes<D>();
-  extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  // K and V double-buffered: tile i + 1 copies in while tile i is used
-  bf16* sK[2] = {reinterpret_cast<bf16*>(smem + kT), reinterpret_cast<bf16*>(smem + 2 * kT)};
-  bf16* sV[2] = {reinterpret_cast<bf16*>(smem + 3 * kT), reinterpret_cast<bf16*>(smem + 4 * kT)};
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ntiles = (a.sq + kTile - 1) / kTile;
-  const int bh = blockIdx.x % (a.B * a.H);
-  const int q0 = (ntiles - 1 - blockIdx.x / (a.B * a.H)) * kTile;  // heaviest first
-  const int hq = bh % a.H, b = bh / a.H;
-  const int kh = hq / (a.H / a.KV);
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + hq * a.qs[2];
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + kh * a.ks[2];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + kh * a.vs[2];
-  load_tile<bf16, D, P>(sQ, qb + q0 * a.qs[1], a.qs[1], min(kTile, a.sq - q0));
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) load_a<P>(qf[kc], sQ, warp * 16, kc * 16);
-
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's columns
-  const int kend = a.causal ? min(a.sk, q0 + kTile) : a.sk;
-  const int ntk = (kend + kTile - 1) / kTile;
-  auto issue = [&](int it) {
-    const int k0 = it * kTile, krows = min(kTile, a.sk - k0);
-    load_tile_async<D, P>(sK[it & 1], kb + k0 * a.ks[1], a.ks[1], krows);
-    load_tile_async<D, P>(sV[it & 1], vb + k0 * a.vs[1], a.vs[1], krows);
-    cp_async_commit();
-  };
-  issue(0);
-
-  for (int it = 0; it < ntk; ++it) {
-    const int k0 = it * kTile;
-    if (it + 1 < ntk) {
-      issue(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tK = sK[it & 1];
-    const bf16* tV = sV[it & 1];
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bf[4];
-        load_b<P>(bf, tK, n * 8, kc * 16);
-        mma_bf16(s[n], qf[kc], bf[0], bf[1]);
-        mma_bf16(s[n + 1], qf[kc], bf[2], bf[3]);
-      }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1), row = rows[e >> 1];
-        const bool valid = col < a.sk && (!a.causal || col <= row);
-        s[n][e] = valid ? s[n][e] * a.scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - mn);
-      m[h] = mn;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[n][e] == kNegInf ? 0.f : expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0], o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1], o[n][3] *= alpha[1];
-    }
-    mma_pv<P, kTile / 16, D / 8>(o, s, tV, 0);
-    __syncthreads();  // every warp is done with buffer it & 1 before it refills
-  }
-
-  bf16* ob = static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float lsafe = fmaxf(quad_sum(l[h]), 1e-30f);
-    if (rows[h] >= a.sq) continue;
-    bf16* orow = ob + (size_t)rows[h] * a.H * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(o[n][2 * h] / lsafe, o[n][2 * h + 1] / lsafe);
-    if (t == 0) a.lse_out[((size_t)b * a.H + hq) * a.sq + rows[h]] = m[h] + logf(lsafe);
-  }
-}
-
-template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel_bf16(Args a) {
   constexpr int P = D + kPitchBf16Pad;
   constexpr size_t kT = bf16_tile_bytes<D>();
@@ -944,6 +840,304 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel_bf16(Args a) {
 }
 
 // ----------------------------------------------------------------------------
+// bf16 forward: TMA, wgmma, warp-specialised
+// ----------------------------------------------------------------------------
+//
+// A CTA owns a 128-row q tile of one (batch, query head). CTAs are ordered
+// in groups of `group` (batch, head) pairs, heaviest q tile first within a
+// group: the CTAs that run together share their K/V in L2 (the wrapper's
+// fwd_group sizes a group to 16 MiB of K/V). 3 warpgroups:
+//   producer   (warpgroup 0, one thread) loads the Q tile once and streams
+//              the key tiles, K and V each into a ring of kFwdStages
+//              stages, by TMA: 4-D maps over (d, heads, seq, batch) from
+//              the tensors' own strides, 64-column boxes with the 128-byte
+//              swizzle (a d = 128 row is two boxes), rows past sq or sk
+//              zero. Every stage completes on its own mbarrier and is
+//              refilled once the consumers release it.
+//   consumers  (warpgroups 1, 2) own q rows 0-63 and 64-127 of the tile.
+//              Per key tile:
+//     S = Q K^T    wgmma m64n128k16, both K-major from shared memory
+//     softmax      on the accumulator fragment in registers: the running
+//                  max m over the quad that shares a row, p = 2^(s scale
+//                  log2e - m scale log2e) (one FFMA and ex2), l summed per
+//                  lane (the quad's partials are added once, at the end),
+//                  alpha rescales O
+//     O += P V     wgmma m64n{d}k16 with A = P from registers (the S
+//                  fragment packed pairwise to bf16 is wgmma's A fragment)
+//                  and V read MN-major straight from its TMA tile
+//   Tile i's S is issued before tile i - 1's P V (O is rescaled between
+//   the two issues), and its softmax runs while that product is on the
+//   tensor cores; the two warpgroups take turns to issue their products
+//   (named barriers), so one's softmax runs beside the other's products.
+// Key tiles run from the last down: the causal diagonal tile and a ragged
+// last tile (the only ones with a mask) come first, the interior tiles
+// after them take the unmasked path. The epilogue divides O by l, stores it
+// as bf16 from the fragment, and stores lse = (m scale log2e + log2 l) ln 2.
+// ops/hopper/flash_attention.py's fwd_tile_plan, fwd_cta_order and
+// fwd_schedule_model mirror the tile order, the CTA order, the masks and
+// this arithmetic.
+
+// Named barriers 1.. (0 is __syncthreads): wait until n threads have
+// arrived (the waiting ones included), or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 2^x, flushing denormal results to zero (a p that small is 0 in the sums)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kFwdBM = 128;  // q rows of a CTA: 2 consumer warpgroups x 64
+// keys of a tile; at d = 64, 64 and 192 were no faster (PERF.md)
+constexpr int kFwdBN = 128;
+constexpr int kFwdStages = 2;     // K/V ring
+constexpr int kFwdThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct FwdSmem {
+  static constexpr int q = kFwdBM * D * 2;      // D / 64 boxes of [128 rows][128 B]
+  static constexpr int kv = kFwdBN * D * 2;     // a K or V stage
+  static constexpr int total = 1024 + q + 2 * kFwdStages * kv;
+};
+
+struct FwdArgs {
+  void* out;   // [B, sq, H, D] bf16
+  float* lse;  // [B, H, sq]
+  int B, H, KV, sq, sk, causal;
+  int group;         // (batch, head) pairs per group of CTAs
+  float scale_log2;  // scale * log2(e)
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, FwdArgs a) {
+  using Sm = FwdSmem<D>;
+  constexpr int BN = kFwdBN;
+  constexpr int kBoxes = D / 64;  // 64-column boxes of a row
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
+  __shared__ __align__(8) uint64_t full_q, full_k[kFwdStages], full_v[kFwdStages],
+      empty_k[kFwdStages], empty_v[kFwdStages];
+  const uint32_t q_u = smem_u32(align1024(fwd_smem));
+  const uint32_t k_u = q_u + Sm::q;  // stage s at + s Sm::kv
+  const uint32_t v_u = k_u + kFwdStages * Sm::kv;
+
+  // this CTA's q tile, query head and batch, and its key tiles
+  const int ntiles = (a.sq + kFwdBM - 1) / kFwdBM;
+  const int grp0 = blockIdx.x / (a.group * ntiles) * a.group;
+  const int gc = min(a.group, a.B * a.H - grp0);
+  const int within = blockIdx.x - grp0 * ntiles;
+  const int bh = grp0 + within % gc;
+  const int q0 = (ntiles - 1 - within / gc) * kFwdBM;
+  const int hq = bh % a.H, b = bh / a.H, kh = hq / (a.H / a.KV);
+  const int kend = a.causal ? min(a.sk, q0 + kFwdBM) : a.sk;
+  const int ntk = (kend + BN - 1) / BN;
+  // key tiles from first_masked on cross the diagonal or the ragged end
+  const int first_masked = a.causal ? q0 / BN : (a.sk % BN ? ntk - 1 : ntk);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: key tile i (the i-th from the last) to stage i %
+    // kFwdStages, K once the products of tile i - kFwdStages have read its
+    // K, V once they have read its V
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_expect_tx(&full_q, Sm::q);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c)
+        tma_4d(q_u + c * kFwdBM * 128, &map_q, &full_q, 64 * c, hq, q0, b);
+      for (int i = 0; i < ntk; ++i) {
+        const int s = i % kFwdStages, k0 = (ntk - 1 - i) * BN;
+        const int par = ((i / kFwdStages) & 1) ^ 1;
+        if (i >= kFwdStages) mbar_wait(&empty_k[s], par);
+        mbar_expect_tx(&full_k[s], Sm::kv);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_4d(k_u + s * Sm::kv + c * BN * 128, &map_k, &full_k[s], 64 * c, kh, k0, b);
+        if (i >= kFwdStages) mbar_wait(&empty_v[s], par);
+        mbar_expect_tx(&full_v[s], Sm::kv);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_4d(v_u + s * Sm::kv + c * BN * 128, &map_v, &full_v[s], 64 * c, kh, k0, b);
+      }
+    }
+  } else {
+    // consumers
+    setmaxnreg_inc<232>();
+    const int cw = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + 64 * cw + 16 * warp + g;  // and row0 + 8
+    const uint32_t qa = q_u + cw * 64 * 128;        // this warpgroup's 64 rows
+    float o[D / 2], sc[BN / 2];
+    uint32_t p[BN / 16][4];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+
+    // S = Q K^T of tile i into sc, issued, not waited for
+    auto issue_s = [&](int i) {
+      const int s = i % kFwdStages;
+      mbar_wait(&full_k[s], (i / kFwdStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n128<0, 0>(
+            sc, smem_desc(qa + (ks / 4) * kFwdBM * 128 + (ks % 4) * 32, 1, 64),
+            smem_desc(k_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64), ks > 0);
+      wgmma_commit();
+    };
+    // O += P V of tile i, issued, not waited for. V rows 16 kk .. as B
+    // [keys x d]: MN-major, the d / 64 atoms BN * 128 bytes apart (LBO),
+    // 8-key groups 1024 bytes apart (SBO)
+    auto issue_pv = [&](int i) {
+      const int s = i % kFwdStages;
+      mbar_wait(&full_v[s], (i / kFwdStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db = smem_desc(v_u + s * Sm::kv + kk * 16 * 128, BN * 128 / 16, 64);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(o, p[kk], db, 1);
+        else
+          wgmma_rs_n64<1>(o, p[kk], db, 1);
+      }
+      wgmma_commit();
+    };
+    // the online softmax of tile i on sc (in place: sc becomes P in f32),
+    // the mask on the edge tiles only
+    auto softmax = [&](int i) {
+      const int k0 = (ntk - 1 - i) * BN;
+      if (k0 >= first_masked * BN) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+            if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      float ms[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = quad_max(mx[h]);
+        // a row with no key yet keeps m = -inf: subtract 0, not -inf
+        ms[h] = mx[h] == -INFINITY ? 0.f : mx[h] * a.scale_log2;
+        alpha[h] = ex2(m[h] * a.scale_log2 - ms[h]);
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], a.scale_log2, -ms[e >> 1]));
+          l[e >> 1] += sc[4 * j + e];
+        }
+    };
+    // P rounded to bf16: the S fragment packed pairwise is wgmma's A
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    };
+    // O scaled to the running max of the last softmax
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    // the warpgroups take turns to issue their products: a warpgroup waits
+    // on its own named barrier, then lets the other go; the first opens its
+    // own to start
+    const int my_bar = 1 + cw, other_bar = 2 - cw;
+    if (cw == 0) named_arrive(my_bar, 256);
+    mbar_wait(&full_q, 0);
+    named_sync(my_bar, 256);
+    issue_s(0);
+    named_arrive(other_bar, 256);
+    wgmma_wait<0>();
+    fence_operand(sc);
+    release(&empty_k[0]);
+    softmax(0);
+    pack_p();
+    // O is rescaled by the previous tile's alpha while this tile's S runs
+    for (int i = 1; i < ntk; ++i) {
+      named_sync(my_bar, 256);
+      issue_s(i);
+      rescale_o();
+      issue_pv(i - 1);
+      named_arrive(other_bar, 256);
+      wgmma_wait<1>();
+      fence_operand(sc);
+      release(&empty_k[i % kFwdStages]);
+      softmax(i);
+      wgmma_wait<0>();
+      fence_operand(o);
+      release(&empty_v[(i - 1) % kFwdStages]);
+      pack_p();
+    }
+    rescale_o();
+    issue_pv(ntk - 1);
+    wgmma_wait<0>();
+    fence_operand(o);
+
+    bf16* const ob = static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const float lt = quad_sum(l[h]);
+      if (row >= a.sq) continue;
+      const float inv = 1.f / lt;
+      bf16* const orow = ob + (size_t)row * a.H * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      if (t == 0)
+        a.lse[((size_t)b * a.H + hq) * a.sq + row] = (m[h] * a.scale_log2 + log2f(lt)) * kLn2;
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------
 // launchers
 // ----------------------------------------------------------------------------
 
@@ -962,19 +1156,64 @@ Launch pick_f32(Which which) {
   return {flash_dkv_kernel_f32<D>, Sz::dkv};
 }
 
+// the backward's bf16 kernels (the bf16 forward launches in run_fwd_bf16)
 template <int D>
 Launch pick_bf16(Which which) {
   constexpr size_t kT = bf16_tile_bytes<D>();
-  if (which == kFwd) return {flash_fwd_kernel_bf16<D>, 5 * kT};
   if (which == kDq) return {flash_dq_kernel_bf16<D>, 6 * kT};
   return {flash_dkv_kernel_bf16<D>, 6 * kT};
 }
 
+// A 4-D tensor map over (d, heads, seq, batch) of a bf16 [batch, seq,
+// heads, d] tensor with element strides st (batch, seq, heads; d
+// contiguous): boxes of 64 columns x `rows` rows of one head, 128-byte
+// swizzle, zeros outside the tensor.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq, int batch,
+              const long long* st, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int run_fwd_bf16(const Args& a, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, a.q, D, a.H, a.sq, a.B, a.qs, kFwdBM) ||
+      !make_map(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, kFwdBN) ||
+      !make_map(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, kFwdBN))
+    return (int)cudaErrorInvalidValue;
+  // the shared-memory opt-in holds per device: set it on every call
+  constexpr int smem = FwdSmem<D>::total;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  FwdArgs f;
+  f.out = a.out, f.lse = a.lse_out;
+  f.B = a.B, f.H = a.H, f.KV = a.KV, f.sq = a.sq, f.sk = a.sk, f.causal = a.causal;
+  f.group = a.group;
+  f.scale_log2 = a.scale * kLog2e;
+  const int blocks = (a.sq + kFwdBM - 1) / kFwdBM * a.B * a.H;
+  flash_fwd_kernel_bf16<D><<<blocks, kFwdThreads, smem, st>>>(mq, mk, mv, f);
+  return (int)cudaGetLastError();
+}
+
 int run(int dtype, int d, Which which, const Args& a, void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.sq <= 0 || a.sk <= 0 ||
-      (a.causal && a.sq != a.sk) || (d != 64 && d != 128) || (dtype != 0 && dtype != 1))
+      (a.causal && a.sq != a.sk) || (d != 64 && d != 128) || (dtype != 0 && dtype != 1) ||
+      (which == kFwd && a.group < 1))
     return (int)cudaErrorInvalidValue;
   const bool f32 = dtype == 0;
+  if (!f32 && which == kFwd)
+    return d == 64 ? run_fwd_bf16<64>(a, static_cast<cudaStream_t>(stream))
+                   : run_fwd_bf16<128>(a, static_cast<cudaStream_t>(stream));
   const Launch l = d == 64 ? (f32 ? pick_f32<64>(which) : pick_bf16<64>(which))
                            : (f32 ? pick_f32<128>(which) : pick_bf16<128>(which));
   // above 48 KB of dynamic shared memory a kernel must opt in
@@ -1006,12 +1245,18 @@ Args make_args(const void* q, const void* k, const void* v, const long long* str
 // strides: 12 int64 values, the batch/sequence/head strides (in elements) of
 // q, k, v and dout in that order (dout's are unused by the forward).
 // dtype: 0 = float32, 1 = bfloat16 (all inputs and outputs share it).
-// The caller checks shapes, devices, dtypes and 16-byte alignment of rows.
+// group: the bf16 forward's (batch, head) pairs per group of CTAs (>= 1;
+// the wrapper's fwd_group), unused by the f32 forward.
+// The caller checks shapes, devices, dtypes and 16-byte alignment of rows
+// (the bf16 forward's tensor maps need a 16-byte aligned base and strides
+// that are multiples of 16 bytes; it returns cudaErrorInvalidValue when a
+// map cannot be made).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                 void* lse, const long long* strides, int B, int H, int KV,
                                 int sq, int sk, int d, int dtype, int causal, float scale,
-                                void* stream) {
+                                int group, void* stream) {
   Args a = make_args(q, k, v, strides, B, H, KV, sq, sk, causal, scale);
+  a.group = group;
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
   return run(dtype, d, kFwd, a, stream);

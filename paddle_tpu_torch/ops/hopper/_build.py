@@ -2,11 +2,12 @@
 
 Each library is compiled from ``paddle_tpu_torch/csrc`` into the
 checkout's ``build/`` directory, on first use, keyed by a hash of its
-sources and flags: a changed source builds anew, an unchanged one is
-loaded from the earlier build. The sources have a plain C interface
-and include no PyTorch header, so a build takes seconds; the wrappers
-load the library with ``ctypes``. A failed build raises with the
-compiler's output.
+sources, of every header under ``csrc/`` (``*.cuh``, which the sources
+include) and of the flags: a changed source or header builds anew, an
+unchanged one is loaded from the earlier build. The sources have a
+plain C interface and include no PyTorch header, so a build takes
+seconds; the wrappers load the library with ``ctypes``. A failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -44,16 +45,24 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels build from source")
 
 
-def build_library(name: str, sources: list[str]) -> tuple[Path, str]:
-    """Compile ``sources`` (file names under csrc/) into
-    ``build/lib<name>-<hash>.so``. Returns the library path and the
-    compiler log ("" when an earlier build was reused)."""
-    paths = [CSRC_DIR / s for s in sources]
+def library_path(name: str, sources: list[str], csrc: Path = CSRC_DIR,
+                 build: Path = BUILD_DIR) -> Path:
+    """``build/lib<name>-<hash>.so``: the hash covers the flags, the
+    sources (file names under ``csrc``) and every ``*.cuh`` header
+    there."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in [csrc / s for s in sources] + sorted(csrc.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(name: str, sources: list[str]) -> tuple[Path, str]:
+    """Compile ``sources`` (file names under csrc/) into
+    :func:`library_path`. Returns the library path and the compiler log
+    ("" when an earlier build was reused)."""
+    paths = [CSRC_DIR / s for s in sources]
+    out = library_path(name, sources)
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -13,12 +13,18 @@ note says how they work.
 
 What bounds them on an H100: at Llama training shapes (s=4096, d=128) the
 forward does about 10^3 operations per byte it must move, so it is bound
-by operations (tensor-core rate in bf16). The design never writes the
-``s x s`` scores to device memory: for bf16 the 64 x 64 score tiles, P and
-dS stay in registers between ``mma.sync`` tensor-core products, with the
-streamed K/V (or Q/dO) tiles double-buffered in shared memory by
-``cp.async``; causal tiles stop at the diagonal and the longest launch
-first.
+by operations (tensor-core rate in bf16). No kernel writes the ``s x s``
+scores to device memory. The bf16 forward is built for Hopper: a CTA owns
+a 128-row q tile; one thread loads Q and streams K/V tiles by TMA into a
+two-stage ring; two consumer warpgroups run ``wgmma`` (S = Q K^T from
+shared memory, O += P V with P from registers) and take turns on the
+tensor cores, so that one's softmax (in the log2 domain) runs beside the
+other's products; only the diagonal and ragged key tiles are masked.
+:func:`fwd_tile_plan`, :func:`fwd_cta_order` and
+:func:`fwd_schedule_model` are plain models of that schedule. The f32
+forward and the backward keep 64-row tiles of 4 warps (``mma.sync`` for
+bf16, CUDA-core FMA for f32) with ``cp.async`` double buffering; causal
+tiles stop at the diagonal and the longest launch first.
 
 Layout as in the JAX package: q ``[b, sq, h, d]``, k/v ``[b, sk, kv, d]``
 (``h`` a multiple of ``kv``: grouped-query attention without expanding
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -123,6 +130,102 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The bf16 forward's tiles (csrc/flash_attention.cu: kFwdBM, kFwdBN) and
+# the K/V bytes a group of CTAs keeps in L2
+FWD_BLOCK_M = FWD_BLOCK_N = 128
+FWD_GROUP_BYTES = 16 << 20
+
+
+def fwd_tile_plan(q0, sq, sk, causal):
+    """The key tiles the bf16 forward's CTA for the q tile at row ``q0``
+    visits, in its order: ``[(k0, masked), ...]`` from the last tile down.
+    A causal tile stops at the diagonal; only the tiles that cross the
+    diagonal, or the ragged end of the keys, take the mask (they come
+    first)."""
+    kend = min(sk, q0 + FWD_BLOCK_M) if causal else sk
+    ntk = -(-kend // FWD_BLOCK_N)
+    first_masked = (q0 // FWD_BLOCK_N if causal
+                    else ntk - 1 if sk % FWD_BLOCK_N else ntk)
+    return [(kt * FWD_BLOCK_N, kt >= first_masked)
+            for kt in range(ntk - 1, -1, -1)]
+
+
+def fwd_group(b, h, kv, sk, d):
+    """(batch, head) pairs per group of the bf16 forward's CTAs, which
+    the wrapper passes to the kernel: as many as keep their K/V within
+    FWD_GROUP_BYTES of L2 (a query head's share of a GQA group's K/V
+    counted once)."""
+    kv_per_head = max(1, 4 * sk * d // (h // kv))
+    return max(1, min(b * h, FWD_GROUP_BYTES // kv_per_head))
+
+
+def fwd_cta_order(b, h, kv, sq, sk, d):
+    """The bf16 forward's CTAs in launch order, as the kernel maps its
+    block index: ``[(bh, q0), ...]`` with ``bh = batch * h + head``.
+    Groups of :func:`fwd_group` (batch, head) pairs, the heaviest q tile
+    first within a group."""
+    ntiles = -(-sq // FWD_BLOCK_M)
+    group = fwd_group(b, h, kv, sk, d)
+    order = []
+    for x in range(ntiles * b * h):
+        grp0 = x // (group * ntiles) * group
+        gc = min(group, b * h - grp0)
+        within = x - grp0 * ntiles
+        order.append((grp0 + within % gc,
+                      (ntiles - 1 - within // gc) * FWD_BLOCK_M))
+    return order
+
+
+def fwd_schedule_model(q, k, v, causal, scale):
+    """Plain model of the bf16 forward's schedule and arithmetic, the
+    contract of :func:`flash_attention_fwd_reference`: per q tile, the key
+    tiles of :func:`fwd_tile_plan` with rows and keys past ``sq``/``sk``
+    zero (as TMA fills them) and the mask on the plan's tiles only; the
+    online softmax in the log2 domain (``p = 2^(s scale log2e - m scale
+    log2e)``, a row with no key yet subtracts 0), ``l`` summed from the
+    f32 ``p``, ``P`` rounded to the input dtype before ``P V``, and
+    ``lse = (m scale log2e + log2 l) ln 2``."""
+    _check(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], h // k.shape[2]
+    scale_log2 = scale * math.log2(math.e)
+    pad_q, pad_k = -sq % FWD_BLOCK_M, -sk % FWD_BLOCK_N
+    qf = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q)).float()
+    kf, vf = (torch.nn.functional.pad(_expand(t, g), (0, 0, 0, 0, 0, pad_k))
+              .float() for t in (k, v))
+    out = torch.empty(b, sq, h, d, dtype=q.dtype)
+    lse = torch.empty(b, h, sq)
+    cols = torch.arange(FWD_BLOCK_N)
+    for q0 in range(0, sq, FWD_BLOCK_M):
+        rows = q0 + torch.arange(FWD_BLOCK_M)
+        qt = qf[:, q0:q0 + FWD_BLOCK_M]
+        m = torch.full((b, h, FWD_BLOCK_M), -math.inf)
+        l = torch.zeros(b, h, FWD_BLOCK_M)
+        o = torch.zeros(b, h, FWD_BLOCK_M, d)
+        for k0, masked in fwd_tile_plan(q0, sq, sk, causal):
+            s = torch.einsum("bqhd,bkhd->bhqk", qt,
+                             kf[:, k0:k0 + FWD_BLOCK_N])
+            if masked:
+                c = (k0 + cols)[None, :]
+                drop = (c >= sk) | (causal & (c > rows[:, None]))
+                s = s.masked_fill(drop, -math.inf)
+            mx = torch.maximum(m, s.amax(-1))
+            ms = torch.where(mx == -math.inf, 0.0, mx * scale_log2)
+            alpha = torch.exp2(m * scale_log2 - ms)
+            p = torch.exp2(s * scale_log2 - ms[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype).float(),
+                vf[:, k0:k0 + FWD_BLOCK_N])
+            m = mx
+        n = min(FWD_BLOCK_M, sq - q0)
+        out[:, q0:q0 + n] = (o / l[..., None]).transpose(1, 2)[:, :n].to(
+            q.dtype)
+        lse[..., q0:q0 + n] = ((m * scale_log2 + torch.log2(l))
+                               * math.log(2.0))[..., :n]
+    return out, lse
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     path, _ = build_library("flash_attention", _SOURCES)
@@ -130,8 +233,9 @@ def _library():
     # strides, then B, H, KV, sq, sk, d, dtype, causal, then scale
     tail = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
             + [ctypes.c_float])
+    # the forward then takes the CTA group (fwd_group), then the stream
     lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + tail + [
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.flash_fwd_launch.restype = ctypes.c_int
     lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + tail + [
         ctypes.c_int, ctypes.c_void_p]
@@ -166,7 +270,9 @@ def _check_cuda(tensors):
 def _rows_aligned(t):
     """``t`` itself when its rows (last dim) are contiguous and every row
     starts on 16 bytes, as the kernels' vector loads need; else a
-    contiguous copy."""
+    contiguous copy. The test is also what the bf16 forward's TMA maps
+    need (a 16-byte aligned base, strides in multiples of 16 bytes), so
+    the kernel never meets a tensor its maps cannot take."""
     vec = 16 // t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1])):
@@ -181,7 +287,8 @@ def _strides(*tensors):
 
 
 def flash_attention_fwd_cuda(q, k, v, causal, scale):
-    """Launch the forward kernel (K1/K3). Same contract as
+    """Launch the forward kernel (K1/K3): for bf16 the TMA/``wgmma``
+    kernel, for f32 the CUDA-core one. Same contract as
     :func:`flash_attention_fwd_reference`. Raises ``ValueError`` on
     inputs the kernel does not take and ``RuntimeError`` when the launch
     fails."""
@@ -201,7 +308,8 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
         rc = _library().flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), strides, b, h, kv, sq, sk, d,
-            _DTYPE_CODES[q.dtype], int(causal), float(scale), stream)
+            _DTYPE_CODES[q.dtype], int(causal), float(scale),
+            fwd_group(b, h, kv, sk, d), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {rc}")

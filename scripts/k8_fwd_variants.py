@@ -5,9 +5,9 @@ Each argument is a CUDA source with the same ``conv3x3_bn_fwd`` entry
 point as ``paddle_tpu_torch/csrc/conv3x3_bn.cu`` (a copy of it as it
 stood, or with a change under trial), optionally followed by
 ``:-DNAME[=VALUE],...`` compiler switches. With no argument it takes the
-checkout's own source. All are built with nvcc in parallel, then each is
-held against the port's plain forward (y to 2 bf16 ulps of its largest
-element) and timed with CUDA events (mean of 20 calls after 3, entry
+checkout's own source. All are built with nvcc in parallel
+(``variant_harness.py``), then each is held against the port's plain
+forward (y to 2 bf16 ulps of its largest element) and timed with CUDA events (mean of 20 calls after 3, entry
 point and statistics reduction) at ResNet-50's three stride-1 3x3 shapes
 at batch 256, the variants in turn at each shape. Run from the
 repository root on the card:
@@ -18,95 +18,62 @@ repository root on the card:
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+from variant_harness import (CSRC_DIR, build_all, card, spec_name,
+                             time_ms)
 
-from paddle_tpu_torch.ops.hopper import resnet_unit as ru  # noqa: E402
-from paddle_tpu_torch.ops.hopper._build import NVCC_FLAGS, find_nvcc  # noqa: E402
+from paddle_tpu_torch.ops.hopper import resnet_unit as ru
 
 SHAPES = [(256, 56, 56, 64), (256, 28, 28, 128), (256, 14, 14, 256)]
 Y_REL = 2.0 ** -7
-
-
-def build(index, spec, out_dir):
-    src, _, flags = spec.partition(":")
-    out = os.path.join(out_dir, f"lib{index}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *[f for f in flags.split(",") if f],
-           "-o", out, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"{spec}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bn_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
-    return lib.conv3x3_bn_fwd
-
-
-def time_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# conv3x3_bn_fwd: x, w9, a, b, y, part, stats, n, h, w, cin, cout, rows,
+# cols, groups, stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("k8_fwd_variants: needs a CUDA device", file=sys.stderr)
         return 2
-    specs = sys.argv[1:] or [
-        os.path.join(ROOT, "paddle_tpu_torch", "csrc", "conv3x3_bn.cu")]
-    with tempfile.TemporaryDirectory() as out_dir, ThreadPoolExecutor() as ex:
-        fns = list(ex.map(lambda i: build(i, specs[i], out_dir),
-                          range(len(specs))))
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip())
-        gen = torch.Generator(device="cuda").manual_seed(2024)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        for n, h, w, c in SHAPES:
-            x = torch.randn(n, h, w, c, device="cuda", generator=gen).bfloat16()
-            w9 = (torch.randn(9, c, c, device="cuda", generator=gen)
-                  * (9 * c) ** -0.5).bfloat16()
-            a = torch.rand(c, device="cuda", generator=gen) + 0.5
-            b = torch.randn(c, device="cuda", generator=gen) * 0.5
-            want = ru.conv3x3_bn_fwd_reference(x, w9, a, b)[0].float()
-            plan = ru.conv3_fwd_work_split(n, h, w, c, c, sms)
-            stream = torch.cuda.current_stream().cuda_stream
-            row = [f"{n}x{h}x{w}x{c}:"]
-            for spec, fn in zip(specs, fns):
-                y = torch.empty(n, h, w, c, device="cuda", dtype=torch.bfloat16)
-                part = torch.empty(plan["groups"], 2, c, device="cuda")
-                stats = torch.empty(2, c, device="cuda")
+    specs = sys.argv[1:] or [str(CSRC_DIR / "conv3x3_bn.cu")]
+    with tempfile.TemporaryDirectory() as out_dir:
+        fns = [fn for fn, _ in build_all(specs, out_dir, "conv3x3_bn_fwd",
+                                         ARGTYPES)]
+    print(card())
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, h, w, c in SHAPES:
+        x = torch.randn(n, h, w, c, device="cuda", generator=gen).bfloat16()
+        w9 = (torch.randn(9, c, c, device="cuda", generator=gen)
+              * (9 * c) ** -0.5).bfloat16()
+        a = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.5
+        want = ru.conv3x3_bn_fwd_reference(x, w9, a, b)[0].float()
+        plan = ru.conv3_fwd_work_split(n, h, w, c, c, sms)
+        stream = torch.cuda.current_stream().cuda_stream
+        row = [f"{n}x{h}x{w}x{c}:"]
+        for spec, fn in zip(specs, fns):
+            y = torch.empty(n, h, w, c, device="cuda", dtype=torch.bfloat16)
+            part = torch.empty(plan["groups"], 2, c, device="cuda")
+            stats = torch.empty(2, c, device="cuda")
 
-                def call():
-                    return fn(x.data_ptr(), w9.data_ptr(), a.data_ptr(),
-                              b.data_ptr(), y.data_ptr(), part.data_ptr(),
-                              stats.data_ptr(), n, h, w, c, c, plan["rows"],
-                              plan["cols"], plan["groups"], stream)
-                if call() != 0:
-                    raise SystemExit(f"{spec}: launch failed")
-                torch.cuda.synchronize()
-                rel = float((y.float() - want).abs().max() / want.abs().max())
-                if rel > Y_REL:
-                    raise SystemExit(f"{spec}: y disagrees ({rel})")
-                row.append(f"{os.path.basename(spec)}={time_ms(call) * 1e3:.1f}us")
-            print(" ".join(row), flush=True)
+            def call():
+                return fn(x.data_ptr(), w9.data_ptr(), a.data_ptr(),
+                          b.data_ptr(), y.data_ptr(), part.data_ptr(),
+                          stats.data_ptr(), n, h, w, c, c, plan["rows"],
+                          plan["cols"], plan["groups"], stream)
+            if call() != 0:
+                raise SystemExit(f"{spec}: launch failed")
+            torch.cuda.synchronize()
+            rel = float((y.float() - want).abs().max() / want.abs().max())
+            if rel > Y_REL:
+                raise SystemExit(f"{spec}: y disagrees ({rel})")
+            row.append(f"{spec_name(spec)}={time_ms(call, 20, 3) * 1e3:.1f}us")
+        print(" ".join(row), flush=True)
     return 0
 
 

@@ -8,7 +8,9 @@ against the JAX package's Pallas kernels in interpret mode
 backward kernels) on the same numpy-seeded f32 inputs, over the kernel
 paths the JAX package takes: the rectangular grid (K1/K2), the folded
 triangle (K3/K4), non-causal ``sq != sk``, GQA and the packed head pairs
-of ``d=64``. The ``gpu``-marked tests hold the Hopper kernels against
+of ``d=64``. The plain model of the bf16 forward kernel's schedule (its
+key tiles, masks, CTA order and log2-domain softmax) is held against the
+plain forward. The ``gpu``-marked tests hold the Hopper kernels against
 the plain versions; they skip on a machine without a CUDA device. JAX is
 imported only inside the ``ref`` fixture.
 """
@@ -268,6 +270,111 @@ def test_dropout_takes_plain_composition_with_callers_generator():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 forward kernel's schedule, as its plain model
+# ---------------------------------------------------------------------------
+
+def _tiles(*k0s):
+    return [(k, False) for k in k0s]
+
+
+@pytest.mark.parametrize("q0,sq,sk,causal,want", [
+    # the training length: the last q tile walks 32 key tiles, the
+    # diagonal one first and masked; the first q tile only its diagonal
+    (3968, 4096, 4096, True, [(3968, True)] + _tiles(*range(3840, -1, -128))),
+    (0, 4096, 4096, True, [(0, True)]),
+    # ragged: 200 = 128 + 72, and 100 (no full tile)
+    (128, 200, 200, True, [(128, True), (0, False)]),
+    (0, 100, 100, True, [(0, True)]),
+    # non-causal: only a ragged last key tile is masked
+    (0, 200, 1000, False, [(896, True)] + _tiles(*range(768, -1, -128))),
+    (128, 256, 1024, False, _tiles(*range(896, -1, -128))),
+], ids=["causal_last_tile", "causal_first_tile", "ragged_s200", "s100",
+        "full_sk1000", "full_sk1024"])
+def test_fwd_tile_plan(q0, sq, sk, causal, want):
+    """The key tiles a 128-row q tile visits, last first, and which of
+    them take the mask."""
+    assert hop_fa.fwd_tile_plan(q0, sq, sk, causal) == want
+
+
+@pytest.mark.parametrize("b,h,kv,sq,d,group", [
+    (2, 32, 32, 4096, 128, 8),    # the training shape: 2 MiB of K/V a head
+    (1, 32, 8, 2048, 128, 32),    # GQA: four heads share a K/V head
+    (2, 8, 2, 200, 128, 16),
+    (3, 5, 5, 4096, 128, 8),      # 15 heads: a short last group
+])
+def test_fwd_cta_order(b, h, kv, sq, d, group):
+    """Every (batch, head) q tile launches once, in groups of
+    ``fwd_group`` (batch, head) pairs, the heaviest q tile first within
+    a group."""
+    assert hop_fa.fwd_group(b, h, kv, sq, d) == group
+    order = hop_fa.fwd_cta_order(b, h, kv, sq, sq, d)
+    tiles = range(0, sq, hop_fa.FWD_BLOCK_M)
+    assert sorted(order) == sorted((bh, q0) for bh in range(b * h)
+                                   for q0 in tiles)
+    for start in range(0, b * h, group):
+        heads = range(start, min(start + group, b * h))
+        chunk = order[start * len(tiles):(heads.stop) * len(tiles)]
+        assert {bh for bh, _ in chunk} == set(heads)
+        q0s = [q0 for _, q0 in chunk]
+        assert q0s == sorted(q0s, reverse=True)
+
+
+def _assert_rows_close(got, want, rel):
+    """Every row (the last dimension) of ``got`` within ``rel`` of that
+    row's largest ``|want|``. A row of attention's out is a weighted mean
+    of V rows: rows that see many keys are far smaller than the first
+    causal rows, and a limit scaled to the whole tensor's largest value
+    would pass a fault confined to them."""
+    g, w = got.float(), want.float()
+    err, lim = (g - w).abs().amax(-1), rel * w.abs().amax(-1)
+    bad = err > lim
+    assert not bad.any(), (
+        f"{int(bad.sum())} rows beyond {rel} of their largest value; worst "
+        f"ratio {float((err / lim).max()) * rel}")
+
+
+# (name, b, sq, sk, heads, kv_heads, head_dim, causal)
+SCHEDULE_CASES = [
+    ("causal_s256_d128", 1, 256, 256, 2, 2, 128, True),
+    ("causal_ragged_s200_gqa", 1, 200, 200, 4, 2, 128, True),
+    ("causal_s100_d64", 2, 100, 100, 2, 1, 64, True),
+    ("causal_s300_d64_gqa", 1, 300, 300, 4, 1, 64, True),
+    ("full_sq200_sk1000_d64", 1, 200, 1000, 2, 2, 64, False),
+    ("full_sq256_sk384_gqa_d128", 1, 256, 384, 4, 2, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=lambda c: c[0])
+def test_fwd_schedule_model_matches_plain(case, dtype):
+    """The plain model of the bf16 forward kernel (its tile plan, masks
+    on the edge tiles only, zero-filled padding, log2-domain online
+    softmax, P rounded to the input dtype, lse converted back to a
+    natural log) equals the plain forward: f32 to ATOL/RTOL (order of
+    summation, exp2 against exp); bf16 out to 4 bf16 ulps of the largest
+    value and row by row to 4 bf16 ulps of each row's largest value (P
+    rounded before P V), lse to 1e-4: the card's limits."""
+    _, b, sq, sk, h, kv, d, causal = case
+    x = _inputs(sq + sk, b, sq, sk, h, kv, d)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x[n]).to(tdt) for n in "qkv")
+    scale = 1.0 / math.sqrt(d)
+    out, lse = hop_fa.fwd_schedule_model(q, k, v, causal, scale)
+    want, want_lse = hop_fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                          scale)
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    if dtype == "float32":
+        torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(lse, want_lse, atol=ATOL, rtol=RTOL)
+    else:
+        tol = 2.0 ** -6 * float(want.float().abs().max())
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=0)
+        _assert_rows_close(out, want, 2.0 ** -6)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -281,11 +388,18 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES + [
-    ("ragged_s200_gqa_d128", 200, 200, 8, 2, 128, True)], ids=lambda c: c[0])
+    ("ragged_s200_gqa_d128", 200, 200, 8, 2, 128, True),
+    # the bf16 forward's 128-row tiles: no full tile, one and a half, a
+    # ragged non-causal key end, and d=64 with GQA
+    ("causal_s100_gqa_d128", 100, 100, 4, 2, 128, True),
+    ("causal_s192_d128", 192, 192, 4, 4, 128, True),
+    ("noncausal_sq200_sk1000_d128", 200, 1000, 4, 4, 128, False),
+    ("causal_s300_gqa_d64", 300, 300, 8, 2, 64, True)], ids=lambda c: c[0])
 def test_flash_kernels_match_plain(cuda, case, dtype):
     """The forward, dq and dkv kernels equal the plain versions on the
     same inputs: f32 to 1e-4 (order of summation), bf16 to 4 bf16 ulps
-    of the largest value (each side rounds its outputs to bf16, and the
+    of the largest value, and the forward's out also to 4 ulps of each
+    row's largest value (each side rounds its outputs to bf16, and the
     kernels round P and dS to bf16 before their products)."""
     _, sq, sk, h, kv, d, causal = case
     if d not in hop_fa.HEAD_DIMS:
@@ -309,6 +423,57 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * float(
             w.abs().max())
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
+    if dtype == "bfloat16":
+        _assert_rows_close(out, want_out, 2.0 ** -6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_is_deterministic(cuda, d):
+    """Two calls of the bf16 forward give the same bits (out and lse):
+    every row is summed by one warpgroup in a fixed order."""
+    x = _inputs(13, 2, 520, 520, 8, 2, d)
+    q, k, v = (torch.from_numpy(x[n]).to(cuda, torch.bfloat16) for n in "qkv")
+    first = hop_fa.flash_attention_fwd_cuda(q, k, v, True, d ** -0.5)
+    second = hop_fa.flash_attention_fwd_cuda(q, k, v, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_fwd_runs_on_every_card(cuda):
+    """One process calls the bf16 forward on each card in turn, and each
+    call agrees with the plain forward: the kernel's opt-in to more
+    shared memory holds per device, so it is made on every call."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x = _inputs(19, 1, 256, 256, 4, 2, 128)
+    for i in range(torch.cuda.device_count()):
+        q, k, v = (torch.from_numpy(x[n]).to(torch.device("cuda", i),
+                                             torch.bfloat16) for n in "qkv")
+        out, lse = hop_fa.flash_attention_fwd_cuda(q, k, v, True, 128 ** -0.5)
+        want, want_lse = hop_fa.flash_attention_fwd_reference(
+            q, k, v, True, 128 ** -0.5)
+        torch.cuda.synchronize(i)
+        _assert_rows_close(out, want, 2.0 ** -6)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_takes_unaligned_views(cuda):
+    """A view whose rows do not start on 16 bytes (which the bf16
+    forward's TMA maps cannot take) is copied by the wrapper and gives the
+    bits of the contiguous input."""
+    x = _inputs(17, 1, 200, 200, 4, 2, 128)
+    q, k, v = (torch.from_numpy(x[n]).to(cuda, torch.bfloat16) for n in "qkv")
+    wide = torch.zeros(1, 200, 4, 136, device=cuda, dtype=torch.bfloat16)
+    wide[..., 1:129] = q
+    view = wide[..., 1:129]
+    assert view.data_ptr() % 16 != 0
+    got = hop_fa.flash_attention_fwd_cuda(view, k, v, True, 128 ** -0.5)
+    want = hop_fa.flash_attention_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu
