@@ -17,6 +17,10 @@ widths); ``--k5 --root DIR`` runs it on the port of another checkout
 the flash forward (K1/K3): the build's ptxas report, out and lse against
 the plain version at every bf16 case and the 128-row tile edges, two
 calls bitwise equal, and timings beside SDPA and the bound.
+``--flash-bwd [--root DIR]`` does the same for the backward (K2/K4): dq,
+dk and dv (also row by row) at the same cases, two calls bitwise equal,
+and the times of dq, dkv, their sum and the whole backward (delta
+included) beside SDPA's backward and the bound.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -35,8 +39,9 @@ the run with a non-zero exit code and no result line:
 4. The flash-attention forward, dq and dkv kernels (CUDA) against their
    plain versions: out, lse, dq, dk, dv for causal s=4096 bf16 (the
    training shape), causal s=1024 f32, GQA 32/8, non-causal 256 x 1024,
-   a ragged s=200 and d=64; bf16 out also row by row, to 4 ulps of each
-   row's largest value.
+   a ragged s=200 and d=64; bf16 out, dq, dk and dv also row by row, to
+   4 (out) or 8 ulps of each row's largest value; a second bf16
+   backward call gives equal bits.
 5. Timings of every kernel with CUDA events: kernel, plain version, one
    PyTorch library call for the same function, and the bound.
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
@@ -112,9 +117,19 @@ K6_RSTD_RTOL = 1e-5
 # flash attention: f32 sums in other orders on both sides
 FLASH_F32_ATOL = 1e-4
 # bf16: each side rounds its outputs to bf16 and the kernels round P and
-# dS to bf16 before their products: 4 bf16 ulps of the largest value (of
-# each row's largest value for the forward's out, flash_out_row_err)
+# dS to bf16 before their products: 4 bf16 ulps of the largest value, and
+# of each row's largest value for out (flash_row_err; sound kernels read
+# one ulp, 2^-7, on the worst row)
 FLASH_BF16_REL = 2.0 ** -6
+# dq, dk and dv row by row: 8 bf16 ulps of each row's largest value. dS
+# rounded to bf16 moves a row whose terms cancel by up to two ulps: sound
+# kernels (the mma.sync ones and the wgmma ones alike) read 1/116 on the
+# worst dq row at the training shape and 2^-7 elsewhere
+FLASH_GRAD_ROW_REL = 2.0 ** -5
+# the least row scale of dq, dk and dv, as a share of the tensor's largest
+# value: causal dq's first row is zero in exact arithmetic (one key, so
+# P = 1 and dS = dP - delta = 0) and rounding noise on both sides
+FLASH_ROW_FLOOR = 2.0 ** -10
 # lse is f32 on both sides (order of summation only)
 FLASH_LSE_ATOL = 1e-4
 # RMSNorm gradient on the card against plain autograd: one bf16 rounding
@@ -634,14 +649,19 @@ FLASH_CASES = [
 ]
 
 
-def flash_out_row_err(got, want):
-    """The worst row of the forward's out: over every (batch, row, head),
+def flash_row_err(got, want, floor=0.0):
+    """The worst row of out, dq, dk or dv: over every (batch, row, head),
     the largest |got - want| over that row's largest |want|. A row of out
     is a weighted mean of V rows, so rows that see many keys are far
-    smaller than the first causal rows; a limit scaled to the whole
-    tensor's largest value would pass a fault confined to them."""
+    smaller than the first causal rows; dq of the first causal rows and
+    dk/dv of the last keys (which few queries see) are far smaller than
+    the rest. A limit scaled to the whole tensor's largest value would
+    pass a fault confined to such rows. A row's scale is at least
+    ``floor`` times the tensor's largest |want| (FLASH_ROW_FLOOR for the
+    gradients), for rows that are zero in exact arithmetic."""
     g, w = got.float(), want.float()
-    err, top = (g - w).abs().amax(-1), w.abs().amax(-1)
+    err = (g - w).abs().amax(-1)
+    top = w.abs().amax(-1).clamp(min=floor * float(w.abs().max()))
     return float(torch.where(err == 0, 0.0, err / top).max())
 
 
@@ -649,7 +669,9 @@ def phase_flash():
     """Each case: the forward kernel against the plain forward (out,
     lse), then the dq and dkv kernels against the plain FA2 backward
     (dq, dk, dv), both backward versions fed the plain forward's out and
-    lse so that each kernel is judged on its own."""
+    lse so that each kernel is judged on its own; bf16 outputs also row
+    by row (flash_row_err), and a second bf16 backward call must give
+    the same bits (no atomics)."""
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -666,9 +688,15 @@ def phase_flash():
                                                               scale)
         grads = fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse, do,
                                             causal, scale)
+        again = (fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
+                                             do, causal, scale)
+                 if dt == torch.bfloat16 else grads)
         want_grads = fa.flash_attention_bwd_reference(
             q, k, v, want_out, want_lse, do, causal, scale)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        log(f"[flash] {name} dq/dk/dv of two calls bitwise_equal={same}")
+        check(same, f"flash {name}: two backward calls differ")
         errs = {}
         for key, got, want in zip(("out", "dq", "dk", "dv"),
                                   (out, *grads), (want_out, *want_grads)):
@@ -678,14 +706,16 @@ def phase_flash():
             tol = (FLASH_F32_ATOL if dt == torch.float32 else
                    FLASH_BF16_REL * float(want.float().abs().max()))
             errs[key] = err
-            row_err = (flash_out_row_err(got, want)
-                       if key == "out" and dt != torch.float32 else 0.0)
-            rows = (f" worst_row_rel_err={row_err} row_tol={FLASH_BF16_REL}"
+            row_tol = FLASH_BF16_REL if key == "out" else FLASH_GRAD_ROW_REL
+            row_err = (flash_row_err(got, want, FLASH_ROW_FLOOR
+                                     if key != "out" else 0.0)
+                       if dt != torch.float32 else 0.0)
+            rows = (f" worst_row_rel_err={row_err} row_tol={row_tol}"
                     f" (of each row's largest value)" if row_err else "")
             log(f"[flash] {name} {key} max_abs_err={err} tol={tol}{rows}")
             check(err <= tol, f"flash {name}: {key} disagrees with the "
                   f"plain version")
-            check(row_err <= FLASH_BF16_REL, f"flash {name}: a row of out "
+            check(row_err <= row_tol, f"flash {name}: a row of {key} "
                   f"disagrees with the plain version")
         errs["lse"] = float((lse - want_lse).abs().max())
         log(f"[flash] {name} lse max_abs_err={errs['lse']} tol="
@@ -698,7 +728,8 @@ def phase_flash():
             results["main"] = dict(q=q, k=k, v=v, do=do, out=want_out,
                                    lse=want_lse, delta=delta, causal=causal,
                                    scale=scale, name=name)
-        del q, k, v, do, out, lse, want_out, want_lse, grads, want_grads
+        del q, k, v, do, out, lse, want_out, want_lse, grads, again
+        del want_grads
     torch.cuda.empty_cache()
     return results
 
@@ -730,7 +761,9 @@ def flash_bound(m, kernel):
 def time_flash(results):
     """Times on the main case (the training shape). The plain backward
     and SDPA's backward compute dq, dk and dv together; the plain and
-    library times of dq and dkv are those of the whole backward."""
+    library times of dq and dkv are those of the whole backward, which is
+    also timed as the port runs it (delta, dq, dkv), with delta's
+    share."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
@@ -764,12 +797,28 @@ def time_flash(results):
             f"{r['plain_ms']} library_ms={r['library_ms']} bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}) bound_share="
             f"{r['bound_ms'] / r['ms']}")
+    whole, delta_ms = time_flash_bwd_whole(m)
     log(f"[time] flash backward pair dq+dkv ms="
-        f"{timing['dq']['ms'] + timing['dkv']['ms']} sdpa_backward_ms="
-        f"{lib_bwd} (dq, dk, dv in one call)")
+        f"{timing['dq']['ms'] + timing['dkv']['ms']} whole_backward_ms="
+        f"{whole} (delta, dq, dkv) delta_ms={delta_ms} delta_share="
+        f"{delta_ms / whole} sdpa_backward_ms={lib_bwd} (dq, dk, dv in one "
+        f"call)")
     del results["main"], qt, kt, vt, lib_out
     torch.cuda.empty_cache()
     return timing
+
+
+def time_flash_bwd_whole(m):
+    """ms of ``flash_attention_bwd_cuda`` (delta = rowsum(dO O) in plain
+    torch, then the dq and dkv kernels) and of its delta alone."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    q, k, v, do, out = m["q"], m["k"], m["v"], m["do"], m["out"]
+    whole = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, out, m["lse"], do, m["causal"], m["scale"]))
+    delta_ms = time_ms(lambda: (do.float() * out.float()).sum(-1).transpose(
+        1, 2).contiguous())
+    return whole, delta_ms
 
 
 # -- phase 6: parity at full width --------------------------------------------
@@ -1862,9 +1911,9 @@ def k8_only(backward):
     return 0
 
 
-# --flash-fwd adds the 128-row tile edges to the bf16 FLASH_CASES: a q tile
-# with no full 128 rows, one and a half tiles, a ragged key end under a
-# non-causal mask, and d=64 with GQA
+# --flash-fwd and --flash-bwd add the 128-row tile edges to the bf16
+# FLASH_CASES: a q tile with no full 128 rows, one and a half tiles, a
+# ragged key end under a non-causal mask, and d=64 with GQA
 FLASH_FWD_EDGES = [
     ("causal_s100_h8_kv2_d128_bf16", torch.bfloat16, 2, 100, 100, 8, 2, 128,
      True),
@@ -1889,13 +1938,7 @@ def flash_fwd_only():
 
     phase_device()
     log(f"[flash-fwd] implementation={os.path.dirname(fa.__file__)}")
-    t0 = time.perf_counter()
-    for line in fa.build().splitlines():
-        if "Compiling entry" in line:
-            log(f"[build] ptxas: {line.split(chr(39))[1]}")
-        if any(w in line for w in ("registers", "spill", "smem", "arning")):
-            log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] seconds={time.perf_counter() - t0}")
+    flash_build_log(fa)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES + FLASH_FWD_EDGES:
         if dt != torch.bfloat16:
@@ -1913,7 +1956,7 @@ def flash_fwd_only():
               f"flash-fwd {name}: not finite")
         err = float((out.float() - want_out.float()).abs().max())
         tol = FLASH_BF16_REL * float(want_out.float().abs().max())
-        row_err = flash_out_row_err(out, want_out)
+        row_err = flash_row_err(out, want_out)
         lse_err = float((lse - want_lse).abs().max())
         same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
         log(f"[flash-fwd] {name} out max_abs_err={err} tol={tol} "
@@ -1935,6 +1978,99 @@ def flash_fwd_only():
             f"({by}) x_sdpa={ms / lib_ms} bound_share={bound / ms}")
         del q, k, v, out, out2, lse, lse2, want_out, want_lse, qt, kt, vt
     torch.cuda.empty_cache()
+    return 0
+
+
+def flash_build_log(fa):
+    """Build the flash library alone and log ptxas's registers, spills,
+    shared memory and warnings per kernel."""
+    t0 = time.perf_counter()
+    for line in fa.build().splitlines():
+        if "Compiling entry" in line:
+            log(f"[build] ptxas: {line.split(chr(39))[1]}")
+        if any(w in line for w in ("registers", "spill", "smem", "arning")):
+            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] seconds={time.perf_counter() - t0}")
+
+
+def flash_bwd_only():
+    """``--flash-bwd``: build the flash library alone (ptxas registers,
+    spills and shared memory), then the bf16 dq and dkv kernels at every
+    bf16 FLASH_CASE and the tile edges: dq, dk and dv against the plain
+    backward (to FLASH_BF16_REL of the largest value and to
+    FLASH_GRAD_ROW_REL of each row's, FLASH_ROW_FLOOR at least; the worst
+    row logged), two calls bitwise equal, and the times (CUDA
+    events) of dq, dkv, their sum and the whole ``flash_attention_bwd_cuda``
+    (delta included) beside SDPA's backward and the bound. Works on
+    another checkout's port too (``--root``). Every case runs; the
+    failures are reported together at the end. Prints no result line."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    phase_device()
+    log(f"[flash-bwd] implementation={os.path.dirname(fa.__file__)}")
+    flash_build_log(fa)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    failures = []
+    for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES + FLASH_FWD_EDGES:
+        if dt != torch.bfloat16:
+            continue
+        q, k, v, do = (torch.randn(b, n, heads, d, device="cuda",
+                                   generator=gen).to(dt)
+                       for n, heads in ((sq, h), (sk, kv), (sk, kv), (sq, h)))
+        scale = 1.0 / d ** 0.5
+        out, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, causal, scale)
+        got = (fa.flash_attention_dq_cuda(*args),
+               *fa.flash_attention_dkv_cuda(*args))
+        again = (fa.flash_attention_dq_cuda(*args),
+                 *fa.flash_attention_dkv_cuda(*args))
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                                scale)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        parts = []
+        for key, x, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((x.float() - w.float()).abs().max())
+            tol = FLASH_BF16_REL * float(w.float().abs().max())
+            row_err = flash_row_err(x, w, FLASH_ROW_FLOOR)
+            parts.append(f"{key} max_abs_err={err} tol={tol} "
+                         f"worst_row_rel_err={row_err}")
+            if not (bool(torch.isfinite(x).all()) and err <= tol
+                    and row_err <= FLASH_GRAD_ROW_REL):
+                failures.append(f"{name} {key}")
+        if not same:
+            failures.append(f"{name} two calls differ")
+        log(f"[flash-bwd] {name} {' '.join(parts)} row_tol="
+            f"{FLASH_GRAD_ROW_REL} bitwise_equal={same}")
+        dq_ms = time_ms(lambda: fa.flash_attention_dq_cuda(*args))
+        dkv_ms = time_ms(lambda: fa.flash_attention_dkv_cuda(*args))
+        whole, delta_ms = time_flash_bwd_whole(dict(
+            q=q, k=k, v=v, do=do, out=out, lse=lse, causal=causal,
+            scale=scale))
+        g = h // kv
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k.repeat_interleave(g, 2),
+                                v.repeat_interleave(g, 2)))
+        lib_out = sdpa(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
+        m = dict(q=q, k=k, causal=causal)
+        bq, bkv = flash_bound(m, "dq")[0], flash_bound(m, "dkv")[0]
+        log(f"[flash-bwd] {name} dq_ms={dq_ms} dkv_ms={dkv_ms} pair_ms="
+            f"{dq_ms + dkv_ms} whole_ms={whole} delta_ms={delta_ms} "
+            f"sdpa_bwd_ms={lib_ms} x_sdpa={(dq_ms + dkv_ms) / lib_ms} "
+            f"bound_ms dq={bq} dkv={bkv} (operations) bound_share dq="
+            f"{bq / dq_ms} dkv={bkv / dkv_ms} pair="
+            f"{(bq + bkv) / (dq_ms + dkv_ms)}")
+        del q, k, v, do, out, lse, delta, args, got, again, want, qt, kt, vt
+        del lib_out, dot
+        torch.cuda.empty_cache()
+    log(f"[flash-bwd] failures={failures}")
+    check(not failures, f"flash-bwd: {failures}")
     return 0
 
 
@@ -1970,7 +2106,8 @@ def main() -> int:
         return 2
     argv = sys.argv[1:]
     root = HERE
-    if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"]) \
+    if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"],
+                    ["--flash-bwd"]) \
             and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
@@ -1984,6 +2121,8 @@ def main() -> int:
         return k5_only()
     if argv == ["--flash-fwd"]:
         return flash_fwd_only()
+    if argv == ["--flash-bwd"]:
+        return flash_bwd_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()

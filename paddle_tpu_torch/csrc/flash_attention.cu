@@ -30,11 +30,16 @@
 // take turns on the tensor cores so that one's softmax runs beside the
 // other's products, and mask only the diagonal and ragged key tiles.
 //
-// The backward and the f32 forward: a CTA of 4 warps owns one 64-row tile;
-// each warp owns 16 rows of it and everything computed along those rows, so
-// warps meet only where the CTA stages a shared tile into shared memory
-// (bf16: the streamed tiles are double-buffered with cp.async, the next one
-// copying in while the current one is used):
+// bf16 backward (flash_dq_kernel_bf16, flash_dkv_kernel_bf16): the same
+// design, its note above the kernels. dq: a CTA owns a 128-row q tile of
+// one (batch, query head) and streams 64-key tiles of K and V; dkv: a CTA
+// owns a 128-key tile of one (batch, KV head) and streams 64-query tiles
+// of Q, dO, lse and delta for each query head of the GQA group. All seven
+// products run on wgmma, P and dS as A from registers; no atomics.
+//
+// The f32 kernels: a CTA of 4 warps owns one 64-row tile; each warp owns
+// 16 rows of it and everything computed along those rows, so warps meet
+// only where the CTA stages a shared tile into shared memory:
 //   forward: CTA = (q tile, query head, batch). Per 64-key tile: S = Q K^T,
 //            online softmax (running max m, sum l, f32), O = O * alpha + P V.
 //   dq:      CTA = (q tile, query head, batch). Per key tile: P = exp(S - lse),
@@ -45,26 +50,19 @@
 //            element is summed by one warp in a fixed order (deterministic).
 // With `causal`, a q tile stops at its diagonal key tile and a key tile starts
 // at its diagonal q tile. Grids are 1-D and ordered so the longest causal
-// tiles launch first.
+// tiles launch first. They run on the CUDA cores in f32 FMA with register
+// tiles (no TF32), with S and P staged through shared memory.
 //
-// Products of the backward: bfloat16 goes through the tensor cores with
-// mma.sync m16n8k16 (bf16 operands from shared memory through ldmatrix, f32
-// accumulators in registers); the score tile S, P and dS stay in registers,
-// where the C fragments of one product are the A fragments of the next. P
-// and dS are rounded to bf16 before their products, as the Pallas kernels
-// cast them to the input dtype (the bf16 forward rounds P the same way).
-// float32 runs on the CUDA cores in f32 FMA with register tiles (no TF32),
-// with S and P staged through shared memory. Softmax and all elementwise
-// math are f32.
+// bf16 products run on the tensor cores (bf16 operands, f32 accumulators);
+// P and dS are rounded to bf16 before their products, as the Pallas kernels
+// cast them to the input dtype. Softmax and all elementwise math are f32.
 //
 // What bounds it on an H100: at Llama training shapes (B=2, H=32, D=128,
 // s=4096, causal) the forward does 4 B H s^2 D / 2 = 0.27 TFLOP against 0.27 GB
 // of q/k/v/out, about 10^3 operations per byte, so it is bound by operations:
 // 0.28 ms at the 989 TFLOP/s bf16 peak; the dq kernel does 1.5 times the
 // forward's products, the dkv kernel 2 times. Every kernel keeps S and P out
-// of device memory; the forward feeds the tensor cores by TMA and wgmma, the
-// backward is still the simple form (64-row tiles of 4 warps, cp.async,
-// mma.sync).
+// of device memory; the bf16 kernels feed the tensor cores by TMA and wgmma.
 //
 // Interface: plain C, loaded with ctypes. Each launcher returns the
 // cudaError_t of its launch.
@@ -140,13 +138,9 @@ __device__ void load_tile(T* dst, const T* src, long long stride, int rows) {
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(src + r * stride + c));
-    if constexpr ((P * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * P + c) = v;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&v);
+    const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) dst[r * P + c + k] = e[k];
-    }
+    for (int k = 0; k < kVec; ++k) dst[r * P + c + k] = e[k];
   }
 }
 
@@ -511,49 +505,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel_f32(Args a) {
 }
 
 // ----------------------------------------------------------------------------
-// bf16 path: tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate),
-// with every accumulator in registers
+// bf16 helpers
 // ----------------------------------------------------------------------------
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 * g + t. An A
-// fragment (16 x 16, row-major) is 4 registers of two bf16: rows g and g + 8,
-// columns 2t, 2t + 1 and 2t + 8, 2t + 9. A B fragment (16 x 8, k x n) is 2
-// registers: k = 2t, 2t + 1 and 2t + 8, 2t + 9 of column n = g. A C fragment
-// (16 x 8 f32) is c0, c1 at row g, columns 2t, 2t + 1, and c2, c3 at row g + 8.
-// So a row of scores lives in the 4 lanes of a quad, and the C fragments of
-// two neighbouring 8-column tiles are, packed to bf16, the A fragment of the
-// next product: P and dS never leave registers.
-
-constexpr int kPitchBf16Pad = 8;  // keeps rows 16-byte aligned, ldmatrix conflict-free
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// reductions over the quad of lanes (4 g + t, t < 4) that shares a row of
+// a wgmma accumulator fragment
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -562,281 +523,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Start copying a 64-row tile into shared memory (pitch P) with cp.async,
-// 16 bytes a thread at a time; rows at or past `rows` are zero-filled. The
-// copy lands after cp_async_wait and a barrier.
-template <int D, int P>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride,
-                                                int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r < rows;
-    const bf16* from = ok ? src + r * stride + c : src;  // read nothing when !ok
-    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * P + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from),
-                 "r"(ok ? 16 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile.
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile, int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(f, tile + (r0 + (lane & 15)) * P + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-column tiles n0..n0+15 at k0..k0+15, where the tile is
-// stored [n][k] (rows of K or Q against which scores are taken): f[0], f[1]
-// belong to n0..n0+7, f[2], f[3] to n0+8..n0+15.
-template <int P>
-__device__ __forceinline__ void load_b(uint32_t (&f)[4], const bf16* tile, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(f, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * P + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// The same for a tile stored [k][n] (V, dO, Q or K as the right-hand side of
-// a product over keys or queries), through the transposing load.
-template <int P>
-__device__ __forceinline__ void load_bt(uint32_t (&f)[4], const bf16* tile, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(f, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + n0 + (lane >> 4) * 8);
-}
-
-// acc[N8][4] (16 rows x 8*N8 columns) += A[16][16*KC] . B, where A comes in as
-// the C fragments c[2*KC][4] of the previous product (16 rows x 16*KC), packed
-// to bf16, and B rows k0.. of a [k][n] tile.
-template <int P, int KC, int N8>
-__device__ __forceinline__ void mma_pv(float (&acc)[N8][4], const float (&c)[2 * KC][4],
-                                       const bf16* tile, int k0) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const uint32_t a[4] = {pack_bf16(c[2 * kc][0], c[2 * kc][1]),
-                           pack_bf16(c[2 * kc][2], c[2 * kc][3]),
-                           pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]),
-                           pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3])};
-#pragma unroll
-    for (int n = 0; n < N8; n += 2) {
-      uint32_t b[4];
-      load_bt<P>(b, tile, k0 + kc * 16, n * 8);
-      mma_bf16(acc[n], a, b[0], b[1]);
-      mma_bf16(acc[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// s[N8][4] = A rows r0.. of tile_a (D wide) . (rows n0.. of tile_b)^T.
-template <int P, int D, int N8>
-__device__ __forceinline__ void mma_scores(float (&s)[N8][4], const bf16* tile_a, int r0,
-                                           const bf16* tile_b, int n0) {
-#pragma unroll
-  for (int n = 0; n < N8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    load_a<P>(a, tile_a, r0, kc * 16);
-#pragma unroll
-    for (int n = 0; n < N8; n += 2) {
-      uint32_t b[4];
-      load_b<P>(b, tile_b, n0 + n * 8, kc * 16);
-      mma_bf16(s[n], a, b[0], b[1]);
-      mma_bf16(s[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr size_t bf16_tile_bytes() {
-  return r128(size_t(kTile) * (D + kPitchBf16Pad) * sizeof(bf16));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel_bf16(Args a) {
-  constexpr int P = D + kPitchBf16Pad;
-  constexpr size_t kT = bf16_tile_bytes<D>();
-  extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + kT);
-  bf16* sK[2] = {reinterpret_cast<bf16*>(smem + 2 * kT), reinterpret_cast<bf16*>(smem + 3 * kT)};
-  bf16* sV[2] = {reinterpret_cast<bf16*>(smem + 4 * kT), reinterpret_cast<bf16*>(smem + 5 * kT)};
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ntiles = (a.sq + kTile - 1) / kTile;
-  const int bh = blockIdx.x % (a.B * a.H);
-  const int q0 = (ntiles - 1 - blockIdx.x / (a.B * a.H)) * kTile;
-  const int hq = bh % a.H, b = bh / a.H;
-  const int kh = hq / (a.H / a.KV);
-  const int qrows = min(kTile, a.sq - q0);
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + hq * a.qs[2];
-  const bf16* db = static_cast<const bf16*>(a.dout) + b * a.ds[0] + hq * a.ds[2];
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + kh * a.ks[2];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + kh * a.vs[2];
-  load_tile<bf16, D, P>(sQ, qb + q0 * a.qs[1], a.qs[1], qrows);
-  load_tile<bf16, D, P>(sdO, db + q0 * a.ds[1], a.ds[1], qrows);
-
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const size_t row_base = ((size_t)b * a.H + hq) * a.sq;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse[h] = rows[h] < a.sq ? a.lse_in[row_base + rows[h]] : 0.f;
-    dl[h] = rows[h] < a.sq ? a.delta[row_base + rows[h]] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const int kend = a.causal ? min(a.sk, q0 + kTile) : a.sk;
-  const int ntk = (kend + kTile - 1) / kTile;
-  auto issue = [&](int it) {
-    const int k0 = it * kTile, krows = min(kTile, a.sk - k0);
-    load_tile_async<D, P>(sK[it & 1], kb + k0 * a.ks[1], a.ks[1], krows);
-    load_tile_async<D, P>(sV[it & 1], vb + k0 * a.vs[1], a.vs[1], krows);
-    cp_async_commit();
-  };
-  issue(0);
-
-  for (int it = 0; it < ntk; ++it) {
-    const int k0 = it * kTile;
-    if (it + 1 < ntk) {
-      issue(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // also orders the Q and dO tiles before their first use
-    const bf16* tK = sK[it & 1];
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_scores<P, D, kTile / 8>(s, sQ, warp * 16, tK, 0);
-    mma_scores<P, D, kTile / 8>(dp, sdO, warp * 16, sV[it & 1], 0);
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1), h = e >> 1;
-        const bool valid = rows[h] < a.sq && col < a.sk && (!a.causal || col <= rows[h]);
-        const float p = valid ? expf(s[n][e] * a.scale - lse[h]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl[h]);  // dS
-      }
-    mma_pv<P, kTile / 16, D / 8>(dq, s, tK, 0);  // dQ += dS K
-    __syncthreads();  // every warp is done with buffer it & 1 before it refills
-  }
-
-  bf16* ob = static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= a.sq) continue;
-    bf16* orow = ob + (size_t)rows[h] * a.H * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(dq[n][2 * h] * a.scale, dq[n][2 * h + 1] * a.scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel_bf16(Args a) {
-  constexpr int P = D + kPitchBf16Pad;
-  constexpr size_t kT = bf16_tile_bytes<D>();
-  constexpr int kHalf = kTile / 2;  // queries per pass: bounds the live registers
-  extern __shared__ __align__(128) char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + kT);
-  bf16* sQ[2] = {reinterpret_cast<bf16*>(smem + 2 * kT), reinterpret_cast<bf16*>(smem + 3 * kT)};
-  bf16* sdO[2] = {reinterpret_cast<bf16*>(smem + 4 * kT), reinterpret_cast<bf16*>(smem + 5 * kT)};
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int G = a.H / a.KV;
-  const int bk = blockIdx.x % (a.B * a.KV);
-  const int k0 = (blockIdx.x / (a.B * a.KV)) * kTile;  // first tiles see the most queries
-  const int kh = bk % a.KV, b = bk / a.KV;
-
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + kh * a.ks[2];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + kh * a.vs[2];
-  load_tile<bf16, D, P>(sK, kb + k0 * a.ks[1], a.ks[1], min(kTile, a.sk - k0));
-  load_tile<bf16, D, P>(sV, vb + k0 * a.vs[1], a.vs[1], min(kTile, a.sk - k0));
-
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int qstart = a.causal ? k0 : 0;
-  const int nqt = (a.sq - qstart + kTile - 1) / kTile;  // q tiles per query head
-  // one pass per (query head of the group, q tile), streamed double-buffered
-  auto issue = [&](int it) {
-    const int hq = kh * G + it / nqt, q0 = qstart + (it % nqt) * kTile;
-    const int qrows = min(kTile, a.sq - q0);
-    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + hq * a.qs[2];
-    const bf16* db = static_cast<const bf16*>(a.dout) + b * a.ds[0] + hq * a.ds[2];
-    load_tile_async<D, P>(sQ[it & 1], qb + q0 * a.qs[1], a.qs[1], qrows);
-    load_tile_async<D, P>(sdO[it & 1], db + q0 * a.ds[1], a.ds[1], qrows);
-    cp_async_commit();
-  };
-  issue(0);
-
-  for (int it = 0; it < G * nqt; ++it) {
-    if (it + 1 < G * nqt) {
-      issue(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // also orders the K and V tiles before their first use
-    const int hq = kh * G + it / nqt, q0 = qstart + (it % nqt) * kTile;
-    const size_t row_base = ((size_t)b * a.H + hq) * a.sq;
-    const bf16* tQ = sQ[it & 1];
-    const bf16* tdO = sdO[it & 1];
-#pragma unroll 1
-    for (int half = 0; half < kTile; half += kHalf) {
-      // transposed scores: rows are this warp's keys, columns queries
-      float s[kHalf / 8][4], dp[kHalf / 8][4];
-      mma_scores<P, D, kHalf / 8>(s, sK, warp * 16, tQ, half);
-      mma_scores<P, D, kHalf / 8>(dp, sV, warp * 16, tdO, half);
-#pragma unroll
-      for (int n = 0; n < kHalf / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + half + n * 8 + 2 * t + (e & 1), key = keys[e >> 1];
-          const bool valid = qi < a.sq && key < a.sk && (!a.causal || key <= qi);
-          const float p = valid ? expf(s[n][e] * a.scale - a.lse_in[row_base + qi]) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = valid ? p * (dp[n][e] - a.delta[row_base + qi]) : 0.f;  // dS^T
-        }
-      mma_pv<P, kHalf / 16, D / 8>(dv, s, tdO, half);  // dV += P^T dO
-      mma_pv<P, kHalf / 16, D / 8>(dk, dp, tQ, half);  // dK += dS^T Q
-    }
-    __syncthreads();  // every warp is done with buffer it & 1 before it refills
-  }
-
-  bf16* dkb = static_cast<bf16*>(a.dk) + ((size_t)b * a.sk * a.KV + kh) * D;
-  bf16* dvb = static_cast<bf16*>(a.dv) + ((size_t)b * a.sk * a.KV + kh) * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (keys[h] >= a.sk) continue;
-    const size_t row = (size_t)keys[h] * a.KV * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + row + n * 8 + 2 * t) =
-          pack_bf16(dk[n][2 * h] * a.scale, dk[n][2 * h + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + row + n * 8 + 2 * t) =
-          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
-    }
-  }
 }
 
 // ----------------------------------------------------------------------------
@@ -1138,6 +824,498 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 }
 
 // ----------------------------------------------------------------------------
+// bf16 backward: TMA, wgmma, warp-specialised
+// ----------------------------------------------------------------------------
+//
+// Two kernels, as the JAX package has two: dq, and dk/dv. Each recomputes
+// S = Q K^T and dP = dO V^T from the saved lse and delta; neither uses
+// atomics, so every dq, dk and dv element is summed by one warpgroup in a
+// fixed order and two calls give the same bits. Both have the forward's
+// shape: 3 warpgroups, a producer (one thread issues TMA loads; in dkv one
+// warp also stages lse and delta; 24 registers a thread) and two consumer
+// warpgroups of 64 rows (240 registers) that run every product with
+// wgmma, the accumulators in registers.
+// Tiles come by TMA with the forward's 4-D maps (64-column boxes, 128-byte
+// swizzle, zero fill outside the tensor), streamed through rings of
+// stages with full/empty mbarriers.
+//
+//   dq   CTA = a 128-row q tile of one (batch, query head). Q and dO are
+//        loaded once; the key tiles (64 keys, last first) stream K and V.
+//        Per key tile and consumer warpgroup (64 rows):
+//          S  = Q K^T      wgmma m64n64k16, both K-major
+//          dP = dO V^T     the same on dO and V
+//          P  = 2^(S scale log2e - lse log2e), dS = P (dP - delta)
+//          dQ += dS K      A = dS from registers (the accumulator packed
+//                          pairwise to bf16), K read MN-major from the tile
+//                          S read it K-major from (two descriptors, one tile)
+//        dS is computed once S and dP are both done, then the tile's dQ
+//        product is issued with the next tile's S and dP; a K stage is
+//        released once its dQ product is done, a V stage once dP is.
+//   dkv  CTA = a 128-key tile of one (batch, KV head). K and V are loaded
+//        once; for each query head of the GQA group in turn, the q tiles
+//        (64 queries) stream Q, dO and the tile's lse (times log2e) and
+//        delta strips. Per q tile and consumer warpgroup (64 keys):
+//          S^T  = K Q^T    P^T = 2^(S^T scale log2e - lse log2e)
+//          dV  += P^T dO   A = P^T from registers, dO read MN-major
+//          dP^T = V dO^T   dS^T = P^T (dP^T - delta)
+//          dK  += dS^T Q   A = dS^T from registers, Q read MN-major
+//        lse and delta vary along the accumulator's columns here: a lane
+//        reads the pair for its columns 8 j + 2 t, 8 j + 2 t + 1 from the
+//        staged strip. P^T and dS^T are packed once S^T and dP^T are both
+//        done; the dV and dK products are issued with the next pass's S^T
+//        and dP^T, from a ring of 3 stages. At d = 128 a consumer thread
+//        holds dK and dV (64 registers each), S^T and dP^T (32 each) and
+//        the P^T and dS^T fragments (16 each): ptxas spills 16 bytes and
+//        serialises some products (C7512); 32-query tiles fit but ran
+//        slower (PERF.md).
+// No instruction but wgmma writes an accumulator: a value computed in
+// place in S's registers, or a zero fill of dq/dk/dv, makes ptxas
+// serialise the products (C7515), so each kernel's first accumulating
+// product overwrites (scale-d 0).
+// P and dS are rounded to bf16 for their products, as the Pallas kernels
+// cast them; P and dS themselves are f32. The scale is applied once, to
+// dq and dk at the end.
+//
+// Padding contributes exactly zero: TMA zero-fills Q and dO rows past sq
+// and K and V rows past sk, and a q row past sq takes lse = +inf, so its p
+// is 0 (dkv; dq stores no such row). Keys past sk would give p =
+// 2^(-lse) != 0 in dq, so dq masks the ragged last key tile; dkv stores
+// no such key row. Otherwise only the tiles that cross the causal
+// diagonal take the mask. CTAs launch in groups of `group` (batch, head)
+// pairs, the heaviest tile first within a group (dq: the last q tile;
+// dkv: the first key tile), so that the CTAs running together share
+// their K/V (dq) or Q/dO (dkv) in L2. ops/hopper/flash_attention.py's
+// bwd_tile_plan and bwd_schedule_model mirror the tiles, masks and
+// arithmetic.
+
+constexpr int kBwdThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kDqBM = 128;        // q rows of a dq CTA
+constexpr int kDqBN = 64;         // keys of a streamed tile
+constexpr int kDqStages = 2;
+constexpr int kDkvBN = 128;  // keys of a dkv CTA
+constexpr int kDkvBM = 64;   // queries of a streamed tile
+constexpr int kDkvStages = 3;
+
+template <int D>
+struct DqSmem {
+  static constexpr int q = kDqBM * D * 2;   // Q or dO: D / 64 boxes of [128 rows][128 B]
+  static constexpr int kv = kDqBN * D * 2;  // a K or V stage
+  static constexpr int total = 1024 + 2 * q + 2 * kDqStages * kv;
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kv = kDkvBN * D * 2;  // K or V
+  static constexpr int q = kDkvBM * D * 2;   // a Q or dO stage
+  static constexpr int rows = kDkvBM * 4;    // a stage's lse or delta strip
+  static constexpr int total = 1024 + 2 * kv + kDkvStages * (2 * q + 2 * rows);
+};
+
+struct BwdArgs {
+  const float* lse;    // [B, H, sq]
+  const float* delta;  // [B, H, sq]
+  void* dq;            // [B, sq, H, D] bf16
+  void* dk;            // [B, sk, KV, D] bf16
+  void* dv;
+  int B, H, KV, sq, sk, causal;
+  int group;         // (batch, head) pairs per group of CTAs
+  float scale;       // applied to dq and dk at the end
+  float scale_log2;  // scale * log2(e)
+};
+
+// This CTA's (batch, head) pair and rank: CTAs run in groups of `group`
+// pairs, rank 0 of every pair of the group first, then rank 1, ...
+__device__ __forceinline__ void grouped_cta(int pairs, int ntiles, int group, int& pair,
+                                            int& rank) {
+  const int grp0 = blockIdx.x / (group * ntiles) * group;
+  const int gc = min(group, pairs - grp0);
+  const int within = blockIdx.x - grp0 * ntiles;
+  pair = grp0 + within % gc;
+  rank = within / gc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
+  using Sm = DqSmem<D>;
+  constexpr int BM = kDqBM, BN = kDqBN, S = kDqStages;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ __align__(128) unsigned char dq_smem[];
+  __shared__ __align__(8) uint64_t full_q, full_k[S], full_v[S], empty_k[S], empty_v[S];
+  const uint32_t q_u = smem_u32(align1024(dq_smem));
+  const uint32_t do_u = q_u + Sm::q;
+  const uint32_t k_u = do_u + Sm::q;  // stage s at + s Sm::kv
+  const uint32_t v_u = k_u + S * Sm::kv;
+
+  const int ntiles = (a.sq + BM - 1) / BM;
+  int bh, rank;
+  grouped_cta(a.B * a.H, ntiles, a.group, bh, rank);
+  const int q0 = (ntiles - 1 - rank) * BM;  // heaviest first
+  const int hq = bh % a.H, b = bh / a.H, kh = hq / (a.H / a.KV);
+  const int kend = a.causal ? min(a.sk, q0 + BM) : a.sk;
+  const int ntk = (kend + BN - 1) / BN;
+  // key tiles from first_masked on cross the diagonal or the ragged end
+  const int first_masked = a.causal ? q0 / BN : (a.sk % BN ? ntk - 1 : ntk);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&full_q, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: Q and dO once, then key tile i (the i-th from the last) to
+    // stage i % S, K once the dQ product of tile i - S has read its K, V
+    // once the dP product of tile i - S has read its V
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      prefetch_map(&map_do);
+      mbar_expect_tx(&full_q, 2 * Sm::q);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_4d(q_u + c * BM * 128, &map_q, &full_q, 64 * c, hq, q0, b);
+        tma_4d(do_u + c * BM * 128, &map_do, &full_q, 64 * c, hq, q0, b);
+      }
+      for (int i = 0; i < ntk; ++i) {
+        const int s = i % S, k0 = (ntk - 1 - i) * BN;
+        const int par = ((i / S) & 1) ^ 1;
+        if (i >= S) mbar_wait(&empty_k[s], par);
+        mbar_expect_tx(&full_k[s], Sm::kv);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_4d(k_u + s * Sm::kv + c * BN * 128, &map_k, &full_k[s], 64 * c, kh, k0, b);
+        if (i >= S) mbar_wait(&empty_v[s], par);
+        mbar_expect_tx(&full_v[s], Sm::kv);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_4d(v_u + s * Sm::kv + c * BN * 128, &map_v, &full_v[s], 64 * c, kh, k0, b);
+      }
+    }
+  } else {
+    // consumers
+    setmaxnreg_inc<240>();
+    const int cw = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + 64 * cw + 16 * warp + g;  // and row0 + 8
+    const uint32_t qa = q_u + cw * 64 * 128;        // this warpgroup's 64 rows
+    const uint32_t da = do_u + cw * 64 * 128;
+    // lse (times log2e) and delta of this lane's two rows; a row past sq
+    // takes lse = +inf (p = 0) and reads nothing
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const size_t at = ((size_t)b * a.H + hq) * a.sq + row;
+      lse2[h] = row < a.sq ? a.lse[at] * kLog2e : INFINITY;
+      dl[h] = row < a.sq ? a.delta[at] : 0.f;
+    }
+    float sc[BN / 2], dp[BN / 2], dq[D / 2];
+    uint32_t ds[BN / 16][4];
+
+    // S = Q K^T and dP = dO V^T of tile i, issued (one group each)
+    auto issue_s_dp = [&](int i) {
+      const int s = i % S;
+      mbar_wait(&full_k[s], (i / S) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n64<0, 0>(sc, smem_desc(qa + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+                           smem_desc(k_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+                           ks > 0);
+      wgmma_commit();
+      mbar_wait(&full_v[s], (i / S) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n64<0, 0>(dp, smem_desc(da + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+                           smem_desc(v_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+                           ks > 0);
+      wgmma_commit();
+    };
+    // dQ += dS K of tile i, issued; tile 0's first product overwrites
+    // (no zero fill, which ptxas would count as a write to the
+    // accumulator). K rows 16 kk .. as B [keys x d]: MN-major, the d / 64
+    // atoms BN * 128 bytes apart (LBO), 8-key groups 1024 bytes apart
+    // (SBO)
+    auto issue_dq = [&](int i) {
+      const int s = i % S;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db = smem_desc(k_u + s * Sm::kv + kk * 16 * 128, BN * 128 / 16, 64);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(dq, ds[kk], db, i > 0 || kk > 0);
+        else
+          wgmma_rs_n64<1>(dq, ds[kk], db, i > 0 || kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dS = P (dP - delta) with P = 2^(S scale log2e - lse log2e), the
+    // mask on the edge tiles only, rounded to bf16 into wgmma's A
+    // fragments, once S and dP are both done: no other instruction writes
+    // an accumulator, so ptxas keeps the products asynchronous
+    auto make_ds = [&](int i) {
+      const int k0 = (ntk - 1 - i) * BN;
+      const bool masked = k0 >= first_masked * BN;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float v[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int x = 8 * kk + 2 * r + c, h = r & 1;
+            const int col = k0 + 8 * (x >> 2) + 2 * t + c, row = row0 + 8 * h;
+            float p = ex2(fmaf(sc[x], a.scale_log2, -lse2[h]));
+            if (masked && (col >= a.sk || (a.causal && col > row))) p = 0.f;
+            v[c] = p * (dp[x] - dl[h]);
+          }
+          ds[kk][r] = pack_bf16(v[0], v[1]);
+        }
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    mbar_wait(&full_q, 0);
+    issue_s_dp(0);
+    for (int i = 0; i < ntk; ++i) {
+      // in flight: dQ of tile i - 1, S and dP of tile i
+      wgmma_wait<0>();
+      fence_operand(sc);
+      fence_operand(dp);
+      if (i > 0) release(&empty_k[(i - 1) % S]);
+      release(&empty_v[i % S]);
+      make_ds(i);
+      issue_dq(i);
+      if (i + 1 < ntk) issue_s_dp(i + 1);
+    }
+    wgmma_wait<0>();
+    fence_operand(dq);
+
+    bf16* const ob = static_cast<bf16*>(a.dq) + ((size_t)b * a.sq * a.H + hq) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= a.sq) continue;
+      bf16* const orow = ob + (size_t)row * a.H * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(dq[4 * j + 2 * h] * a.scale, dq[4 * j + 2 * h + 1] * a.scale);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
+  using Sm = DkvSmem<D>;
+  constexpr int BM = kDkvBM, BN = kDkvBN, S = kDkvStages;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ __align__(128) unsigned char dkv_smem[];
+  __shared__ __align__(8) uint64_t full_kv, full[S], empty[S];
+  unsigned char* const base = align1024(dkv_smem);
+  const uint32_t k_u = smem_u32(base);
+  const uint32_t v_u = k_u + Sm::kv;
+  const uint32_t q_u = v_u + Sm::kv;  // stage s at + s Sm::q
+  const uint32_t do_u = q_u + S * Sm::q;
+  // stage s's strips: lse * log2e at sL + s BM, delta at sD + s BM
+  float* const sL = reinterpret_cast<float*>(base + 2 * Sm::kv + 2 * S * Sm::q);
+  float* const sD = sL + S * BM;
+
+  const int G = a.H / a.KV;
+  const int ntiles = (a.sk + BN - 1) / BN;
+  int bk, rank;
+  grouped_cta(a.B * a.KV, ntiles, a.group, bk, rank);
+  const int k0 = rank * BN;  // the first key tiles see the most queries
+  const int kh = bk % a.KV, b = bk / a.KV;
+  const int qstart = a.causal ? k0 : 0;
+  const int nqt = (a.sq - qstart + BM - 1) / BM;  // q tiles per query head
+  const int n = G * nqt;                          // (query head, q tile) passes
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&full_kv, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: K and V once, then pass i (query head kh G + i / nqt, q
+    // tile i % nqt) to stage i % S once the products of pass i - S are
+    // done. The first warp stages the lse and delta strips (a query past
+    // sq takes lse = +inf, delta = 0, and reads nothing), then its first
+    // lane arrives on the stage's barrier with the Q and dO bytes to come.
+    setmaxnreg_dec<24>();
+    if (tid < 32) {
+      if (tid == 0) {
+        prefetch_map(&map_q);
+        prefetch_map(&map_k);
+        prefetch_map(&map_v);
+        prefetch_map(&map_do);
+        mbar_expect_tx(&full_kv, 2 * Sm::kv);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_4d(k_u + c * BN * 128, &map_k, &full_kv, 64 * c, kh, k0, b);
+          tma_4d(v_u + c * BN * 128, &map_v, &full_kv, 64 * c, kh, k0, b);
+        }
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S, hq = kh * G + i / nqt, q0 = qstart + (i % nqt) * BM;
+        if (i >= S) mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        const size_t row = ((size_t)b * a.H + hq) * a.sq;
+        for (int r = tid; r < BM; r += 32) {
+          const bool ok = q0 + r < a.sq;
+          sL[s * BM + r] = ok ? a.lse[row + q0 + r] * kLog2e : INFINITY;
+          sD[s * BM + r] = ok ? a.delta[row + q0 + r] : 0.f;
+        }
+        __syncwarp();
+        if (tid == 0) {
+          mbar_expect_tx(&full[s], 2 * Sm::q);
+#pragma unroll
+          for (int c = 0; c < kBoxes; ++c) {
+            tma_4d(q_u + s * Sm::q + c * BM * 128, &map_q, &full[s], 64 * c, hq, q0, b);
+            tma_4d(do_u + s * Sm::q + c * BM * 128, &map_do, &full[s], 64 * c, hq, q0, b);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers
+    setmaxnreg_inc<240>();
+    const int cw = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int key0 = k0 + 64 * cw + 16 * warp + g;  // and key0 + 8
+    const uint32_t ka = k_u + cw * 64 * 128;        // this warpgroup's 64 keys
+    const uint32_t va = v_u + cw * 64 * 128;
+    float st[BM / 2], dpt[BM / 2], dk[D / 2], dv[D / 2];
+    uint32_t pp[BM / 16][4], ds[BM / 16][4];
+
+    // S^T = K Q^T and dP^T = V dO^T of pass i, issued (one group each)
+    auto issue_s_dp = [&](int i) {
+      const int s = i % S;
+      mbar_wait(&full[s], (i / S) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n64<0, 0>(st, smem_desc(ka + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+                           smem_desc(q_u + s * Sm::q + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+                           ks > 0);
+      wgmma_commit();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n64<0, 0>(dpt, smem_desc(va + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+                           smem_desc(do_u + s * Sm::q + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+                           ks > 0);
+      wgmma_commit();
+    };
+    // acc += A B over the stage's 64 queries, A from registers, B = the
+    // stage's dO or Q tile [queries x d] read MN-major
+    auto issue_acc = [&](float(&acc)[D / 2], const uint32_t(&af)[BM / 16][4], uint32_t tile,
+                         bool first) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint64_t db = smem_desc(tile + kk * 16 * 128, BM * 128 / 16, 64);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(acc, af[kk], db, !first || kk > 0);
+        else
+          wgmma_rs_n64<1>(acc, af[kk], db, !first || kk > 0);
+      }
+      wgmma_commit();
+    };
+    // P^T and dS^T = P^T (dP^T - delta) from S^T and dP^T, rounded to
+    // bf16 into A fragments; the causal mask on the diagonal tiles only
+    auto make_p_ds = [&](int i) {
+      const int s = i % S, q0 = qstart + (i % nqt) * BM;
+      const float* lse2 = sL + s * BM;
+      const float* delta = sD + s * BM;
+      const bool masked = a.causal && q0 < k0 + BN;
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 8 * kk + 2 * r, col = 8 * (x >> 2) + 2 * t;
+          const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(delta + col);
+          float p0 = ex2(fmaf(st[x], a.scale_log2, -l.x));
+          float p1 = ex2(fmaf(st[x + 1], a.scale_log2, -l.y));
+          if (masked) {
+            const int key = key0 + 8 * (r & 1);
+            if (key > q0 + col) p0 = 0.f;
+            if (key > q0 + col + 1) p1 = 0.f;
+          }
+          pp[kk][r] = pack_bf16(p0, p1);
+          ds[kk][r] = pack_bf16(p0 * (dpt[x] - d2.x), p1 * (dpt[x + 1] - d2.y));
+        }
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    mbar_wait(&full_kv, 0);
+    issue_s_dp(0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % S;
+      // in flight: dV and dK of pass i - 1, S^T and dP^T of pass i
+      wgmma_wait<0>();
+      fence_operand(st);
+      fence_operand(dpt);
+      if (i > 0) release(&empty[(i - 1) % S]);
+      make_p_ds(i);
+      issue_acc(dv, pp, do_u + s * Sm::q, i == 0);  // dV += P^T dO
+      issue_acc(dk, ds, q_u + s * Sm::q, i == 0);   // dK += dS^T Q
+      if (i + 1 < n) issue_s_dp(i + 1);
+    }
+    wgmma_wait<0>();
+    fence_operand(dk);
+    fence_operand(dv);
+
+    bf16* const dkb = static_cast<bf16*>(a.dk) + ((size_t)b * a.sk * a.KV + kh) * D;
+    bf16* const dvb = static_cast<bf16*>(a.dv) + ((size_t)b * a.sk * a.KV + kh) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 8 * h;
+      if (key >= a.sk) continue;
+      const size_t row = (size_t)key * a.KV * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkb + row + 8 * j + 2 * t) =
+            pack_bf16(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + row + 8 * j + 2 * t) =
+            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------
 // launchers
 // ----------------------------------------------------------------------------
 
@@ -1154,14 +1332,6 @@ Launch pick_f32(Which which) {
   if (which == kFwd) return {flash_fwd_kernel_f32<D>, Sz::fwd};
   if (which == kDq) return {flash_dq_kernel_f32<D>, Sz::dq};
   return {flash_dkv_kernel_f32<D>, Sz::dkv};
-}
-
-// the backward's bf16 kernels (the bf16 forward launches in run_fwd_bf16)
-template <int D>
-Launch pick_bf16(Which which) {
-  constexpr size_t kT = bf16_tile_bytes<D>();
-  if (which == kDq) return {flash_dq_kernel_bf16<D>, 6 * kT};
-  return {flash_dkv_kernel_bf16<D>, 6 * kT};
 }
 
 // A 4-D tensor map over (d, heads, seq, batch) of a bf16 [batch, seq,
@@ -1205,24 +1375,55 @@ int run_fwd_bf16(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 dq (which == kDq) or dkv kernel: Q and dO in boxes of the q
+// tile's rows, K and V of the key tile's.
+template <int D>
+int run_bwd_bf16(const Args& a, Which which, cudaStream_t st) {
+  const bool dq = which == kDq;
+  const int qrows = dq ? kDqBM : kDkvBM, krows = dq ? kDqBN : kDkvBN;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, a.q, D, a.H, a.sq, a.B, a.qs, qrows) ||
+      !make_map(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, krows) ||
+      !make_map(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, krows) ||
+      !make_map(&mdo, a.dout, D, a.H, a.sq, a.B, a.ds, qrows))
+    return (int)cudaErrorInvalidValue;
+  BwdArgs f;
+  f.lse = a.lse_in, f.delta = a.delta;
+  f.dq = a.out, f.dk = a.dk, f.dv = a.dv;
+  f.B = a.B, f.H = a.H, f.KV = a.KV, f.sq = a.sq, f.sk = a.sk, f.causal = a.causal;
+  f.group = a.group;
+  f.scale = a.scale;
+  f.scale_log2 = a.scale * kLog2e;
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdArgs) =
+      dq ? flash_dq_kernel_bf16<D> : flash_dkv_kernel_bf16<D>;
+  const int smem = dq ? DqSmem<D>::total : DkvSmem<D>::total;
+  const int blocks = dq ? (a.sq + kDqBM - 1) / kDqBM * a.B * a.H
+                        : (a.sk + kDkvBN - 1) / kDkvBN * a.B * a.KV;
+  // the shared-memory opt-in holds per device: set it on every call
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<blocks, kBwdThreads, smem, st>>>(mq, mk, mv, mdo, f);
+  return (int)cudaGetLastError();
+}
+
 int run(int dtype, int d, Which which, const Args& a, void* stream) {
+  const bool f32 = dtype == 0;
   if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.sq <= 0 || a.sk <= 0 ||
       (a.causal && a.sq != a.sk) || (d != 64 && d != 128) || (dtype != 0 && dtype != 1) ||
-      (which == kFwd && a.group < 1))
+      (!f32 && a.group < 1))
     return (int)cudaErrorInvalidValue;
-  const bool f32 = dtype == 0;
-  if (!f32 && which == kFwd)
-    return d == 64 ? run_fwd_bf16<64>(a, static_cast<cudaStream_t>(stream))
-                   : run_fwd_bf16<128>(a, static_cast<cudaStream_t>(stream));
-  const Launch l = d == 64 ? (f32 ? pick_f32<64>(which) : pick_bf16<64>(which))
-                           : (f32 ? pick_f32<128>(which) : pick_bf16<128>(which));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!f32 && which == kFwd) return d == 64 ? run_fwd_bf16<64>(a, st) : run_fwd_bf16<128>(a, st);
+  if (!f32) return d == 64 ? run_bwd_bf16<64>(a, which, st) : run_bwd_bf16<128>(a, which, st);
+  const Launch l = d == 64 ? pick_f32<64>(which) : pick_f32<128>(which);
   // above 48 KB of dynamic shared memory a kernel must opt in
   cudaError_t err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)l.smem);
   if (err != cudaSuccess) return (int)err;
   const int qtiles = (a.sq + kTile - 1) / kTile, ktiles = (a.sk + kTile - 1) / kTile;
   const int blocks = which == kDkv ? ktiles * a.B * a.KV : qtiles * a.B * a.H;
-  l.kernel<<<blocks, kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  l.kernel<<<blocks, kThreads, l.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1245,11 +1446,12 @@ Args make_args(const void* q, const void* k, const void* v, const long long* str
 // strides: 12 int64 values, the batch/sequence/head strides (in elements) of
 // q, k, v and dout in that order (dout's are unused by the forward).
 // dtype: 0 = float32, 1 = bfloat16 (all inputs and outputs share it).
-// group: the bf16 forward's (batch, head) pairs per group of CTAs (>= 1;
-// the wrapper's fwd_group), unused by the f32 forward.
+// group: a bf16 kernel's (batch, head) pairs per group of CTAs (>= 1; the
+// wrapper's fwd_group for the forward and dq, dkv_group for dkv), unused
+// by the f32 kernels.
 // The caller checks shapes, devices, dtypes and 16-byte alignment of rows
-// (the bf16 forward's tensor maps need a 16-byte aligned base and strides
-// that are multiples of 16 bytes; it returns cudaErrorInvalidValue when a
+// (the bf16 kernels' tensor maps need a 16-byte aligned base and strides
+// that are multiples of 16 bytes; they return cudaErrorInvalidValue when a
 // map cannot be made).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                 void* lse, const long long* strides, int B, int H, int KV,
@@ -1267,9 +1469,10 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* delta, void* dq, void* dk,
                                 void* dv, const long long* strides, int B, int H, int KV,
                                 int sq, int sk, int d, int dtype, int causal, float scale,
-                                int which, void* stream) {
+                                int which, int group, void* stream) {
   if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, strides, B, H, KV, sq, sk, causal, scale);
+  a.group = group;
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

@@ -2,7 +2,7 @@
 // 128-byte swizzle, wgmma (operands from shared memory, or A from
 // registers) and its descriptors, mbarriers, TMA tile loads, register
 // rebalancing between warpgroups, and the driver's tensor-map encoder.
-// Included by conv3x3_bn.cu (K8) and flash_attention.cu (K1/K3); each
+// Included by conv3x3_bn.cu (K8) and flash_attention.cu (K1-K4); each
 // library gets its own copy (everything here has internal linkage).
 
 #pragma once

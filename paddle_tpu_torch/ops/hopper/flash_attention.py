@@ -13,18 +13,22 @@ note says how they work.
 
 What bounds them on an H100: at Llama training shapes (s=4096, d=128) the
 forward does about 10^3 operations per byte it must move, so it is bound
-by operations (tensor-core rate in bf16). No kernel writes the ``s x s``
-scores to device memory. The bf16 forward is built for Hopper: a CTA owns
-a 128-row q tile; one thread loads Q and streams K/V tiles by TMA into a
-two-stage ring; two consumer warpgroups run ``wgmma`` (S = Q K^T from
-shared memory, O += P V with P from registers) and take turns on the
-tensor cores, so that one's softmax (in the log2 domain) runs beside the
-other's products; only the diagonal and ragged key tiles are masked.
-:func:`fwd_tile_plan`, :func:`fwd_cta_order` and
-:func:`fwd_schedule_model` are plain models of that schedule. The f32
-forward and the backward keep 64-row tiles of 4 warps (``mma.sync`` for
-bf16, CUDA-core FMA for f32) with ``cp.async`` double buffering; causal
-tiles stop at the diagonal and the longest launch first.
+by operations (tensor-core rate in bf16), and the backward's two kernels
+more so. No kernel writes the ``s x s`` scores to device memory. The
+bf16 kernels are built for Hopper: one thread streams tiles by TMA into
+rings of shared-memory stages; two consumer warpgroups run every product
+with ``wgmma``, P and dS as A from registers; only the tiles that cross
+the causal diagonal (and, in the forward and dq, a ragged last key tile)
+are masked. The forward's CTA owns a 128-row q tile and streams K/V, its
+warpgroups taking turns on the tensor cores so that one's softmax (in the
+log2 domain) runs beside the other's products; the dq kernel's CTA owns
+a 128-row q tile and streams 64-key tiles; the dkv kernel's owns a
+128-key tile and streams 64-query tiles of Q, dO, lse and delta for each
+query head of the GQA group. :func:`fwd_tile_plan`,
+:func:`fwd_cta_order`, :func:`fwd_schedule_model`, :func:`bwd_tile_plan`
+and :func:`bwd_schedule_model` are plain models of those schedules. The
+f32 kernels keep 64-row tiles of 4 warps on the CUDA cores; causal tiles
+stop at the diagonal and the longest launch first.
 
 Layout as in the JAX package: q ``[b, sq, h, d]``, k/v ``[b, sk, kv, d]``
 (``h`` a multiple of ``kv``: grouped-query attention without expanding
@@ -226,6 +230,123 @@ def fwd_schedule_model(q, k, v, causal, scale):
     return out, lse
 
 
+# The bf16 backward's tiles (csrc/flash_attention.cu): a dq CTA's q rows
+# and the keys of the tiles it streams (kDqBM, kDqBN); a dkv CTA's keys and
+# the queries of the tiles it streams (kDkvBN, kDkvBM)
+DQ_BLOCK_M, DQ_BLOCK_N = 128, 64
+DKV_BLOCK_N, DKV_BLOCK_M = 128, 64
+
+
+def dkv_group(b, h, kv, sq, d):
+    """(batch, KV head) pairs per group of the bf16 dkv kernel's CTAs,
+    which the wrapper passes to the kernel: as many as keep their Q and
+    dO (all g query heads of the GQA group) within FWD_GROUP_BYTES of
+    L2. The dq kernel shares K/V as the forward does and takes
+    :func:`fwd_group`."""
+    qdo_per_pair = max(1, 4 * sq * d * (h // kv))
+    return max(1, min(b * kv, FWD_GROUP_BYTES // qdo_per_pair))
+
+
+def bwd_tile_plan(kernel, start, sq, sk, causal, g=1):
+    """The tiles a bf16 backward CTA visits, in its order, and which of
+    them take the mask. ``kernel="dq"``: the CTA of the q tile at row
+    ``start``, ``[(k0, masked), ...]`` over its 64-key tiles from the
+    last down; a causal tile stops at the diagonal, and the tiles that
+    cross it, or the ragged end of the keys, are masked. ``kernel="dkv"``:
+    the CTA of the key tile at ``start``, ``[(t, q0, masked), ...]`` over
+    the 64-query tiles of each of the group's ``g`` query heads in turn;
+    a causal key tile starts at its diagonal and only the q tiles that
+    cross it are masked (padding needs no mask there: a query past
+    ``sq`` takes lse = +inf, and no key row past ``sk`` is stored)."""
+    if kernel == "dq":
+        kend = min(sk, start + DQ_BLOCK_M) if causal else sk
+        ntk = -(-kend // DQ_BLOCK_N)
+        first_masked = (start // DQ_BLOCK_N if causal
+                        else ntk - 1 if sk % DQ_BLOCK_N else ntk)
+        return [(kt * DQ_BLOCK_N, kt >= first_masked)
+                for kt in range(ntk - 1, -1, -1)]
+    if kernel == "dkv":
+        qstart = start if causal else 0
+        return [(t, q0, causal and q0 < start + DKV_BLOCK_N)
+                for t in range(g) for q0 in range(qstart, sq, DKV_BLOCK_M)]
+    raise ValueError(f"kernel {kernel!r}: want 'dq' or 'dkv'")
+
+
+def bwd_schedule_model(q, k, v, out, lse, dout, causal, scale):
+    """Plain model of the bf16 backward kernels' schedule and arithmetic,
+    the contract of :func:`flash_attention_bwd_reference`: ``delta`` from
+    ``dout`` and ``out`` as the wrapper computes it; rows past ``sq`` and
+    keys past ``sk`` zero (as TMA fills them), a row past ``sq`` with
+    lse = +inf and delta = 0; per CTA the tiles of :func:`bwd_tile_plan`
+    with the mask on its masked tiles only; ``P = 2^(S scale log2e - lse
+    log2e)``, ``dS = P (dP - delta)``, both f32, each rounded to the input
+    dtype before its product; dK and dV of a KV head summed over the
+    group's query heads in order, then over their q tiles; the scale
+    applied to dq and dk at the end."""
+    _check(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g, dt = h // kv, q.dtype
+    log2e = math.log2(math.e)
+    scale_log2 = scale * log2e
+    pad = torch.nn.functional.pad
+    pad_q, pad_k = -sq % DQ_BLOCK_M, -sk % DKV_BLOCK_N
+    qf, dof = (pad(t, (0, 0, 0, 0, 0, pad_q)).float() for t in (q, dout))
+    kf, vf = (pad(t, (0, 0, 0, 0, 0, pad_k)).float() for t in (k, v))
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    lse2 = pad(lse.float() * log2e, (0, pad_q), value=math.inf)
+    dl = pad(delta, (0, pad_q))
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    ke, ve = _expand(kf, g), _expand(vf, g)
+    dq = torch.empty(b, sq, h, d, dtype=dt)
+    cols = torch.arange(DQ_BLOCK_N)
+    for q0 in range(0, sq, DQ_BLOCK_M):
+        rows, sl = q0 + torch.arange(DQ_BLOCK_M), slice(q0, q0 + DQ_BLOCK_M)
+        acc = torch.zeros(b, h, DQ_BLOCK_M, d)
+        for k0, masked in bwd_tile_plan("dq", q0, sq, sk, causal):
+            kt, vt = ke[:, k0:k0 + DQ_BLOCK_N], ve[:, k0:k0 + DQ_BLOCK_N]
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, sl], kt)
+            p = torch.exp2(s * scale_log2 - lse2[:, :, sl, None])
+            if masked:
+                c = (k0 + cols)[None, :]
+                p = p.masked_fill((c >= sk) | (causal & (c > rows[:, None])),
+                                  0.0)
+            dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, sl], vt)
+            acc += torch.einsum("bhqk,bkhd->bhqd",
+                                rnd(p * (dp - dl[:, :, sl, None])), kt)
+        n = min(DQ_BLOCK_M, sq - q0)
+        dq[:, q0:q0 + n] = (acc * scale).transpose(1, 2)[:, :n].to(dt)
+
+    # query head kh * g + t of KV head kh
+    qg, dog = (t.reshape(b, -1, kv, g, d) for t in (qf, dof))
+    lg, dlg = (t.reshape(b, kv, g, -1) for t in (lse2, dl))
+    dk = torch.empty(b, sk, kv, d, dtype=dt)
+    dv = torch.empty(b, sk, kv, d, dtype=dt)
+    for k0 in range(0, sk, DKV_BLOCK_N):
+        keys = (k0 + torch.arange(DKV_BLOCK_N))[:, None]
+        kt, vt = (t[:, k0:k0 + DKV_BLOCK_N] for t in (kf, vf))
+        adk = torch.zeros(b, kv, DKV_BLOCK_N, d)
+        adv = torch.zeros(b, kv, DKV_BLOCK_N, d)
+        for t, q0, masked in bwd_tile_plan("dkv", k0, sq, sk, causal, g):
+            sl = slice(q0, q0 + DKV_BLOCK_M)
+            qt, dot = qg[:, sl, :, t], dog[:, sl, :, t]
+            st = torch.einsum("bkhd,bqhd->bhkq", kt, qt)
+            p = torch.exp2(st * scale_log2 - lg[:, :, t, None, sl])
+            if masked:
+                p = p.masked_fill(keys > q0 + torch.arange(DKV_BLOCK_M), 0.0)
+            adv += torch.einsum("bhkq,bqhd->bhkd", rnd(p), dot)
+            dpt = torch.einsum("bkhd,bqhd->bhkq", vt, dot)
+            adk += torch.einsum("bhkq,bqhd->bhkd",
+                                rnd(p * (dpt - dlg[:, :, t, None, sl])), qt)
+        n = min(DKV_BLOCK_N, sk - k0)
+        dk[:, k0:k0 + n] = (adk * scale).transpose(1, 2)[:, :n].to(dt)
+        dv[:, k0:k0 + n] = adv.transpose(1, 2)[:, :n].to(dt)
+    return dq, dk, dv
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     path, _ = build_library("flash_attention", _SOURCES)
@@ -233,12 +354,13 @@ def _library():
     # strides, then B, H, KV, sq, sk, d, dtype, causal, then scale
     tail = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
             + [ctypes.c_float])
-    # the forward then takes the CTA group (fwd_group), then the stream
+    # the forward then takes the CTA group (fwd_group), then the stream;
+    # the backward which kernel, its CTA group, then the stream
     lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + tail + [
         ctypes.c_int, ctypes.c_void_p]
     lib.flash_fwd_launch.restype = ctypes.c_int
     lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + tail + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.flash_bwd_launch.restype = ctypes.c_int
     return lib
 
@@ -333,13 +455,16 @@ def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale, outs):
                              f"{tuple(t.shape)} on {t.device}")
     q, k, v, dout = (_rows_aligned(t) for t in (q, k, v, dout))
     dq, dk, dv = outs
+    group = fwd_group(b, h, kv, sk, d) if which == 0 else dkv_group(
+        b, h, kv, sq, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().flash_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq, dk, dv,
             _strides(q, k, v, dout), b, h, kv, sq, sk, d,
-            _DTYPE_CODES[q.dtype], int(causal), float(scale), which, stream)
+            _DTYPE_CODES[q.dtype], int(causal), float(scale), which, group,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash attention {('dq', 'dkv')[which]} launch "
                            f"failed: CUDA error {rc}")

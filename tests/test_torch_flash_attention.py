@@ -8,9 +8,11 @@ against the JAX package's Pallas kernels in interpret mode
 backward kernels) on the same numpy-seeded f32 inputs, over the kernel
 paths the JAX package takes: the rectangular grid (K1/K2), the folded
 triangle (K3/K4), non-causal ``sq != sk``, GQA and the packed head pairs
-of ``d=64``. The plain model of the bf16 forward kernel's schedule (its
-key tiles, masks, CTA order and log2-domain softmax) is held against the
-plain forward. The ``gpu``-marked tests hold the Hopper kernels against
+of ``d=64``. The plain models of the bf16 kernels' schedules (the
+forward's key tiles, masks, CTA order and log2-domain softmax; the
+backward's tiles, masks, zero padding, rounding and GQA sum order) are
+held against the plain forward and backward. The ``gpu``-marked tests
+hold the Hopper kernels against
 the plain versions; they skip on a machine without a CUDA device. JAX is
 imported only inside the ``ref`` fixture.
 """
@@ -319,14 +321,26 @@ def test_fwd_cta_order(b, h, kv, sq, d, group):
         assert q0s == sorted(q0s, reverse=True)
 
 
-def _assert_rows_close(got, want, rel):
+# dq, dk and dv row by row: 8 bf16 ulps of each row's largest value (dS
+# rounded to bf16 moves a row whose terms cancel by up to two ulps), that
+# scale at least ROW_FLOOR of the tensor's largest value: causal dq's
+# first row is zero in exact arithmetic (one key, so P = 1 and dS = dP -
+# delta = 0) and rounding noise on both sides
+GRAD_ROW_REL = 2.0 ** -5
+ROW_FLOOR = 2.0 ** -10
+
+
+def _assert_rows_close(got, want, rel, floor=0.0):
     """Every row (the last dimension) of ``got`` within ``rel`` of that
-    row's largest ``|want|``. A row of attention's out is a weighted mean
-    of V rows: rows that see many keys are far smaller than the first
-    causal rows, and a limit scaled to the whole tensor's largest value
-    would pass a fault confined to them."""
+    row's largest ``|want|``, and that scale at least ``floor`` times the
+    tensor's largest. A row of attention's out is a weighted mean of V
+    rows: rows that see many keys are far smaller than the first causal
+    rows (and dq of the first rows, dk/dv of the last keys, far smaller
+    than the rest), and a limit scaled to the whole tensor's largest
+    value would pass a fault confined to them."""
     g, w = got.float(), want.float()
-    err, lim = (g - w).abs().amax(-1), rel * w.abs().amax(-1)
+    err = (g - w).abs().amax(-1)
+    lim = rel * w.abs().amax(-1).clamp(min=floor * float(w.abs().max()))
     bad = err > lim
     assert not bad.any(), (
         f"{int(bad.sum())} rows beyond {rel} of their largest value; worst "
@@ -375,6 +389,90 @@ def test_fwd_schedule_model_matches_plain(case, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 backward kernels' schedule, as its plain model
+# ---------------------------------------------------------------------------
+
+def _dq_tiles(*k0s):
+    return [(k, False) for k in k0s]
+
+
+@pytest.mark.parametrize("kernel,start,sq,sk,causal,g,want", [
+    # dq, the training length: the last q tile walks 64 key tiles of 64,
+    # the two that cross the diagonal first and masked; the first q tile
+    # only those two
+    ("dq", 3968, 4096, 4096, True, 1,
+     [(4032, True), (3968, True)] + _dq_tiles(*range(3904, -1, -64))),
+    ("dq", 0, 4096, 4096, True, 1, [(64, True), (0, True)]),
+    # ragged: 200 = 128 + 72, and 100 (no full q tile)
+    ("dq", 128, 200, 200, True, 1,
+     [(192, True), (128, True), (64, False), (0, False)]),
+    ("dq", 0, 100, 100, True, 1, [(64, True), (0, True)]),
+    # non-causal: only a ragged last key tile is masked
+    ("dq", 0, 200, 1000, False, 1,
+     [(960, True)] + _dq_tiles(*range(896, -1, -64))),
+    ("dq", 128, 256, 1024, False, 1, _dq_tiles(*range(960, -1, -64))),
+    # dkv: a causal key tile starts at its diagonal; the q tiles that
+    # cross it are masked, each query head of the group in turn
+    ("dkv", 0, 256, 256, True, 1,
+     [(0, 0, True), (0, 64, True), (0, 128, False), (0, 192, False)]),
+    ("dkv", 128, 200, 200, True, 2,
+     [(0, 128, True), (0, 192, True), (1, 128, True), (1, 192, True)]),
+    ("dkv", 3968, 4096, 4096, True, 1, [(0, 3968, True), (0, 4032, True)]),
+    # non-causal: every q tile, none masked (padding needs no mask)
+    ("dkv", 896, 200, 1000, False, 1,
+     [(0, q0, False) for q0 in (0, 64, 128, 192)]),
+], ids=["dq_causal_last_tile", "dq_causal_first_tile", "dq_ragged_s200",
+        "dq_s100", "dq_full_sk1000", "dq_full_sk1024", "dkv_causal_first",
+        "dkv_ragged_s200_gqa", "dkv_causal_last", "dkv_full_sk1000"])
+def test_bwd_tile_plan(kernel, start, sq, sk, causal, g, want):
+    """The tiles a dq CTA (key tiles, last first) or a dkv CTA (q tiles
+    of each query head of its group) visits, and which take the mask."""
+    assert hop_fa.bwd_tile_plan(kernel, start, sq, sk, causal, g) == want
+
+
+@pytest.mark.parametrize("b,h,kv,sq,d,group", [
+    (2, 32, 32, 4096, 128, 8),    # the training shape: 2 MiB of Q/dO a pair
+    (1, 32, 8, 2048, 128, 4),     # GQA: four query heads a KV head
+    (2, 8, 2, 200, 128, 4),       # all pairs fit
+])
+def test_dkv_group(b, h, kv, sq, d, group):
+    """The dkv kernel's CTA groups hold the Q and dO of at most 16 MiB of
+    (batch, KV head) pairs."""
+    assert hop_fa.dkv_group(b, h, kv, sq, d) == group
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=lambda c: c[0])
+def test_bwd_schedule_model_matches_plain(case, dtype):
+    """The plain model of the bf16 backward kernels (their tile plans,
+    masks on the plan's tiles only, zero-filled padding with lse = +inf
+    past sq, log2-domain exp, P and dS rounded to the input dtype, dK/dV
+    summed over the GQA group in order) equals the plain FA2 backward on
+    the plain forward's out and lse: f32 to ATOL/RTOL (order of
+    summation, exp2 against exp); bf16 dq, dk and dv to 4 bf16 ulps of
+    the largest value and row by row to GRAD_ROW_REL: the card's
+    limits."""
+    _, b, sq, sk, h, kv, d, causal = case
+    x = _inputs(sq + sk, b, sq, sk, h, kv, d)
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x[n]).to(tdt)
+                   for n in ("q", "k", "v", "dout"))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = hop_fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    got = hop_fa.bwd_schedule_model(q, k, v, out, lse, do, causal, scale)
+    want = hop_fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                                scale)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL)
+        else:
+            tol = 2.0 ** -6 * float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+            _assert_rows_close(g, w, GRAD_ROW_REL, ROW_FLOOR)
+
+
+# ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -398,9 +496,10 @@ def cuda():
 def test_flash_kernels_match_plain(cuda, case, dtype):
     """The forward, dq and dkv kernels equal the plain versions on the
     same inputs: f32 to 1e-4 (order of summation), bf16 to 4 bf16 ulps
-    of the largest value, and the forward's out also to 4 ulps of each
-    row's largest value (each side rounds its outputs to bf16, and the
-    kernels round P and dS to bf16 before their products)."""
+    of the largest value, and out also to 4 ulps of each row's largest
+    value, dq, dk and dv to GRAD_ROW_REL (each side rounds its outputs to
+    bf16, and the kernels round P and dS to bf16 before their
+    products)."""
     _, sq, sk, h, kv, d, causal = case
     if d not in hop_fa.HEAD_DIMS:
         d = 64
@@ -425,6 +524,8 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
     if dtype == "bfloat16":
         _assert_rows_close(out, want_out, 2.0 ** -6)
+        for g, w in zip(got[1:], want[1:]):
+            _assert_rows_close(g, w, GRAD_ROW_REL, ROW_FLOOR)
 
 
 @pytest.mark.gpu
@@ -436,6 +537,24 @@ def test_flash_fwd_is_deterministic(cuda, d):
     q, k, v = (torch.from_numpy(x[n]).to(cuda, torch.bfloat16) for n in "qkv")
     first = hop_fa.flash_attention_fwd_cuda(q, k, v, True, d ** -0.5)
     second = hop_fa.flash_attention_fwd_cuda(q, k, v, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_is_deterministic(cuda, d):
+    """Two calls of the bf16 dq and dkv kernels give the same bits: no
+    atomics, every dq, dk and dv element summed by one warpgroup in a
+    fixed order (dk/dv over the GQA group's query heads in turn)."""
+    x = _inputs(23, 2, 520, 520, 8, 2, d)
+    q, k, v, do = (torch.from_numpy(x[n]).to(cuda, torch.bfloat16)
+                   for n in ("q", "k", "v", "dout"))
+    out, lse = hop_fa.flash_attention_fwd_cuda(q, k, v, True, d ** -0.5)
+    first = hop_fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, True,
+                                            d ** -0.5)
+    second = hop_fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, True,
+                                             d ** -0.5)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
@@ -457,6 +576,29 @@ def test_flash_fwd_runs_on_every_card(cuda):
         torch.cuda.synchronize(i)
         _assert_rows_close(out, want, 2.0 ** -6)
         torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_runs_on_every_card(cuda):
+    """One process calls the bf16 dq and dkv kernels on each card in
+    turn, and each call agrees with the plain backward: their opt-in to
+    more shared memory holds per device, so it is made on every call."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x = _inputs(29, 1, 256, 256, 4, 2, 128)
+    for i in range(torch.cuda.device_count()):
+        q, k, v, do = (torch.from_numpy(x[n]).to(torch.device("cuda", i),
+                                                 torch.bfloat16)
+                       for n in ("q", "k", "v", "dout"))
+        out, lse = hop_fa.flash_attention_fwd_reference(q, k, v, True,
+                                                        128 ** -0.5)
+        got = hop_fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, True,
+                                              128 ** -0.5)
+        want = hop_fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    True, 128 ** -0.5)
+        torch.cuda.synchronize(i)
+        for g, w in zip(got, want):
+            _assert_rows_close(g, w, GRAD_ROW_REL, ROW_FLOOR)
 
 
 @pytest.mark.gpu
