@@ -21,6 +21,12 @@ calls bitwise equal, and timings beside SDPA and the bound.
 dk and dv (also row by row) at the same cases, two calls bitwise equal,
 and the times of dq, dkv, their sum and the whole backward (delta
 included) beside SDPA's backward and the bound.
+``python3 chip_smoke.py --k7-bwd [--root DIR]`` is the same loop for K7's
+backward: the build's ptxas report, dx, dw, da and db against the plain
+version at the main path's four K7 shapes and at ragged rows for each
+design (one pass, three passes), two calls bitwise equal, the times
+beside ``convolution_backward``, the plain version and the bound, and
+the device ms of each part (one pass; dyc, dx, dw; reductions).
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -62,12 +68,15 @@ the run with a non-zero exit code and no result line:
 10. K7 and K8 (fused conv + BatchNorm, CUDA) forward and backward and
     K9 (BatchNorm statistics, Triton) against their plain versions at
     ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
-    (layer 1's second 1x1, 64 -> 256) and without (layer 4's first,
-    2048 -> 512), K8 at layer 1 (56^2, 64), layer 3 (14^2, 256) and
-    layer 2 (28^2, 128) (its forward also twice, for equal bits), K9 at
-    802,816 x 256 and 12,544 x 2048; then their timings beside a
-    PyTorch call and the bound, and K8's device time by part (forward:
-    band kernel, reduction; backward: dyc, dw, dx, reductions).
+    (layer 1's second 1x1, 64 -> 256, and layer 2's, 128 -> 512) and
+    without (layer 4's first, 2048 -> 512, and layer 3's, 1024 -> 256;
+    its backward twice, for equal bits), K8 at layer 1 (56^2, 64),
+    layer 3 (14^2, 256) and layer 2 (28^2, 128) (its forward also
+    twice, for equal bits), K9 at 802,816 x 256 and 12,544 x 2048; then
+    their timings beside a PyTorch call and the bound, and K7's and
+    K8's device time by part (K7: forward, backward one pass or dyc, dx,
+    dw, reductions; K8 forward: band kernel, reduction; K8 backward:
+    dyc, dw, dx, reductions).
 11. One layer-1 bottleneck (256 -> 64 -> 256, 56^2, batch 8, bf16, both
     ResNet flags on): the card (kernels) against the CPU (plain
     versions), and the fused composition against the default one on
@@ -1316,6 +1325,10 @@ RU_CASES = [
      dict(rows=802816, cin=64, cout=256, pro=True)),
     ("conv1x1_layer4_unit_a_12544x2048x512", "k7",
      dict(rows=12544, cin=2048, cout=512, pro=False)),
+    ("conv1x1_prologue_layer2_unit_b_200704x128x512", "k7",
+     dict(rows=200704, cin=128, cout=512, pro=True)),
+    ("conv1x1_layer3_unit_a_50176x1024x256", "k7",
+     dict(rows=50176, cin=1024, cout=256, pro=False)),
     ("conv3x3_layer1_256x56x56x64", "k8", dict(n=256, h=56, w=56, c=64)),
     ("conv3x3_layer3_256x14x14x256", "k8", dict(n=256, h=14, w=14, c=256)),
     ("conv3x3_layer2_256x28x28x128", "k8", dict(n=256, h=28, w=28, c=128)),
@@ -1386,8 +1399,9 @@ def _rel_err(got, want):
 
 def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES, backward=True):
     """K7 and K8 (forward and, with ``backward``, backward) and K9 against
-    their plain versions at ResNet-50 shapes; K8's forward twice, for
-    equal bits. The backward versions both take the plain forward's y."""
+    their plain versions at ResNet-50 shapes; K8's forward and K7's
+    backward twice, for equal bits. The backward versions both take the
+    plain forward's y."""
     from paddle_tpu_torch.ops.hopper import bn_stats as bn
 
     gen = torch.Generator(device="cuda").manual_seed(2024)
@@ -1402,6 +1416,10 @@ def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES, backward=True):
                 got, fwd_k(c["x"], c["w"], c["a"], c["b"]))),
                 f"{name}: two forward calls differ (fixed-order sums)")
         gotb = bwd_k(*_bwd_args(kind, c, want[0])) if backward else ()
+        if backward and kind == "k7":
+            check(all(g is None or torch.equal(g, r) for g, r in zip(
+                gotb, bwd_k(*_bwd_args(kind, c, want[0])))),
+                f"{name}: two backward calls differ (fixed-order sums)")
         wantb = bwd_p(*_bwd_args(kind, c, want[0])) if backward else ()
         torch.cuda.synchronize()
         errs = {}
@@ -1499,11 +1517,13 @@ def _ru_library(kind, c, y):
     return fwd, bwd
 
 
-def k8_parts(fn, args, iters=5):
-    """Device ms per launch of each part of one K8 wrapper (forward: band
-    kernel, reduction; backward: dyc, dw, dx, the reductions), from a
-    torch.profiler window over ``iters`` launches. A kernel outside
-    K8_PARTS (another checkout's port) is booked under its own name."""
+def ru_parts(fn, args, iters=5):
+    """Device ms per launch of each part of one K7 or K8 wrapper (K7:
+    forward, backward one pass or dyc, dx, dw, the reductions; K8
+    forward: band kernel, reduction; K8 backward: dyc, dw, dx, the
+    reductions), from a torch.profiler window over ``iters`` launches.
+    A kernel of neither (another checkout's port) is booked under its
+    own name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
@@ -1515,8 +1535,7 @@ def k8_parts(fn, args, iters=5):
         torch.cuda.synchronize()
     parts = {}
     for key, dev_us in device_events(prof)[0].items():
-        part = next((what or "reductions" for kernel, _, what in K8_PARTS
-                     if kernel in key), key[:60])
+        part = resnet_part(key) or key[:60]
         parts[part] = parts.get(part, 0.0) + dev_us / 1e3 / iters
     return parts
 
@@ -1560,11 +1579,10 @@ def time_resnet_kernels(results, backward=True):
                             library_ms=time_ms(lib_b), bound_ms=bb,
                             bound_by=byb)
             parts.append(("bwd", bwd_k, bargs))
-        if kind == "k8":
-            for d, fn, args in parts:
-                t[d]["parts"] = k8_parts(fn, args)
-                log(f"[time] k8 {d} {name} device ms per launch by part: "
-                    f"{json.dumps(t[d]['parts'])}")
+        for d, fn, args in parts:
+            t[d]["parts"] = ru_parts(fn, args)
+            log(f"[time] {kind} {d} {name} device ms per launch by part: "
+                f"{json.dumps(t[d]['parts'])}")
         timing[name] = t
         for d, tt in t.items():
             log(f"[time] {kind} {d} {name} ms={tt['ms']} plain_ms="
@@ -1703,14 +1721,25 @@ K8_PARTS = (("conv3_fwd_band_kernel", "k8", "forward (bands)"),
             ("conv3_reduce_kernel", "k7_k8_reduce", None))
 
 
+# K7's kernels (csrc/resnet_unit.cu) by name, with their part; earlier
+# checkouts' backward kernels (gemm_rows_kernel with a dyc or dx epilogue,
+# gemm_dw_kernel) are booked by their template arguments
+K7_PARTS = (("k7_onepass_kernel<", "backward one pass (y, dyc, dx, dw)"),
+            ("k7_rows_kernel<0,", "backward dyc"),
+            ("k7_rows_kernel<1,", "backward dx"),
+            ("k7_dw_kernel<", "backward dw (split-K partials)"),
+            ("gemm_dw_kernel<", "backward dw (split-K partials)"))
+
+
 def resnet_family(name):
     """Kernel family of a device kernel name in a ResNet step."""
+    name = name.replace(", ", ",")
     for kernel, fam, _ in K8_PARTS:
         if kernel in name:
             return fam
-    if "gemm_rows_kernel<" in name or "gemm_dw_kernel<" in name:
+    if "gemm_rows_kernel<" in name or any(k in name for k, _ in K7_PARTS):
         return "k7"
-    if "col_reduce_kernel" in name:
+    if "col_reduce_kernel" in name or "bwd_reduce_kernel" in name:
         return "k7_k8_reduce"
     if "bn_stats_" in name:
         return "k9"
@@ -1724,22 +1753,24 @@ def resnet_family(name):
 
 
 def resnet_part(name):
-    """Which part of K7/K8 a kernel is: by name for K8, by its template
-    arguments for resnet_unit.cu (``gemm_rows_kernel<BN, APRO, BTRANS,
-    EPI, EMASK>``, ``gemm_dw_kernel<BM, BN, APRO>``); None for other
-    kernels."""
+    """Which part of K7/K8 a kernel is: by name (K8_PARTS, K7_PARTS);
+    ``gemm_rows_kernel`` is K7's forward (in earlier checkouts, with five
+    template arguments, its fourth picks the forward, dyc or dx); None
+    for other kernels."""
     fam = resnet_family(name)
     if fam not in ("k7", "k8", "k7_k8_reduce"):
         return None
+    name = name.replace(", ", ",")
     part = next((what for kernel, _, what in K8_PARTS
                  if kernel in name and what), None)
+    part = part or next((what for kernel, what in K7_PARTS
+                         if kernel in name), None)
     if part is not None:
         what = part
     elif "gemm_rows_kernel<" in name:
-        epi = int(name.split("gemm_rows_kernel<")[1].split(",")[3])
-        what = ("forward", "backward dyc", "backward dx")[epi]
-    elif "gemm_dw_kernel<" in name:
-        what = "backward dw (split-K partials)"
+        targs = name.split("gemm_rows_kernel<")[1].split(">")[0].split(",")
+        what = ("forward", "backward dyc", "backward dx")[
+            int(targs[3]) if len(targs) == 5 else 0]
     else:
         return "reductions (statistics, da/db, dw)"
     return f"{fam} {what}"
@@ -1911,6 +1942,80 @@ def k8_only(backward):
     return 0
 
 
+# --k7-bwd adds ragged rows (a last 128-row tile of 104 rows) for each
+# design of K7's backward and each tile width: the one pass at 64 -> 256
+# with the prologue and at 256 -> 64, the three passes with 64-wide tiles
+# (192 -> 320) and with the prologue (128 -> 512)
+K7_BWD_EDGES = [
+    ("conv1x1_prologue_ragged_1000x64x256", "k7",
+     dict(rows=1000, cin=64, cout=256, pro=True)),
+    ("conv1x1_ragged_1000x256x64", "k7",
+     dict(rows=1000, cin=256, cout=64, pro=False)),
+    ("conv1x1_ragged_1000x192x320", "k7",
+     dict(rows=1000, cin=192, cout=320, pro=False)),
+    ("conv1x1_prologue_ragged_1000x128x512", "k7",
+     dict(rows=1000, cin=128, cout=512, pro=True)),
+]
+
+
+def build_log(build):
+    """Run one library's ``build`` and log ptxas's registers, spills,
+    shared memory and warnings per kernel."""
+    t0 = time.perf_counter()
+    for line in build().splitlines():
+        if "Compiling entry" in line:
+            log(f"[build] ptxas: {line.split(chr(39))[1]}")
+        if any(w in line for w in ("registers", "spill", "smem", "arning")):
+            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] seconds={time.perf_counter() - t0}")
+
+
+def k7_only():
+    """``--k7-bwd``: build K7's library alone (ptxas registers, spills
+    and shared memory), then K7's backward at the main path's four
+    shapes and at K7_BWD_EDGES: dx, dw, da, db against the plain version
+    (the forward's check too, from phase 10's loop), two calls bitwise
+    equal; at the four main shapes the times beside
+    convolution_backward, the plain version and the bound, and the
+    device ms by part. Works on another checkout's port too
+    (``--root``). Prints no result line."""
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    phase_device()
+    log(f"[k7-bwd] implementation={os.path.dirname(ru.__file__)}")
+    build_log(ru.build)
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    failures = []
+    for name, kind, shape in K7_BWD_EDGES:
+        c = _ru_inputs(gen, kind, shape)
+        args = _bwd_args(kind, c, ru.conv1x1_bn_fwd_reference(
+            c["x"], c["w"], c["a"], c["b"])[0])
+        got, again = ru.conv1x1_bn_bwd_cuda(*args), ru.conv1x1_bn_bwd_cuda(*args)
+        want = ru.conv1x1_bn_bwd_reference(*args)
+        torch.cuda.synchronize()
+        same = all(g is None or torch.equal(g, r) for g, r in zip(got, again))
+        parts = []
+        for key, g, wnt in zip(("dx", "dw", "da", "db"), got, want):
+            if wnt is None:
+                continue
+            err, rel = _rel_err(g, wnt)
+            tol = RU_BF16_REL if key == "dx" else RU_SUM_REL[key]
+            parts.append(f"{key} max_abs_err={err} rel_to_max={rel} tol={tol}")
+            if not (bool(torch.isfinite(g).all()) and rel <= tol):
+                failures.append(f"{name} {key}")
+        if not same:
+            failures.append(f"{name} two calls differ")
+        log(f"[k7-bwd] {name} {' '.join(parts)} bitwise_equal={same}")
+    cases = [cs for cs in RU_CASES if cs[1] == "k7"]
+    try:
+        time_resnet_kernels(phase_resnet_kernels(cases, (), True), True)
+    except SmokeFailure as e:
+        failures.append(str(e))
+    log(f"[k7-bwd] failures={failures}")
+    check(not failures, f"k7-bwd: {failures}")
+    return 0
+
+
 # --flash-fwd and --flash-bwd add the 128-row tile edges to the bf16
 # FLASH_CASES: a q tile with no full 128 rows, one and a half tiles, a
 # ragged key end under a non-causal mask, and d=64 with GQA
@@ -1938,7 +2043,7 @@ def flash_fwd_only():
 
     phase_device()
     log(f"[flash-fwd] implementation={os.path.dirname(fa.__file__)}")
-    flash_build_log(fa)
+    build_log(fa.build)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES + FLASH_FWD_EDGES:
         if dt != torch.bfloat16:
@@ -1981,18 +2086,6 @@ def flash_fwd_only():
     return 0
 
 
-def flash_build_log(fa):
-    """Build the flash library alone and log ptxas's registers, spills,
-    shared memory and warnings per kernel."""
-    t0 = time.perf_counter()
-    for line in fa.build().splitlines():
-        if "Compiling entry" in line:
-            log(f"[build] ptxas: {line.split(chr(39))[1]}")
-        if any(w in line for w in ("registers", "spill", "smem", "arning")):
-            log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] seconds={time.perf_counter() - t0}")
-
-
 def flash_bwd_only():
     """``--flash-bwd``: build the flash library alone (ptxas registers,
     spills and shared memory), then the bf16 dq and dkv kernels at every
@@ -2010,7 +2103,7 @@ def flash_bwd_only():
 
     phase_device()
     log(f"[flash-bwd] implementation={os.path.dirname(fa.__file__)}")
-    flash_build_log(fa)
+    build_log(fa.build)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     failures = []
     for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES + FLASH_FWD_EDGES:
@@ -2107,7 +2200,7 @@ def main() -> int:
     argv = sys.argv[1:]
     root = HERE
     if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"],
-                    ["--flash-bwd"]) \
+                    ["--flash-bwd"], ["--k7-bwd"]) \
             and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
@@ -2123,6 +2216,8 @@ def main() -> int:
         return flash_fwd_only()
     if argv == ["--flash-bwd"]:
         return flash_bwd_only()
+    if argv == ["--k7-bwd"]:
+        return k7_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()

@@ -880,21 +880,6 @@ int reduce(const float* part, float* out, int T, long long C, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first, dense), zeros
-// outside the tensor.
-bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  cuuint64_t strides[4];
-  cuuint64_t s = dims[0] * 2;
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = s, s *= dims[i + 1];
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 #define C3_TRY(expr)          \
   do {                        \
     const int rc_ = (expr);   \

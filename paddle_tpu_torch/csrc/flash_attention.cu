@@ -508,11 +508,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel_f32(Args a) {
 // bf16 helpers
 // ----------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // reductions over the quad of lanes (4 g + t, t < 4) that shares a row of
 // a wgmma accumulator fragment
 __device__ __forceinline__ float quad_max(float x) {
@@ -562,15 +557,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ops/hopper/flash_attention.py's fwd_tile_plan, fwd_cta_order and
 // fwd_schedule_model mirror the tile order, the CTA order, the masks and
 // this arithmetic.
-
-// Named barriers 1.. (0 is __syncthreads): wait until n threads have
-// arrived (the waiting ones included), or arrive without waiting.
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
 
 // 2^x, flushing denormal results to zero (a p that small is 0 in the sums)
 __device__ __forceinline__ float ex2(float x) {

@@ -2,8 +2,9 @@
 // 128-byte swizzle, wgmma (operands from shared memory, or A from
 // registers) and its descriptors, mbarriers, TMA tile loads, register
 // rebalancing between warpgroups, and the driver's tensor-map encoder.
-// Included by conv3x3_bn.cu (K8) and flash_attention.cu (K1-K4); each
-// library gets its own copy (everything here has internal linkage).
+// Included by conv3x3_bn.cu (K8), flash_attention.cu (K1-K4) and
+// resnet_unit.cu (K7); each library gets its own copy (everything here has
+// internal linkage).
 
 #pragma once
 
@@ -140,6 +141,29 @@ __device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uin
       "r"(c4)
       : "memory");
 }
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// A TMA tile store from shared memory (after a fence.proxy.async by the
+// threads that wrote it); the stores of a thread form bulk groups, and the
+// shared memory may be written again once its group has been read.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                        int c1, int c2) {
   asm volatile(
@@ -250,6 +274,22 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Two floats rounded to bf16 and packed, the lower in the lower half: a
+// register of a wgmma A fragment, or a bf16 pair to store.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Named barriers 1.. (0 is __syncthreads): wait until n threads have
+// arrived (the waiting ones included), or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // One arrival on an mbarrier (a consumer releasing a stage).
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
@@ -284,6 +324,21 @@ EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(f);
   }();
   return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions (innermost first, dense), zeros
+// outside the tensor.
+bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t strides[4];
+  cuuint64_t s = dims[0] * 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s, s *= dims[i + 1];
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

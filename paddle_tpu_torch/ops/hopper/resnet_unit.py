@@ -57,7 +57,6 @@ from ._build import build_library
 _SOURCES = ["resnet_unit.cu"]
 _CONV3_SOURCES = ["conv3x3_bn.cu"]
 _ROW_TILE = 128     # rows of a CTA tile in the kernels' row GEMMs
-_K_TILE = 32        # rows of a split-K chunk must be a multiple of this
 _MAX_ROW_TILES = 65535
 
 # K8 works on bands (conv3x3_bn.cu): 64-channel tiles of 128-byte
@@ -206,7 +205,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.resnet_unit_fwd.restype = i
-    lib.resnet_unit_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.resnet_unit_bwd.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.resnet_unit_bwd.restype = i
     return lib
 
@@ -295,38 +294,188 @@ def _launch_fwd(x, w, a, b, rows, cin, cout):
     return y, stats[0], stats[1]
 
 
-def dw_splits(rows, cin, cout, taps, sms):
-    """(splits, rows per split) of the dw product's split-K over rows:
-    about four CTAs per SM over the (cin, cout, tap) tiles, each chunk a
-    multiple of 32 rows."""
-    tiles = ((cin // (128 if cin % 128 == 0 else 64))
-             * (cout // (128 if cout % 128 == 0 else 64)) * taps)
-    want = max(1, -(-4 * sms // tiles))
-    ksplit = -(-rows // (want * _K_TILE)) * _K_TILE
-    return -(-rows // ksplit), ksplit
+# -- K7's backward: the plan -------------------------------------------------
+#
+# resnet_unit.cu mirrors these: two designs (its header note says how each
+# works), the tiles and stages of each kernel, and the shared memory a
+# block takes (dynamic from a 1024-byte boundary, plus static).
+
+_SMEM_BLOCK = 232448         # shared memory an H100 block can use
+_BWD_ROW_STAGES = 4          # k7_rows_kernel's ring of 64-wide chunks
+_BWD_DW_ROWS = 64            # rows of a k7_dw_kernel chunk
+_BWD_DW_STAGES = 4
+_BARRIERS = 8 * 16           # the kernels' mbarriers, rounded up
+
+
+def k7_onepass_takes(cin, cout, prologue):
+    """Whether K7's backward runs as one pass: w and a warpgroup's half
+    of dw fit (one channel count 64, the other 64, 128 or 256: w in 32 KB
+    of shared memory, half of dw in at most 64 registers a thread; the
+    64-wide one makes y or dx a single 64 x 64 accumulator), with the
+    prologue only at ``cin = 64``, where da and db stay in registers.
+    ResNet-50's layer-1 1x1 convs (64 -> 64, 256 -> 64, 64 -> 256 with
+    the prologue) take it."""
+    return (min(cin, cout) == 64 and max(cin, cout) in (64, 128, 256)
+            and (not prologue or cin == 64))
+
+
+def _tile_n(c):
+    return 128 if c % 128 == 0 else 64
+
+
+def _rows_grid(n, bn, rows, sms):
+    """k7_rows_kernel's persistent grid (resnet_unit.cu's rows_grid):
+    every tile, or the most CTAs up to one per SM that is a multiple of
+    the ``n / bn`` column tiles."""
+    nt = n // bn
+    tiles = nt * -(-rows // _ROW_TILE)
+    return tiles if tiles <= sms else sms // nt * nt
+
+
+def k7_bwd_plan(rows, cin, cout, prologue, sms, one_pass=None):
+    """K7's backward at one shape: the design (``k7_onepass_takes``, or
+    ``one_pass`` where given: the three passes take any shape, which
+    ``scripts/k7_bwd_variants.py`` uses to time both), and per design its
+    tiles, each CTA's rows and the shared memory (bytes, static included)
+    of each kernel.
+
+    ``one_pass``: a persistent grid of ``ctas`` CTAs (at most one per SM
+    and per 128-row tile); CTA k owns the contiguous 128-row tiles
+    ``tile_ranges[k]``; ``dw_parts`` dw partials (two a CTA at 64 x 64,
+    one per consumer warpgroup). ``three_pass``: the dyc and dx kernels'
+    output tiles (128 x ``bn_dyc``, 128 x ``bn_dx``; persistent grids of
+    ``dyc_ctas`` and ``dx_ctas`` CTAs, at most one per SM, which take the
+    tiles in turn; ``dx_ctas`` a multiple of dx's column tiles, so that
+    each CTA sums da/db over one column tile: ``dadb_parts`` partials),
+    the dw kernel's
+    ``dw_tile`` (cin x cout) and its split-K over rows: ``splits`` chunks
+    of ``ksplit`` rows (a multiple of 64), about one CTA per SM over the
+    dw tiles."""
+    tiles = -(-rows // _ROW_TILE)
+    if one_pass is None:
+        one_pass = k7_onepass_takes(cin, cout, prologue)
+    if one_pass:
+        ctas = max(1, min(sms, tiles))
+        static = (2 * cout + (2 * cin if prologue else 2)
+                  + 2 * (8 if prologue else 1) * cin) * 4 + _BARRIERS
+        return dict(
+            design="one_pass", ctas=ctas,
+            tile_ranges=[(k * tiles // ctas, (k + 1) * tiles // ctas)
+                         for k in range(ctas)],
+            dw_parts=2 * ctas if cin == cout == 64 else ctas,
+            smem=dict(one_pass=1024 + cin * cout * 2
+                      + 2 * _ROW_TILE * (cin + cout) * 2 + static))
+    bn_dyc, bn_dx = _tile_n(cout), _tile_n(cin)
+    dw_tile = (_tile_n(cin), _tile_n(cout))
+    dw_tiles = (cin // dw_tile[0]) * (cout // dw_tile[1])
+    want = max(1, sms // dw_tiles)
+    ksplit = _up(-(-rows // want), _BWD_DW_ROWS)
+
+    def rows_smem(bn, red):
+        # the ring, two tiles' epilogue buffers, the da/db sums
+        return (1024 + _BWD_ROW_STAGES * (_ROW_TILE * 128 + 64 * bn * 2)
+                + 2 * _ROW_TILE * bn * 2 + red * 2 * bn * 4 + _BARRIERS)
+    return dict(
+        design="three_pass", bn_dyc=bn_dyc, bn_dx=bn_dx, dw_tile=dw_tile,
+        dyc_ctas=_rows_grid(cout, bn_dyc, rows, sms),
+        dx_ctas=_rows_grid(cin, bn_dx, rows, sms),
+        dadb_parts=_rows_grid(cin, bn_dx, rows, sms) // (cin // bn_dx),
+        splits=-(-rows // ksplit), ksplit=ksplit,
+        smem=dict(dyc=rows_smem(bn_dyc, 1),
+                  dx=rows_smem(bn_dx, 8 if prologue else 1),
+                  dw=1024 + _BWD_DW_STAGES * _BWD_DW_ROWS
+                  * (dw_tile[0] + dw_tile[1]) * 2 + _BARRIERS))
+
+
+def _col_reduce(parts):
+    """``parts.sum(0)`` in col_reduce_kernel's order: 16 row groups each
+    sum their rows t = ty, ty + 16, ... in turn, then the group sums are
+    added in order."""
+    groups = []
+    for ty in range(16):
+        acc = torch.zeros_like(parts[0])
+        for t in range(ty, parts.shape[0], 16):
+            acc = acc + parts[t]
+        groups.append(acc)
+    out = groups[0]
+    for acc in groups[1:]:
+        out = out + acc
+    return out
+
+
+def conv1x1_bn_bwd_onepass_reference(x2d, w, a, b, gy, gs1, gs2, *, ctas):
+    """K7's one-pass backward the kernel's way, in plain PyTorch, for the
+    tests: CTA k of ``ctas`` walks its 128-row tiles (``k7_bwd_plan``'s
+    ``tile_ranges``; the last tile may be short); per tile, y in 64-wide
+    chunks of cout, each chunk's dyc rounded to gy's dtype before dx and
+    dw use it, dx (through the mask) per tile; dw summed per CTA over its
+    tiles (at 64 x 64 per consumer warpgroup: rows 0-63 and 64-127 of
+    each tile apart), da/db per CTA; the partials summed in
+    col_reduce_kernel's order. Same contract as
+    :func:`conv1x1_bn_bwd_reference`."""
+    rows, cin = x2d.shape
+    cout = w.shape[1]
+    plan = k7_bwd_plan(rows, cin, cout, a is not None, ctas)
+    assert plan["design"] == "one_pass" and plan["ctas"] == ctas
+    wf = w.float()
+    dx = torch.empty_like(x2d)
+    halves = 2 if cin == cout == 64 else 1
+    part_dw = torch.zeros(ctas, halves, cin, cout)
+    part_dx = torch.zeros(ctas, 2, cin)
+    for k, (t0, t1) in enumerate(plan["tile_ranges"]):
+        for tile in range(t0, t1):
+            r0, r1 = tile * _ROW_TILE, min((tile + 1) * _ROW_TILE, rows)
+            xs = x2d[r0:r1]
+            xn, mask = _prologue(xs, a, b)
+            xf = xn.float()
+            dyc = torch.cat([
+                (gy[r0:r1, c0:c0 + 64].float() + gs1[c0:c0 + 64].float()
+                 + 2.0 * (xf @ wf[:, c0:c0 + 64]) * gs2[c0:c0 + 64].float()
+                 ).to(gy.dtype) for c0 in range(0, cout, 64)], 1).float()
+            dxs, da, db = _mask_grads(dyc @ wf.t(), xs, a, mask)
+            dx[r0:r1] = dxs
+            if a is not None:
+                part_dx[k, 0] += da
+                part_dx[k, 1] += db
+            for hf in range(halves):
+                lo, hi = (0, r1 - r0) if halves == 1 else (64 * hf, 64 * hf + 64)
+                part_dw[k, hf] += xf[lo:hi].t() @ dyc[lo:hi]
+    dw = _col_reduce(part_dw.reshape(-1, cin, cout))
+    if a is None:
+        return dx, dw, None, None
+    da, db = _col_reduce(part_dx)
+    return dx, dw, da, db
 
 
 def _launch_bwd(x, w, a, b, gy, gs1, gs2, rows, cin, cout):
-    """K7's backward: dyc, dx and the split-K dw with their reductions."""
+    """K7's backward as ``k7_bwd_plan`` says: the one pass (no dyc
+    buffer), or the dyc, dx and split-K dw kernels; then the reductions."""
     dev = x.device
     pro = a is not None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, ksplit = dw_splits(rows, cin, cout, 1, sms)
+    plan = k7_bwd_plan(rows, cin, cout, pro, sms)
     f32 = dict(device=dev, dtype=torch.float32)
-    dyc = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
     dx = torch.empty((rows, cin), device=dev, dtype=torch.bfloat16)
-    part_dx = (torch.empty((-(-rows // _ROW_TILE), 2, cin), **f32) if pro
-               else None)
     dadb = torch.empty((2, cin), **f32) if pro else None
-    part_dw = torch.empty((splits, 1, cin, cout), **f32)
-    dw = torch.empty((1, cin, cout), **f32)
+    dw = torch.empty((cin, cout), **f32)
+    if plan["design"] == "one_pass":
+        ctas, splits, ksplit = plan["ctas"], 0, 0
+        dyc = None
+        part_dw = torch.empty((plan["dw_parts"], cin, cout), **f32)
+        part_dx = torch.empty((ctas, 2, cin), **f32) if pro else None
+    else:
+        ctas, splits, ksplit = 0, plan["splits"], plan["ksplit"]
+        dyc = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
+        part_dw = torch.empty((splits, cin, cout), **f32)
+        part_dx = (torch.empty((plan["dadb_parts"], 2, cin), **f32)
+                   if pro else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().resnet_unit_bwd(
             x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), gy.data_ptr(),
-            gs1.data_ptr(), gs2.data_ptr(), dyc.data_ptr(), dx.data_ptr(),
+            gs1.data_ptr(), gs2.data_ptr(), _ptr(dyc), dx.data_ptr(),
             _ptr(part_dx), _ptr(dadb), part_dw.data_ptr(), dw.data_ptr(),
-            rows, cin, cout, splits, ksplit, stream)
+            rows, cin, cout, ctas, sms, splits, ksplit, stream)
     if rc != 0:
         raise RuntimeError(f"resnet_unit backward launch failed: CUDA error "
                            f"{rc}")
@@ -559,9 +708,10 @@ conv1x1_bn_fwd_cuda.launches = 0
 
 
 def conv1x1_bn_bwd_cuda(x2d, w, a, b, gy, gs1, gs2):
-    """Launch K7's backward (CUDA, bfloat16): the dyc, dx and split-K dw
-    kernels and their reductions, counted as one launch. Same contract
-    as :func:`conv1x1_bn_bwd_reference`."""
+    """Launch K7's backward (CUDA, bfloat16): the one pass or the dyc, dx
+    and split-K dw kernels (``k7_bwd_plan``), and their reductions,
+    counted as one launch. Same contract as
+    :func:`conv1x1_bn_bwd_reference`."""
     rows, cin = x2d.shape
     cout = w.shape[1]
     if tuple(gy.shape) != (rows, cout) or gs1.shape != (cout,) \

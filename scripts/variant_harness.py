@@ -1,5 +1,6 @@
 """What the variant scripts (``flash_fwd_variants.py``,
-``k8_fwd_variants.py``) share: build CUDA sources side by side with
+``flash_bwd_variants.py``, ``k8_fwd_variants.py``,
+``k7_bwd_variants.py``) share: build CUDA sources side by side with
 ``nvcc`` in parallel, time a call with CUDA events, and read the card's
 name, power limit and SM clock from ``nvidia-smi``.
 

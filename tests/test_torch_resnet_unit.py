@@ -172,15 +172,104 @@ def test_routing_predicates_equal_the_jax_package(ref, shape):
                                                                     cout)
 
 
-def test_dw_splits_cover_the_rows():
-    """The dw product's split-K chunks are whole 32-row tiles and cover
-    every row exactly."""
-    for rows, cin, cout, taps in [(802816, 64, 256, 1), (12544, 2048, 512, 1),
-                                  (50176, 256, 256, 9), (128, 64, 64, 9),
-                                  (81, 64, 128, 9)]:
-        splits, ksplit = hop_ru.dw_splits(rows, cin, cout, taps, sms=132)
-        assert ksplit % 32 == 0 and splits * ksplit >= rows
+# K7's backward at ResNet-50's shapes (batch 256, 224^2): (rows, cin, cout,
+# prologue) of every 1x1 unit, and a few shapes off the main path
+K7_BWD_SHAPES = [
+    (802816, 64, 64, False), (802816, 256, 64, False),
+    (802816, 64, 256, True), (802816, 256, 128, False),
+    (200704, 512, 128, False), (200704, 128, 512, True),
+    (200704, 512, 256, False), (50176, 1024, 256, False),
+    (50176, 256, 1024, True), (50176, 1024, 512, False),
+    (12544, 2048, 512, False), (12544, 512, 2048, True),
+    (1000, 64, 256, True), (1000, 256, 64, False), (1000, 128, 128, True),
+    (100, 64, 128, False), (81, 192, 64, False), (200, 128, 64, True),
+]
+
+
+@pytest.mark.parametrize("shape", K7_BWD_SHAPES)
+def test_dw_splits_cover_the_rows(shape):
+    """K7's backward covers every row exactly once: the one pass's CTAs
+    own contiguous, non-empty ranges of 128-row tiles that cover the
+    tiles in order; the three passes' dw splits are whole 64-row chunks,
+    the last one ending at or past the last row, none empty."""
+    rows, cin, cout, pro = shape
+    plan = hop_ru.k7_bwd_plan(rows, cin, cout, pro, sms=132)
+    if plan["design"] == "one_pass":
+        ranges = plan["tile_ranges"]
+        assert len(ranges) == plan["ctas"] <= 132
+        assert ranges[0][0] == 0 and ranges[-1][1] == -(-rows // 128)
+        assert all(t0 < t1 for t0, t1 in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert plan["dw_parts"] == plan["ctas"] * (2 if cin == cout == 64
+                                                   else 1)
+    else:
+        splits, ksplit = plan["splits"], plan["ksplit"]
+        assert ksplit % 64 == 0 and splits * ksplit >= rows
         assert (splits - 1) * ksplit < rows
+        bm, bn = plan["dw_tile"]
+        assert cin % bm == 0 and cout % bn == 0
+        assert plan["bn_dyc"] in (64, 128) and cout % plan["bn_dyc"] == 0
+        assert plan["bn_dx"] in (64, 128) and cin % plan["bn_dx"] == 0
+
+
+@pytest.mark.parametrize("shape", K7_BWD_SHAPES)
+def test_k7_bwd_plan_fits_shared_memory(shape):
+    """Every kernel of K7's backward fits an H100 block's 227 KB of
+    shared memory (dynamic, from a 1024-byte boundary, and static)."""
+    rows, cin, cout, pro = shape
+    plan = hop_ru.k7_bwd_plan(rows, cin, cout, pro, sms=132)
+    assert plan["smem"] and max(plan["smem"].values()) <= 232448
+
+
+def test_k7_bwd_plan_picks_the_one_pass_where_it_fits():
+    """The one pass exactly where one channel count is 64 and the other
+    64, 128 or 256 (w fits 32 KB, each warpgroup owns half of dw), with
+    a prologue only at cin = 64: ResNet-50's layer-1 shapes take it, no
+    other of its 1x1 units does."""
+    widths = (64, 128, 192, 256, 512, 1024, 2048)
+    for cin in widths:
+        for cout in widths:
+            for pro in (False, True):
+                want = (min(cin, cout) == 64
+                        and max(cin, cout) in (64, 128, 256)
+                        and (not pro or cin == 64))
+                plan = hop_ru.k7_bwd_plan(4096, cin, cout, pro, sms=132)
+                assert (plan["design"] == "one_pass") == want, (cin, cout,
+                                                                pro)
+    assert all(hop_ru.k7_onepass_takes(*s[1:]) for s in K7_BWD_SHAPES[:3])
+    assert not any(hop_ru.k7_onepass_takes(*s[1:])
+                   for s in K7_BWD_SHAPES[3:12])
+
+
+K7_ONEPASS_CASES = {
+    # (rows, cin, cout, prologue, ctas): ragged last tiles, CTAs owning
+    # one and several tiles, every dw split of the kernel
+    "r1000_64x256_prologue_c3": (1000, 64, 256, True, 3),
+    "r300_64x64_prologue_c2": (300, 64, 64, True, 2),
+    "r700_256x64_c4": (700, 256, 64, False, 4),
+    "r260_128x64_c3": (260, 128, 64, False, 3),
+    "r200_64x128_c2": (200, 64, 128, False, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_ONEPASS_CASES))
+def test_conv1x1_bn_bwd_onepass_model_matches_plain(case):
+    """The plain model of the one pass's schedule (per-tile dyc rounded
+    chunk by chunk, per-CTA and per-warpgroup dw partials, da/db per
+    CTA, the fixed-order sums) equals the plain backward in f32."""
+    rows, cin, cout, pro, ctas = K7_ONEPASS_CASES[case]
+    x, w, a, b, cy, c1, c2 = map(
+        lambda v: None if v is None else torch.from_numpy(v),
+        _inputs(np.random.RandomState(rows + cout), (rows,), cin, cout, pro,
+                (cin, cout)))
+    got = hop_ru.conv1x1_bn_bwd_onepass_reference(x, w, a, b, cy, c1, c2,
+                                                  ctas=ctas)
+    want = hop_ru.conv1x1_bn_bwd_reference(x, w, a, b, cy, c1, c2)
+    for name, g, wnt in zip(("dx", "dw", "da", "db"), got, want):
+        if wnt is None:
+            assert g is None
+        else:
+            _close(g, wnt.numpy(), name)
 
 
 def _window_pos(h, w, band, pitch, slot):
@@ -412,6 +501,39 @@ def test_conv1x1_bn_kernel_matches_plain(cuda, case):
                             (*got, *gotb), (*want, *wantb)):
         if wnt is not None:
             _card_close(g, wnt, name)
+
+
+K7_BWD_CARD_CASES = {
+    # (rows, cin, cout, prologue): each design of K7's backward at ragged
+    # rows (a last 128-row tile of 104), and the three passes' 64-wide
+    # tiles (192 -> 320)
+    "r1000_64x256_prologue_one_pass": (1000, 64, 256, True),
+    "r1000_64x64_one_pass": (1000, 64, 64, False),
+    "r1000_256x64_one_pass": (1000, 256, 64, False),
+    "r1000_128x512_prologue_three_passes": (1000, 128, 512, True),
+    "r1000_192x320_three_passes": (1000, 192, 320, False),
+    "r3000_1024x256_three_passes": (3000, 1024, 256, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K7_BWD_CARD_CASES))
+def test_conv1x1_bn_bwd_kernel_matches_plain_and_repeats(cuda, case):
+    """K7's backward (the design ``k7_bwd_plan`` picks) against the plain
+    version; two calls give equal bits (fixed-order sums, no atomics)."""
+    rows, cin, cout, pro = K7_BWD_CARD_CASES[case]
+    x, w, a, b, cy, c1, c2 = _card_case(cuda, (rows,), cin, cout, pro,
+                                        (cin, cout), 19)
+    got = hop_ru.conv1x1_bn_bwd_cuda(x, w, a, b, cy, c1, c2)
+    again = hop_ru.conv1x1_bn_bwd_cuda(x, w, a, b, cy, c1, c2)
+    want = hop_ru.conv1x1_bn_bwd_reference(x, w, a, b, cy, c1, c2)
+    torch.cuda.synchronize()
+    for name, g, r, wnt in zip(("dx", "dw", "da", "db"), got, again, want):
+        if wnt is None:
+            assert g is None
+            continue
+        assert torch.equal(g, r), f"{name}: two calls differ"
+        _card_close(g, wnt, name)
 
 
 @pytest.mark.gpu
