@@ -21,6 +21,12 @@ calls bitwise equal, and timings beside SDPA and the bound.
 dk and dv (also row by row) at the same cases, two calls bitwise equal,
 and the times of dq, dkv, their sum and the whole backward (delta
 included) beside SDPA's backward and the bound.
+``python3 chip_smoke.py --k7-fwd [--root DIR]`` is the same loop for K7's
+forward: the build's ptxas report, y, s1 and s2 against the plain version
+at the main path's four K7 shapes and at ragged rows with and without the
+prologue, two calls bitwise equal, the times back to back and by CUDA-graph
+replay beside ``torch.matmul``, the plain version and the bound, and the
+device ms of each part (forward kernel; reduction).
 ``python3 chip_smoke.py --k7-bwd [--root DIR]`` is the same loop for K7's
 backward: the build's ptxas report, dx, dw, da and db against the plain
 version at the main path's four K7 shapes and at ragged rows for each
@@ -49,7 +55,8 @@ the run with a non-zero exit code and no result line:
    4 (out) or 8 ulps of each row's largest value; a second bf16
    backward call gives equal bits.
 5. Timings of every kernel with CUDA events: kernel, plain version, one
-   PyTorch library call for the same function, and the bound.
+   PyTorch library call for the same function, and the bound (K6 also by
+   CUDA-graph replay, and at the training shape, 8192 x 4096).
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
    tokens (kernels) equal dense ``generate`` tokens.
 7. Serving at full Llama-2-7B (bf16, 32 layers): 8 requests through the
@@ -151,6 +158,8 @@ TRAIN_GRAD_REL = 2e-4
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_TRAJ_RTOL = 1e-4
 
+# K6 at the training shape: batch 2 x 4096 tokens
+K6_TRAIN_ROWS = 8192
 LLAMA_LAYERS = 32
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
@@ -564,7 +573,7 @@ def phase_k6():
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     results = {}
-    for rows in (8, 128):
+    for rows in (8, 128, K6_TRAIN_ROWS):
         x = torch.randn(rows, 4096, device="cuda", generator=gen).bfloat16()
         w = (1 + 0.1 * torch.randn(4096, device="cuda",
                                    generator=gen)).bfloat16()
@@ -586,6 +595,10 @@ def phase_k6():
 
 
 def time_k6(results):
+    """K6 beside F.rms_norm, the plain version and the bound: back to
+    back (``ms``) and by CUDA-graph replay (``graph_ms``, K6 and the
+    library call alike), which leaves out the host's launch cost (for K6,
+    Triton's Python launcher)."""
     from paddle_tpu_torch.ops.hopper.rms_norm import (rms_norm_cuda,
                                                       rms_norm_reference)
 
@@ -600,13 +613,19 @@ def time_k6(results):
         r["bound_ms"], r["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                         else (t_ops, "operations"))
         r["ms"] = time_ms(lambda: rms_norm_cuda(x, w, 1e-5), iters=100)
+        r["graph_ms"] = time_ms_graph(lambda: rms_norm_cuda(x, w, 1e-5),
+                                      iters=100)
         r["plain_ms"] = time_ms(lambda: rms_norm_reference(x, w, 1e-5),
                                 iters=100)
         r["library_ms"] = (None if lib is None else time_ms(
             lambda: lib(x, (h,), w, 1e-5), iters=100))
-        log(f"[time] k6 {name} ms={r['ms']} plain_ms={r['plain_ms']} "
-            f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} "
-            f"({r['bound_by']}) bound_share={r['bound_ms'] / r['ms']}")
+        r["library_graph_ms"] = (None if lib is None else time_ms_graph(
+            lambda: lib(x, (h,), w, 1e-5), iters=100))
+        log(f"[time] k6 {name} ms={r['ms']} graph_ms={r['graph_ms']} "
+            f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
+            f"library_graph_ms={r['library_graph_ms']} bound_ms="
+            f"{r['bound_ms']} ({r['bound_by']}) bound_share="
+            f"{r['bound_ms'] / r['graph_ms']}")
 
 
 def phase_k6_grad():
@@ -1300,7 +1319,8 @@ RESNET_LAUNCHES = dict(k7_fwd=32, k7_bwd=32, k8_fwd=11, k8_bwd=11, k9=4)
 # layer-1 case, whose nine taps each sum 802,816 rows (limit 2e-4). A
 # kernel that drops one partial sum of its deterministic reduction is
 # off by more: one of K9's 1,568 row partials by ~6e-4, one of K7's
-# 6,272 row-tile partials of s2 by ~1.6e-4.
+# forward's per-CTA partials of s2 (at most one per SM) by about its share
+# of the rows, ~1/132.
 RU_BF16_REL = 2.0 ** -7
 RU_SUM_REL = dict(s1=2e-5, s2=2e-5, da=2e-5, db=2e-5, mean=2e-5, m2=2e-5,
                   dw=2e-4)
@@ -1722,9 +1742,10 @@ K8_PARTS = (("conv3_fwd_band_kernel", "k8", "forward (bands)"),
 
 
 # K7's kernels (csrc/resnet_unit.cu) by name, with their part; earlier
-# checkouts' backward kernels (gemm_rows_kernel with a dyc or dx epilogue,
-# gemm_dw_kernel) are booked by their template arguments
-K7_PARTS = (("k7_onepass_kernel<", "backward one pass (y, dyc, dx, dw)"),
+# checkouts' kernels (gemm_rows_kernel, the forward or with a dyc or dx
+# epilogue; gemm_dw_kernel) are booked by their template arguments
+K7_PARTS = (("k7_rows_kernel<2,", "forward"),
+            ("k7_onepass_kernel<", "backward one pass (y, dyc, dx, dw)"),
             ("k7_rows_kernel<0,", "backward dyc"),
             ("k7_rows_kernel<1,", "backward dx"),
             ("k7_dw_kernel<", "backward dw (split-K partials)"),
@@ -2016,6 +2037,67 @@ def k7_only():
     return 0
 
 
+def k7_fwd_only():
+    """``--k7-fwd``: build K7's library alone (ptxas registers, spills
+    and shared memory), then K7's forward at K7_BWD_EDGES' ragged rows,
+    each with and without the prologue, and at the main path's four
+    shapes: y, s1, s2 against the plain version, two calls bitwise equal;
+    at the four main shapes the times back to back (``time_ms``) and by
+    CUDA-graph replay (``time_ms_graph``, the device's time without the
+    host's launch cost) beside torch.matmul, the plain version and the
+    bound, and the device ms by part. Works on another checkout's port
+    too (``--root``). Prints no result line."""
+    from paddle_tpu_torch.ops.hopper import resnet_unit as ru
+
+    phase_device()
+    log(f"[k7-fwd] implementation={os.path.dirname(ru.__file__)}")
+    build_log(ru.build)
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    fwd_k, fwd_p = ru.conv1x1_bn_fwd_cuda, ru.conv1x1_bn_fwd_reference
+    edges = [(f"{name.replace('_prologue', '')}"
+              f"{'_prologue' if pro else ''}", dict(shape, pro=pro))
+             for name, _, shape in K7_BWD_EDGES for pro in (True, False)]
+    mains = [(name, shape) for name, kind, shape in RU_CASES if kind == "k7"]
+    failures = []
+    for name, shape in edges + mains:
+        c = _ru_inputs(gen, "k7", shape)
+        args = (c["x"], c["w"], c["a"], c["b"])
+        got, again, want = fwd_k(*args), fwd_k(*args), fwd_p(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, r) for g, r in zip(got, again))
+        parts = []
+        for key, g, wnt in zip(("y", "s1", "s2"), got, want):
+            err, rel = _rel_err(g, wnt)
+            tol = RU_BF16_REL if key == "y" else RU_SUM_REL[key]
+            parts.append(f"{key} max_abs_err={err} rel_to_max={rel} tol={tol}")
+            if not (bool(torch.isfinite(g).all()) and rel <= tol):
+                failures.append(f"{name} {key}")
+        if not same:
+            failures.append(f"{name} two calls differ")
+        log(f"[k7-fwd] {name} {' '.join(parts)} bitwise_equal={same}")
+        del got, again, want
+        if (name, shape) not in mains:
+            continue
+        x, w = c["x"], c["w"]
+        (bound, by), _ = _ru_bounds("k7", c)
+        t = dict(ms=time_ms(lambda: fwd_k(*args)),
+                 graph_ms=time_ms_graph(lambda: fwd_k(*args)),
+                 plain_ms=time_ms(lambda: fwd_p(*args), iters=3, warmup=1),
+                 library_ms=time_ms(lambda: torch.matmul(x, w)),
+                 library_graph_ms=time_ms_graph(lambda: torch.matmul(x, w)))
+        log(f"[time] k7 fwd {name} device ms per launch by part: "
+            f"{json.dumps(ru_parts(fwd_k, args))}")
+        log(f"[time] k7 fwd {name} ms={t['ms']} graph_ms={t['graph_ms']} "
+            f"plain_ms={t['plain_ms']} library_ms={t['library_ms']} "
+            f"library_graph_ms={t['library_graph_ms']} (torch.matmul) "
+            f"bound_ms={bound} ({by}) bound_share={bound / t['graph_ms']}")
+        del c, args
+        torch.cuda.empty_cache()
+    log(f"[k7-fwd] failures={failures}")
+    check(not failures, f"k7-fwd: {failures}")
+    return 0
+
+
 # --flash-fwd and --flash-bwd add the 128-row tile edges to the bf16
 # FLASH_CASES: a q tile with no full 128 rows, one and a half tiles, a
 # ragged key end under a non-causal mask, and d=64 with GQA
@@ -2200,7 +2282,7 @@ def main() -> int:
     argv = sys.argv[1:]
     root = HERE
     if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"],
-                    ["--flash-bwd"], ["--k7-bwd"]) \
+                    ["--flash-bwd"], ["--k7-fwd"], ["--k7-bwd"]) \
             and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
@@ -2216,6 +2298,8 @@ def main() -> int:
         return flash_fwd_only()
     if argv == ["--flash-bwd"]:
         return flash_bwd_only()
+    if argv == ["--k7-fwd"]:
+        return k7_fwd_only()
     if argv == ["--k7-bwd"]:
         return k7_only()
     t_start = time.perf_counter()
@@ -2244,10 +2328,14 @@ def main() -> int:
     shape = FLASH_CASES[0][0]
     kernels = [
         k5_entry(k5_launches, k5),
-        kernel_entry("rms_norm", "triton",
-                     "paddle_tpu_torch/ops/hopper/rms_norm.py",
-                     "paddle_tpu/ops/pallas/rms_norm.py:55",
-                     k6_launches, k6, "rows8_h4096"),
+        dict(kernel_entry("rms_norm", "triton",
+                          "paddle_tpu_torch/ops/hopper/rms_norm.py",
+                          "paddle_tpu/ops/pallas/rms_norm.py:55",
+                          k6_launches, k6, "rows8_h4096"),
+             graph_ms=k6["rows8_h4096"]["graph_ms"],
+             other_shapes={k: {f: r[f] for f in (
+                 "ms", "graph_ms", "library_ms", "library_graph_ms",
+                 "bound_ms")} for k, r in k6.items() if k != "rows8_h4096"}),
         dict(timed_entry("flash_attention_fwd", "cuda", src, f"{pallas}:298",
                          train["fwd"], max(max(e["out"], e["lse"])
                                            for e in flash.values()),

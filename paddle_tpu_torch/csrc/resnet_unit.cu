@@ -20,9 +20,8 @@
 // The TPU kernels run their grid in order and carry s1/s2, dw, da and db in
 // VMEM from one grid step to the next. Hopper's CTAs run in parallel and in no
 // order, so every cross-CTA sum here is a partial per CTA followed by a
-// second, deterministic pass (col_reduce_kernel for the forward,
-// bwd_reduce_kernel for the backward: fixed order, no atomics), and two calls
-// give the same bits.
+// second, deterministic pass (bwd_reduce_kernel: fixed order, no atomics),
+// and two calls give the same bits.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at ResNet-50's
 // shapes (batch 256, 224^2) the 1x1 convs of stage 1 do cin cout / (cin +
@@ -31,17 +30,32 @@
 // card's balance point is ~295). The backward does three products (y
 // recomputed, dx, dw) against the forward's one.
 //
-// Forward: gemm_rows_kernel, C[M, N] = xn[M, cin] w[cin, N], a 128 x BN tile
-// per CTA (BN = 128, or 64 for 64 channels), 8 warps of 32 x BN/2, mma.sync
-// m16n8k16 from ldmatrix, a four-stage cp.async ring, the prologue applied in
-// shared memory after a tile lands; its epilogue stages y and sums the s1/s2
-// partials. It is the simple form; its wgmma/TMA redesign is queued.
+// Every product is a wgmma fed by TMA (2-D maps, 128-byte swizzle, rows past
+// M zero-filled), in CTAs of three warpgroups: a producer (one thread issues
+// the loads; 24 registers) and two consumer warpgroups (240 registers).
 //
-// Backward: every product on wgmma, every operand tile by TMA (2-D maps,
-// 128-byte swizzle, rows past M zero-filled), three warpgroups per CTA: a
-// producer (one thread issues the loads; 24 registers) and two consumer
-// warpgroups (240 registers) that own 64 rows each. Two designs, chosen per
-// shape by k7_bwd_plan in ops/hopper/resnet_unit.py:
+// Forward: k7_rows_kernel<y>, y [M, cout] = xn w in 128 x BN tiles (BN =
+// 128, or 64 where 128 does not divide cout; k7_fwd_plan in
+// ops/hopper/resnet_unit.py mirrors it), the backward's dyc kernel with
+// another epilogue: a persistent grid (a multiple of the column tiles, so a
+// CTA stays in one), K = cin streamed in 64-wide chunks through a 4-stage
+// ring with the prologue applied in place, y rounded into one of two
+// epilogue buffers and stored by TMA, so that a tile's store overlaps the
+// next tile's loads. s1/s2 are added from the f32 accumulator over the
+// tile's rows below M into registers held across the CTA's tiles (rows
+// past M: the prologue turns TMA's zero rows into relu(b) != 0, so their y
+// is not zero; TMA's store drops them and s1/s2 skip them), and reduced
+// over warps once at the end: one partial per CTA. What bounds it: bytes at
+// every ResNet-50 shape but layer 4's 1024 -> 512, 2048 -> 512 and 512 ->
+// 2048 (cin cout / (cin + cout) = 32-410 operations per byte against the
+// card's ~295). Measured against two other designs (scripts/
+// k7_fwd_variants.py, PERF.md): 128 x 256 tiles at 64 -> 256 with w
+// resident, so that x is read and transformed once, ran no faster (x's
+// second read comes from L2), and 128 x 256 tiles at the operation-bound
+// shapes ran 3% faster at 512 -> 2048 and 12-43% slower at the others.
+//
+// Backward: the consumer warpgroups own 64 rows each. Two designs, chosen
+// per shape by k7_bwd_plan in ops/hopper/resnet_unit.py:
 //
 //   One pass (k7_onepass_kernel), where w and a CTA's dw partial fit: one of
 //   cin, cout is 64 and the other at most 256 (ResNet-50's layer-1 64 -> 64,
@@ -114,73 +128,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ----------------------------------------------------------------------------
-// forward: mma.sync row GEMM
+// shared helpers
 // ----------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;       // rows of a gemm_rows_kernel tile
-constexpr int kBK = 32;        // depth of one pipeline stage
-constexpr int kPad = 8;        // keeps smem rows 16-byte aligned, ldmatrix conflict-free
-constexpr int kStages = 4;     // cp.async pipeline depth (tiles in flight)
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared memory; `ok == false` zero-fills and reads
-// nothing.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
-  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Fragment loads (PTX ISA, mma.m16n8k16 .bf16; lane = 4 g + t). A: 16 x 16
-// row-major, rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9. B: 16 x 8
-// (k x n), k = 2t, 2t + 1 and 2t + 8, 2t + 9 of column g. C: rows g and g + 8,
-// columns 2t, 2t + 1.
-
-// A fragment of rows r0.., columns k0.. of a tile stored [m][k] (pitch P).
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile, int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(f, tile + (r0 + (lane & 15)) * P + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-column tiles n0.. and n0 + 8.. at k0.. of a tile
-// stored [k][n], through the transposing load: f[0], f[1] for the first,
-// f[2], f[3] for the second.
-template <int P>
-__device__ __forceinline__ void load_bt(uint32_t (&f)[4], const bf16* tile, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(f, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + n0 + (lane >> 4) * 8);
-}
 
 // relu(x * a + b) rounded to bf16 for 8 channels: a, b hold the channels'
 // scale and shift.
@@ -208,232 +157,13 @@ __device__ __forceinline__ void load8(float (&a)[8], float (&b)[8], const float*
   b[7] = b1.w;
 }
 
-// Shared-memory tiles of gemm_rows_kernel: A [128][PA] and B [32][PB] (stored
-// [k][n]), kStages of each.
-template <int BN>
-struct RowsTile {
-  static constexpr int PA = kBK + kPad;
-  static constexpr int PB = BN + kPad;
-  static constexpr int kAElems = kBM * PA;
-  static constexpr int kBElems = kBK * PB;
-  static constexpr int kBytes = kStages * (kAElems + kBElems) * 2;
-  // the epilogue stages a [128][BN + pad] output tile in the same memory
-  static_assert(kBM * (BN + kPad) * 2 <= kBytes, "staged tile does not fit");
-};
-
-struct RowsArgs {
-  const bf16* src;    // x [M, Ca]
-  const bf16* w;      // weights [Ca, N]
-  const float* a;     // prologue scale [Ca], or null
-  const float* b;     // prologue shift
-  bf16* out;          // y [M, N]
-  float* part;        // column partials [M tiles, 2, N]: s1, s2
-  int M, N, Ca;       // rows (32-bit: the wrapper bounds M), output channels, input channels
-};
-
-// y [M, N] = xn[M, Ca] w[Ca, N] and the s1/s2 partials of each 128-row tile.
-// Grid: (N / BN, ceil(M / 128)).
-template <int BN, bool APRO>
-__global__ void __launch_bounds__(kThreads) gemm_rows_kernel(RowsArgs p) {
-  constexpr int WN = BN / 2;      // warp tile: 32 rows x WN columns
-  constexpr int NT = WN / 8;      // 8-column MMA tiles per warp
-  using T = RowsTile<BN>;
-  constexpr int PA = T::PA, PB = T::PB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const sA = reinterpret_cast<bf16*>(smem);  // [kStages][kAElems]
-  bf16* const sB = sA + kStages * T::kAElems;       // [kStages][kBElems]
-  __shared__ float red[2][4][BN];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 3, warp_n = warp >> 2;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * kBM;
-  const int steps = p.Ca / kBK;
-  // the two rows whose A chunks this thread copies
-  int rm[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) rm[q] = m0 + ((tid + q * kThreads) >> 2);
-
-  auto load_stage = [&](int step, int buf) {
-    const int c0 = step * kBK;
-    // A: 128 rows x 4 chunks of 8 channels; two chunks a thread (rows past M
-    // zero-filled)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int r = (tid + q * kThreads) >> 2, cc = (tid & 3) * 8;
-      const bool ok = rm[q] < p.M;
-      const bf16* from = ok ? p.src + static_cast<long long>(rm[q]) * p.Ca + c0 + cc : p.src;
-      cp_async16(sA + buf * T::kAElems + r * PA + cc, from, ok);
-    }
-    // B: rows k = c0.., columns n0..
-    constexpr int kChunks = kBK * BN / 8;
-    for (int chunk = tid; chunk < kChunks; chunk += kThreads) {
-      const int k = chunk / (BN / 8), nn = (chunk % (BN / 8)) * 8;
-      const bf16* from = p.w + static_cast<long long>(c0 + k) * p.N + n0 + nn;
-      cp_async16(sB + buf * T::kBElems + k * PB + nn, from, true);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  // kStages - 1 tiles in flight ahead of the one in use; an empty group
-  // keeps the count uniform where no tile is left to copy
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps)
-      load_stage(s, s);
-    else
-      cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step % kStages;
-    cp_async_wait<kStages - 2>();  // this thread's copies of tile `step` landed
-    const bf16* a_tile = sA + buf * T::kAElems;
-    const bf16* b_tile = sB + buf * T::kBElems;
-    if (APRO) {
-      // apply the prologue to this thread's own chunks, but not to the
-      // zero-filled rows past M
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int r = (tid + q * kThreads) >> 2, cc = (tid & 3) * 8;
-        if (rm[q] < p.M) {
-          float av[8], bv[8];
-          load8(av, bv, p.a, p.b, step * kBK + cc);
-          uint4* at = reinterpret_cast<uint4*>(sA + buf * T::kAElems + r * PA + cc);
-          *at = prologue8(*at, av, bv);
-        }
-      }
-    }
-    // tile `step` is complete for every thread, and every warp is done with
-    // tile step - 1, whose buffer the next copy reuses
-    __syncthreads();
-    const int next = step + kStages - 1;
-    if (next < steps)
-      load_stage(next, next % kStages);
-    else
-      cp_async_commit();
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) load_a<PA>(af[mt], a_tile, warp_m * 32 + mt * 16, kc * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        load_bt<PB>(bfr, b_tile, kc * 16, warp_n * WN + np * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  // Epilogue. The pipeline's buffers are free once every warp is past its
-  // last product: the output tile is staged there, so that device memory
-  // sees whole 16-byte row pieces rather than the 4-byte pairs of the MMA
-  // fragments.
-  __syncthreads();
-  constexpr int PC = BN + kPad;  // staged tile [128][PC]
-  bf16* const sC = sA;
-  const int rows_here = p.M - m0 < kBM ? p.M - m0 : kBM;
-
-  // lane 4 g + t holds rows g, g + 8 of each 16-row tile and columns 2t,
-  // 2t + 1 of each 8-column tile
-  const int g = lane >> 2, t4 = lane & 3;
-  float cs1[NT][2], cs2[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) cs1[nt][0] = cs1[nt][1] = cs2[nt][0] = cs2[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rl = warp_m * 32 + mt * 16 + g + half * 8;
-      if (rl >= rows_here) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int cl = warp_n * WN + nt * 8 + 2 * t4;
-        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-        cs1[nt][0] += v0, cs1[nt][1] += v1;
-        cs2[nt][0] += v0 * v0, cs2[nt][1] += v1 * v1;
-        *reinterpret_cast<__nv_bfloat162*>(sC + rl * PC + cl) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kBM * (BN / 8); i += kThreads) {
-    const int r = i / (BN / 8), cc = (i % (BN / 8)) * 8;
-    if (r < rows_here)
-      *reinterpret_cast<uint4*>(p.out + static_cast<long long>(m0 + r) * p.N + n0 + cc) =
-          *reinterpret_cast<const uint4*>(sC + r * PC + cc);
-  }
-  // column sums over the CTA's rows, in a fixed order: the 8 row groups of
-  // the warp by shuffles, then the 4 warps along M through shared memory
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        cs1[nt][e] += __shfl_xor_sync(0xffffffffu, cs1[nt][e], o);
-        cs2[nt][e] += __shfl_xor_sync(0xffffffffu, cs2[nt][e], o);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = warp_n * WN + nt * 8 + 2 * t4 + e;
-        red[0][warp_m][c] = cs1[nt][e];
-        red[1][warp_m][c] = cs2[nt][e];
-      }
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * BN; i += kThreads) {
-    const int which = i / BN, c = i % BN;
-    const float s = ((red[which][0][c] + red[which][1][c]) + red[which][2][c]) + red[which][3][c];
-    p.part[(static_cast<long long>(blockIdx.y) * 2 + which) * p.N + n0 + c] = s;
-  }
-}
-
-// out[c] = sum_{t < T} part[t][c], in a fixed order: each of 16 row groups sums
-// its rows t = ty, ty + 16, ... in turn, then the 16 group sums are added in
-// order. Grid: ceil(C / 32); block (32, 16).
-__global__ void col_reduce_kernel(const float* part, float* out, int T, long long C) {
-  __shared__ float s[16][33];
-  const long long c = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < C)
-    for (int t = threadIdx.y; t < T; t += 16) acc += part[static_cast<long long>(t) * C + c];
-  s[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float r = 0.f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) r += s[k][threadIdx.x];
-    out[c] = r;
-  }
-}
-
 #define RU_TRY(expr)          \
   do {                        \
     const int rc_ = (expr);   \
     if (rc_ != 0) return rc_; \
   } while (0)
 
-int reduce(const float* part, float* out, int T, long long C, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((C + 31) / 32)), block(32, 16);
-  col_reduce_kernel<<<grid, block, 0, st>>>(part, out, T, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The backward's partials: out[c] = sum_{t < T} part[t][c] over C = 4 C4
+// The partials' sums (s1/s2, dw, da/db): out[c] = sum_{t < T} part[t][c] over C = 4 C4
 // columns, in a fixed order: thread (x, y) sums the four columns of float4
 // x over the rows t = y, y + 8, ... in turn, then the 8 row groups' sums are
 // added in order. Block (32, 8).
@@ -461,7 +191,7 @@ __global__ void bwd_reduce_kernel(const float4* part, float4* out, int T, long l
   }
 }
 
-// C is a multiple of 128 (the backward's channel counts are multiples of 64)
+// C: a multiple of 4 (the channel counts are multiples of 64)
 int reduce4(const float* part, float* out, int T, long long C, cudaStream_t st) {
   const long long C4 = C / 4;
   bwd_reduce_kernel<<<static_cast<unsigned>((C4 + 31) / 32), dim3(32, 8), 0, st>>>(
@@ -469,21 +199,8 @@ int reduce4(const float* part, float* out, int T, long long C, cudaStream_t st) 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, bool APRO>
-int launch_rows(const RowsArgs& p, cudaStream_t st) {
-  const auto kernel = gemm_rows_kernel<BN, APRO>;
-  constexpr int bytes = RowsTile<BN>::kBytes;
-  // dynamic shared memory above the default 48 KB is opted into once per kernel
-  static const int attr = static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  RU_TRY(attr);
-  const dim3 grid(p.N / BN, (p.M + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, bytes, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ----------------------------------------------------------------------------
-// backward: wgmma, TMA, warp-specialised (see the note at the top)
+// wgmma, TMA, warp-specialised (see the note at the top)
 // ----------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 384;  // producer warpgroup + 2 consumer warpgroups
@@ -496,9 +213,10 @@ constexpr int kDwStages = 4;
 // named barriers: 1, 2 for one consumer warpgroup, 3 for both
 constexpr int kBarBoth = 3;
 
-enum { kDyc = 0, kDx = 1 };
+// k7_rows_kernel's epilogues: the backward's dyc and dx, the forward's y
+enum { kDyc = 0, kDx = 1, kY = 2 };
 
-struct BwdArgs {
+struct K7Args {
   const bf16* x;      // [M, cin]
   const float* a;     // prologue [cin], or null
   const float* b;
@@ -507,7 +225,10 @@ struct BwdArgs {
   const float* gs2;
   bf16* dyc;          // [M, cout] (three passes)
   bf16* dx;           // [M, cin]
-  float* part_dx;     // da/db partials [CTAs (one pass; dx CTAs / column tiles), 2, cin]
+  // column sums per CTA (CTAs of one column tile share a row): s1/s2 of y
+  // (forward, [CTAs / column tiles, 2, cout]) or da/db (backward, [CTAs
+  // (one pass; dx CTAs / column tiles), 2, cin])
+  float* part_sums;
   float* part_dw;     // dw partials [parts, cin, cout]
   int M, cin, cout;
   int ksplit;  // dw kernel: rows of a split (a multiple of 64)
@@ -538,6 +259,14 @@ __device__ __forceinline__ void mma_ss(float (&d)[BN / 2], uint64_t da, uint64_t
     wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
 }
 
+// The sum of v over the 8 lanes of a warp that share t = lane % 4 (the
+// row groups g of a wgmma accumulator fragment), in a fixed order.
+__device__ __forceinline__ float sum_rows8(float v) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // The prologue, in place, on the 16-byte chunks of a swizzled [rows][64
 // channels] box at shared address `box` (generic pointer `boxp`): a thread
 // takes logical chunk lc (channels c0 + 8 lc, scale and shift in av, bv) of
@@ -557,44 +286,48 @@ __device__ __forceinline__ void prologue_rows(unsigned char* boxp, uint32_t box,
 template <int BN>
 struct RowsSmem {
   static constexpr int a = kBox;          // [128 rows][64 of K]
-  static constexpr int b = 64 * BN * 2;   // [64 of K][BN] (dyc) or [BN][64 of K] (dx)
+  static constexpr int b = 64 * BN * 2;   // [64 of K][BN] (y, dyc) or [BN][64 of K] (dx)
   static constexpr int stage = a + b;
   static constexpr int e = kTileM * BN * 2;  // a tile's epilogue input and output: BN / 64 boxes
   static constexpr int total = 1024 + kRowStages * stage + 2 * e;
 };
 
-// dyc (EPI = kDyc: C = xn w, N = cout, K = cin) or dx (EPI = kDx: C = dyc
-// w^T, N = cin, K = cout), 128 x BN tiles on a persistent grid: CTA k takes
-// tiles k, k + gridDim.x, ... (n fastest: neighbouring CTAs share A's rows),
-// and the producer streams their 64-wide chunks of K through one ring of
-// stages across the tiles, so that a tile's epilogue overlaps the next
-// tile's loads. map_a: boxes [128 rows][64] of x or dyc; map_b: w [cin, cout]
-// in boxes [64 cin][64 cout] (dyc: B = w MN-major, BN / 64 boxes a stage)
-// or [BN cin][64 cout] (dx: B = w^T K-major); map_e: boxes [128 rows][64]
-// of the epilogue's input (dyc: dy; dx with the mask: x), two tiles in
-// flight; map_o: the same boxes of the output (dyc or dx). The epilogue
-// writes the output tile over its input in shared memory, and one thread
-// stores it by TMA. PRO: the prologue (dyc) or the mask and one da/db
-// partial per CTA (dx; row k / nt of part_dx). Grid: a multiple of the nt =
-// N / BN column tiles (or all tiles), so that CTA k always takes column
-// tile k % nt.
+// y (EPI = kY: C = xn w, N = cout, K = cin), dyc (EPI = kDyc: the same
+// product) or dx (EPI = kDx: C = dyc w^T, N = cin, K = cout), 128 x BN
+// tiles on a persistent grid: CTA k takes tiles k, k + gridDim.x, ... (n
+// fastest: neighbouring CTAs share A's rows), and the producer streams
+// their 64-wide chunks of K through one ring of stages across the tiles, so
+// that a tile's epilogue overlaps the next tile's loads. map_a: boxes [128
+// rows][64] of x or dyc; map_b: w [cin, cout] in boxes [64 cin][64 cout]
+// (y, dyc: B = w MN-major, BN / 64 boxes a stage) or [BN cin][64 cout] (dx:
+// B = w^T K-major); map_e: boxes [128 rows][64] of the epilogue's input
+// (dyc: dy; dx with the mask: x; unused by y), two tiles in flight; map_o:
+// the same boxes of the output (y, dyc or dx). The epilogue writes the
+// output tile over its input in shared memory, and one thread stores it by
+// TMA. PRO: the prologue (y, dyc) or the mask (dx). y and the mask sum
+// columns (s1/s2 from the f32 products of the rows below M; da/db) in
+// registers over the CTA's tiles into one partial per CTA (row k / nt of
+// part_sums). Grid: a multiple of the nt = N / BN column tiles (or all
+// tiles), so that CTA k always takes column tile k % nt.
 template <int EPI, bool PRO, int BN>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     k7_rows_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
                    const __grid_constant__ CUtensorMap map_e,
-                   const __grid_constant__ CUtensorMap map_o, BwdArgs p) {
-  constexpr bool kIn = EPI == kDyc || PRO;
+                   const __grid_constant__ CUtensorMap map_o, K7Args p) {
+  constexpr bool kIn = EPI == kDyc || (EPI == kDx && PRO);
   constexpr bool kMask = PRO && EPI == kDx;
+  constexpr bool kSums = kMask || EPI == kY;
+  constexpr bool kMN = EPI != kDx;  // B = w, MN-major
   using Sm = RowsSmem<BN>;
   constexpr int S = kRowStages;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[S], empty[S], full_e[2], empty_e[2];
-  __shared__ float red[kMask ? 8 : 1][2][BN];
+  __shared__ float red[kSums ? 8 : 1][2][BN];
   unsigned char* const smb = align1024(smem);
   const uint32_t base = smem_u32(smb);
   const uint32_t e_u = base + S * Sm::stage;  // tile j's epilogue buffer at + (j & 1) Sm::e
-  const int N = EPI == kDyc ? p.cout : p.cin, K = EPI == kDyc ? p.cin : p.cout;
+  const int N = kMN ? p.cout : p.cin, K = kMN ? p.cin : p.cout;
   const int nk = K / 64, nt = N / BN;
   const int tiles = nt * ((p.M + kTileM - 1) / kTileM);
   const int tid = threadIdx.x;
@@ -639,7 +372,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           const uint32_t st = base + s * Sm::stage;
           mbar_expect_tx(&full[s], Sm::stage);
           tma_2d(st, &map_a, &full[s], 64 * k, m0);
-          if (EPI == kDyc) {
+          if (kMN) {
 #pragma unroll
             for (int q = 0; q < BN / 64; ++q)
               tma_2d(st + Sm::a + q * 64 * 128, &map_b, &full[s], n0 + 64 * q, 64 * k);
@@ -655,11 +388,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int g = lane >> 2, t = lane & 3;
     const int rl = 64 * c + 16 * warp + g;  // tile row of the fragment's first half
     float acc[BN / 2];
-    // the mask's da/db over the CTA's tiles
-    float da[kMask ? BN / 8 : 1][2], db[kMask ? BN / 8 : 1][2];
-    if constexpr (kMask) {
+    // column sums over the CTA's tiles: s1/s2 (y) or da/db (the mask)
+    float su[kSums ? BN / 8 : 1][2], sv[kSums ? BN / 8 : 1][2];
+    if constexpr (kSums) {
 #pragma unroll
-      for (int q = 0; q < BN / 8; ++q) da[q][0] = da[q][1] = db[q][0] = db[q][1] = 0.f;
+      for (int q = 0; q < BN / 8; ++q) su[q][0] = su[q][1] = sv[q][0] = sv[q][1] = 0.f;
     }
     int i = 0, j = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
@@ -668,7 +401,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const int s = i % S;
         const uint32_t st = base + s * Sm::stage;
         mbar_wait(&full[s], (i / S) & 1);
-        if (EPI == kDyc && PRO) {
+        if (kMN && PRO) {
           // this warpgroup's 64 rows of the x chunk: logical chunk ct & 7,
           // rows 64 c + ct / 8 + 16 q
           float av[8], bv[8];
@@ -681,11 +414,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint64_t da = smem_desc(st + 64 * c * 128 + kk * 32, 1, 64);
-          // dyc: w MN-major, 8-row groups of K 1024 bytes apart, the 64-wide
-          // boxes along N 8 KB apart; dx: w^T K-major, 32 bytes per k16
-          const uint64_t db = EPI == kDyc ? smem_desc(st + Sm::a + kk * 16 * 128, 64 * 128 / 16, 64)
-                                          : smem_desc(st + Sm::a + kk * 32, 1, 64);
-          mma_ss<BN, 0, (EPI == kDyc ? 1 : 0)>(acc, da, db, (k | kk) != 0);
+          // y, dyc: w MN-major, 8-row groups of K 1024 bytes apart, the
+          // 64-wide boxes along N 8 KB apart; dx: w^T K-major, 32 bytes per
+          // k16
+          const uint64_t db = kMN ? smem_desc(st + Sm::a + kk * 16 * 128, 64 * 128 / 16, 64)
+                                  : smem_desc(st + Sm::a + kk * 32, 1, 64);
+          mma_ss<BN, 0, (kMN ? 1 : 0)>(acc, da, db, (k | kk) != 0);
         }
         wgmma_commit();
         wgmma_wait<1>();
@@ -699,9 +433,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       // 8 q + 2 t + 1 of the tile; its pair of the buffer sits in box q / 8,
       // row rl (+ 8), 16-byte chunk q % 8 (swizzled), bytes 4 t. Rows past M
       // read zeros (their output is not stored; in dx, A's zero rows make
-      // du zero there).
+      // du zero there); y's rows past M are not zero with the prologue
+      // (relu(b) w), so s1/s2 leave them out.
       const uint32_t eb = e_u + (j & 1) * Sm::e;
       if (kIn) mbar_wait(&full_e[j & 1], (j >> 1) & 1);
+      const bool in_m[2] = {m0 + rl < p.M, m0 + rl + 8 < p.M};
 #pragma unroll
       for (int q = 0; q < BN / 8; ++q) {
         const int col = n0 + 8 * q + 2 * t;
@@ -720,14 +456,19 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
               reinterpret_cast<uint32_t*>(smb + (swz(rowa, 8 * (q & 7)) - base) + 4 * t);
           float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
           const float2 in = kIn ? unpack_bf16(*at) : make_float2(0.f, 0.f);
-          if constexpr (EPI == kDyc) {
+          if constexpr (EPI == kY) {
+            if (in_m[h]) {
+              su[q][0] += v0, su[q][1] += v1;
+              sv[q][0] += v0 * v0, sv[q][1] += v1 * v1;
+            }
+          } else if constexpr (EPI == kDyc) {
             v0 = in.x + f1.x + 2.f * v0 * f2.x;
             v1 = in.y + f1.y + 2.f * v1 * f2.y;
           } else if constexpr (kMask) {
             const float du0 = in.x * f1.x + f2.x > 0.f ? v0 : 0.f;
             const float du1 = in.y * f1.y + f2.y > 0.f ? v1 : 0.f;
-            da[q][0] += du0 * in.x, da[q][1] += du1 * in.y;
-            db[q][0] += du0, db[q][1] += du1;
+            su[q][0] += du0 * in.x, su[q][1] += du1 * in.y;
+            sv[q][0] += du0, sv[q][1] += du1;
             v0 = du0 * f1.x, v1 = du1 * f1.y;
           }
           *at = pack_bf16(v0, v1);
@@ -744,26 +485,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         if (kIn) mbar_arrive(&empty_e[j & 1]);
       }
     }
-    if constexpr (kMask) {
-      // da/db over the CTA's rows (all in one column tile: the grid is a
+    if constexpr (kSums) {
+      // the sums over the CTA's rows (all in one column tile: the grid is a
       // multiple of the column tiles) in a fixed order: the 8 row groups of
       // a warp by shuffles, then the 8 consumer warps through shared memory
 #pragma unroll
       for (int q = 0; q < BN / 8; ++q)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            da[q][e] += __shfl_xor_sync(0xffffffffu, da[q][e], o);
-            db[q][e] += __shfl_xor_sync(0xffffffffu, db[q][e], o);
-          }
+        for (int e = 0; e < 2; ++e) {
+          su[q][e] = sum_rows8(su[q][e]);
+          sv[q][e] = sum_rows8(sv[q][e]);
+        }
       if (g == 0) {
 #pragma unroll
         for (int q = 0; q < BN / 8; ++q)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            red[4 * c + warp][0][8 * q + 2 * t + e] = da[q][e];
-            red[4 * c + warp][1][8 * q + 2 * t + e] = db[q][e];
+            red[4 * c + warp][0][8 * q + 2 * t + e] = su[q][e];
+            red[4 * c + warp][1][8 * q + 2 * t + e] = sv[q][e];
           }
       }
       named_sync(kBarBoth, 256);
@@ -773,7 +512,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         float sum = 0.f;
 #pragma unroll
         for (int w = 0; w < 8; ++w) sum += red[w][which][cc];
-        p.part_dx[(static_cast<long long>(blockIdx.x / nt) * 2 + which) * N + n0 + cc] = sum;
+        p.part_sums[(static_cast<long long>(blockIdx.x / nt) * 2 + which) * N + n0 + cc] = sum;
       }
     }
     if (tid == 128) bulk_wait();  // the last stores have landed
@@ -798,7 +537,7 @@ struct DwSmem {
 template <bool PRO, int BM, int BN>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     k7_dw_kernel(const __grid_constant__ CUtensorMap map_x,
-                 const __grid_constant__ CUtensorMap map_d, BwdArgs p) {
+                 const __grid_constant__ CUtensorMap map_d, K7Args p) {
   using Sm = DwSmem<BM, BN>;
   constexpr int S = kDwStages;
   constexpr bool kSplitRows = BM == 64;
@@ -928,7 +667,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     k7_onepass_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_dy,
                       const __grid_constant__ CUtensorMap map_w,
-                      const __grid_constant__ CUtensorMap map_dx, BwdArgs p) {
+                      const __grid_constant__ CUtensorMap map_dx, K7Args p) {
   static_assert(CIN == 64 || COUT == 64, "one of the channel counts is 64");
   static_assert(!PRO || CIN == 64, "the prologue's da/db stay in registers at cin = 64");
   using Sm = OneSmem<CIN, COUT>;
@@ -1175,12 +914,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            da[j][e] += __shfl_xor_sync(0xffffffffu, da[j][e], o);
-            db[j][e] += __shfl_xor_sync(0xffffffffu, db[j][e], o);
-          }
+        for (int e = 0; e < 2; ++e) {
+          da[j][e] = sum_rows8(da[j][e]);
+          db[j][e] = sum_rows8(db[j][e]);
+        }
       if (g == 0) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -1196,7 +933,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         float sum = 0.f;
 #pragma unroll
         for (int w = 0; w < 8; ++w) sum += red[w][which][cc];
-        p.part_dx[(static_cast<long long>(blockIdx.x) * 2 + which) * CIN + cc] = sum;
+        p.part_sums[(static_cast<long long>(blockIdx.x) * 2 + which) * CIN + cc] = sum;
       }
     }
   }
@@ -1226,19 +963,19 @@ int rows_grid(int N, int BN, int M, int sms) {
 }
 
 template <int EPI, bool PRO, int BN>
-int launch_bwd_rows(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& me,
-                    const CUtensorMap& mo, const BwdArgs& p, int sms, cudaStream_t st) {
+int launch_rows(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& me,
+                const CUtensorMap& mo, const K7Args& p, int sms, cudaStream_t st) {
   const auto kernel = k7_rows_kernel<EPI, PRO, BN>;
   constexpr int bytes = RowsSmem<BN>::total;
   static const int attr = opt_in(kernel, bytes);
   RU_TRY(attr);
-  kernel<<<rows_grid(EPI == kDyc ? p.cout : p.cin, BN, p.M, sms), kBwdThreads, bytes, st>>>(
+  kernel<<<rows_grid(EPI == kDx ? p.cin : p.cout, BN, p.M, sms), kBwdThreads, bytes, st>>>(
       ma, mb, me, mo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool PRO, int BM, int BN>
-int launch_dw(const CUtensorMap& mx, const CUtensorMap& md, const BwdArgs& p, int splits,
+int launch_dw(const CUtensorMap& mx, const CUtensorMap& md, const K7Args& p, int splits,
               cudaStream_t st) {
   const auto kernel = k7_dw_kernel<PRO, BM, BN>;
   constexpr int bytes = DwSmem<BM, BN>::total;
@@ -1249,7 +986,7 @@ int launch_dw(const CUtensorMap& mx, const CUtensorMap& md, const BwdArgs& p, in
 }
 
 template <bool PRO>
-int dw_any(const CUtensorMap& mx, const CUtensorMap& md, const BwdArgs& p, int splits,
+int dw_any(const CUtensorMap& mx, const CUtensorMap& md, const K7Args& p, int splits,
            cudaStream_t st) {
   const bool m128 = p.cin % 128 == 0, n128 = p.cout % 128 == 0;
   if (m128 && n128) return launch_dw<PRO, 128, 128>(mx, md, p, splits, st);
@@ -1259,7 +996,7 @@ int dw_any(const CUtensorMap& mx, const CUtensorMap& md, const BwdArgs& p, int s
 }
 
 template <int CIN, int COUT, bool PRO>
-int launch_onepass(const void* x, const void* w, const BwdArgs& p, cudaStream_t st) {
+int launch_onepass(const void* x, const void* w, const K7Args& p, cudaStream_t st) {
   CUtensorMap mx, mdy, mw, mdx;
   if (!map2d(&mx, x, p.M, CIN, kTileM) || !map2d(&mdy, p.dy, p.M, COUT, kTileM) ||
       !map2d(&mw, w, CIN, COUT, CIN) || !map2d(&mdx, p.dx, p.M, CIN, kTileM))
@@ -1273,7 +1010,7 @@ int launch_onepass(const void* x, const void* w, const BwdArgs& p, cudaStream_t 
 }
 
 // The one pass at the shapes it takes (k7_bwd_plan's choice); -1 elsewhere.
-int onepass_any(const void* x, const void* w, const BwdArgs& p, bool pro, cudaStream_t st) {
+int onepass_any(const void* x, const void* w, const K7Args& p, bool pro, cudaStream_t st) {
   const int key = p.cin * 1000 + p.cout;
   if (pro) {
     switch (key) {
@@ -1293,29 +1030,46 @@ int onepass_any(const void* x, const void* w, const BwdArgs& p, bool pro, cudaSt
   }
 }
 
+// K7's forward: k7_rows_kernel<kY> in 128 x BN tiles (k7_fwd_plan mirrors
+// it); *parts: the s1/s2 partials it writes
+template <bool PRO>
+int launch_fwd(const void* w, void* y, const K7Args& p, int sms, int* parts, cudaStream_t st) {
+  CUtensorMap ma, mb, mo;
+  if (!map2d(&ma, p.x, p.M, p.cin, kTileM) || !map2d(&mb, w, p.cin, p.cout, 64) ||
+      !map2d(&mo, y, p.M, p.cout, kTileM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.cout % 128 == 0) {
+    *parts = rows_grid(p.cout, 128, p.M, sms) / (p.cout / 128);
+    return launch_rows<kY, PRO, 128>(ma, mb, ma, mo, p, sms, st);
+  }
+  *parts = rows_grid(p.cout, 64, p.M, sms) / (p.cout / 64);
+  return launch_rows<kY, PRO, 64>(ma, mb, ma, mo, p, sms, st);
+}
+
 }  // namespace
 
 // Forward of K7.
 //   x [M, cin] bf16 (NHWC rows), w [cin, cout] bf16, a/b [cin] f32 or null,
-//   y [M, cout] bf16, part [ceil(M / 128), 2, cout] f32 scratch, stats [2,
-//   cout] f32 (s1, s2).
+//   y [M, cout] bf16, stats [2, cout] f32 (s1, s2); scratch part [P, 2,
+//   cout] f32, P = rows_grid(cout, BN, M, sms) / (cout / BN) (BN = 128
+//   where it divides cout, else 64): the s1/s2 partials, one per CTA of a
+//   column tile.
 extern "C" int resnet_unit_fwd(const void* x, const void* w, const float* a, const float* b,
                                void* y, float* part, float* stats, int M, int cin, int cout,
-                               void* stream) {
+                               int sms, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RowsArgs p{};
-  p.src = static_cast<const bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
+  if ((a == nullptr) != (b == nullptr) || M < 1 || cin < 64 || cin % 64 != 0 || cout < 64 ||
+      cout % 64 != 0 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K7Args p{};
+  p.x = static_cast<const bf16*>(x);
   p.a = a, p.b = b;
-  p.out = static_cast<bf16*>(y);
-  p.part = part;
-  p.M = M, p.N = cout, p.Ca = cin;
-  const bool n128 = cout % 128 == 0;
-  if (a != nullptr)
-    RU_TRY((n128 ? launch_rows<128, true>(p, st) : launch_rows<64, true>(p, st)));
-  else
-    RU_TRY((n128 ? launch_rows<128, false>(p, st) : launch_rows<64, false>(p, st)));
-  return reduce(part, stats, (M + kBM - 1) / kBM, 2LL * cout, st);
+  p.part_sums = part;
+  p.M = M, p.cin = cin, p.cout = cout;
+  int parts = 0;
+  RU_TRY(a != nullptr ? launch_fwd<true>(w, y, p, sms, &parts, st)
+                      : launch_fwd<false>(w, y, p, sms, &parts, st));
+  return reduce4(part, stats, parts, 2LL * cout, st);
 }
 
 // Backward of K7.
@@ -1340,14 +1094,14 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
   if ((pro && b == nullptr) || M < 1 || cin < 64 || cin % 64 != 0 || cout < 64 ||
       cout % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs p{};
+  K7Args p{};
   p.x = static_cast<const bf16*>(x);
   p.a = a, p.b = b;
   p.dy = static_cast<const bf16*>(dy);
   p.gs1 = gs1, p.gs2 = gs2;
   p.dyc = static_cast<bf16*>(dyc);
   p.dx = static_cast<bf16*>(dx);
-  p.part_dx = part_dx, p.part_dw = part_dw;
+  p.part_sums = part_dx, p.part_dw = part_dw;
   p.M = M, p.cin = cin, p.cout = cout;
   p.ctas = ctas, p.ksplit = ksplit;
   if (ctas > 0) {
@@ -1372,18 +1126,18 @@ extern "C" int resnet_unit_bwd(const void* x, const void* w, const float* a, con
     return static_cast<int>(cudaErrorInvalidValue);
   // 1. dyc, recomputing y
   if (pro)
-    RU_TRY((bn_dyc == 128 ? launch_bwd_rows<kDyc, true, 128>(m_x, m_wy, m_dy, m_dyc, p, sms, st)
-                         : launch_bwd_rows<kDyc, true, 64>(m_x, m_wy, m_dy, m_dyc, p, sms, st)));
+    RU_TRY((bn_dyc == 128 ? launch_rows<kDyc, true, 128>(m_x, m_wy, m_dy, m_dyc, p, sms, st)
+                         : launch_rows<kDyc, true, 64>(m_x, m_wy, m_dy, m_dyc, p, sms, st)));
   else
-    RU_TRY((bn_dyc == 128 ? launch_bwd_rows<kDyc, false, 128>(m_x, m_wy, m_dy, m_dyc, p, sms, st)
-                         : launch_bwd_rows<kDyc, false, 64>(m_x, m_wy, m_dy, m_dyc, p, sms, st)));
+    RU_TRY((bn_dyc == 128 ? launch_rows<kDyc, false, 128>(m_x, m_wy, m_dy, m_dyc, p, sms, st)
+                         : launch_rows<kDyc, false, 64>(m_x, m_wy, m_dy, m_dyc, p, sms, st)));
   // 2. dx (with the mask, da/db partials)
   if (pro)
-    RU_TRY((bn_dx == 128 ? launch_bwd_rows<kDx, true, 128>(m_dyc, m_wx, m_x, m_dx, p, sms, st)
-                        : launch_bwd_rows<kDx, true, 64>(m_dyc, m_wx, m_x, m_dx, p, sms, st)));
+    RU_TRY((bn_dx == 128 ? launch_rows<kDx, true, 128>(m_dyc, m_wx, m_x, m_dx, p, sms, st)
+                        : launch_rows<kDx, true, 64>(m_dyc, m_wx, m_x, m_dx, p, sms, st)));
   else
-    RU_TRY((bn_dx == 128 ? launch_bwd_rows<kDx, false, 128>(m_dyc, m_wx, m_x, m_dx, p, sms, st)
-                        : launch_bwd_rows<kDx, false, 64>(m_dyc, m_wx, m_x, m_dx, p, sms, st)));
+    RU_TRY((bn_dx == 128 ? launch_rows<kDx, false, 128>(m_dyc, m_wx, m_x, m_dx, p, sms, st)
+                        : launch_rows<kDx, false, 64>(m_dyc, m_wx, m_x, m_dx, p, sms, st)));
   // 3. dw partials per row split, then their sum
   if (pro)
     RU_TRY((dw_any<true>(m_xd, m_dd, p, splits, st)));

@@ -203,7 +203,7 @@ def _library():
     path, _ = build_library("resnet_unit", _SOURCES)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
+    lib.resnet_unit_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.resnet_unit_fwd.restype = i
     lib.resnet_unit_bwd.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.resnet_unit_bwd.restype = i
@@ -278,30 +278,35 @@ def _check_channels(rows, cin, cout):
 
 
 def _launch_fwd(x, w, a, b, rows, cin, cout):
+    """K7's forward as ``k7_fwd_plan`` says, then the sum of its s1/s2
+    partials."""
     dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = k7_fwd_plan(rows, cin, cout, a is not None, sms)
     y = torch.empty((rows, cout), device=dev, dtype=torch.bfloat16)
-    part = torch.empty((-(-rows // _ROW_TILE), 2, cout), device=dev,
+    part = torch.empty((plan["parts"], 2, cout), device=dev,
                        dtype=torch.float32)
     stats = torch.empty((2, cout), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().resnet_unit_fwd(
             x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), rows, cin, cout, stream)
+            part.data_ptr(), stats.data_ptr(), rows, cin, cout, sms, stream)
     if rc != 0:
         raise RuntimeError(f"resnet_unit forward launch failed: CUDA error "
                            f"{rc}")
     return y, stats[0], stats[1]
 
 
-# -- K7's backward: the plan -------------------------------------------------
+# -- K7: the plans -----------------------------------------------------------
 #
-# resnet_unit.cu mirrors these: two designs (its header note says how each
-# works), the tiles and stages of each kernel, and the shared memory a
-# block takes (dynamic from a 1024-byte boundary, plus static).
+# resnet_unit.cu mirrors these: the forward's kernel and the
+# backward's two designs (its header note says how each works), the tiles
+# and stages of each kernel, and the shared memory a block takes (dynamic
+# from a 1024-byte boundary, plus static).
 
 _SMEM_BLOCK = 232448         # shared memory an H100 block can use
-_BWD_ROW_STAGES = 4          # k7_rows_kernel's ring of 64-wide chunks
+_ROW_STAGES = 4              # k7_rows_kernel's ring of 64-wide chunks
 _BWD_DW_ROWS = 64            # rows of a k7_dw_kernel chunk
 _BWD_DW_STAGES = 4
 _BARRIERS = 8 * 16           # the kernels' mbarriers, rounded up
@@ -330,6 +335,59 @@ def _rows_grid(n, bn, rows, sms):
     nt = n // bn
     tiles = nt * -(-rows // _ROW_TILE)
     return tiles if tiles <= sms else sms // nt * nt
+
+
+def _rows_smem(bn, sums):
+    """k7_rows_kernel's shared memory (bytes, static included) at tile
+    width ``bn``: the ring, two tiles' epilogue buffers and, where it
+    keeps column sums (s1/s2, da/db), their reduction over warps."""
+    return (1024 + _ROW_STAGES * (_ROW_TILE * 128 + 64 * bn * 2)
+            + 2 * _ROW_TILE * bn * 2 + (8 if sums else 1) * 2 * bn * 4
+            + _BARRIERS)
+
+
+def k7_fwd_plan(rows, cin, cout, prologue, sms):
+    """K7's forward at one shape (resnet_unit.cu's launch_fwd):
+    k7_rows_kernel in 128 x ``bn`` tiles (``bn`` = 128 where it divides
+    cout, else 64) on ``_rows_grid``'s persistent grid of ``ctas`` CTAs
+    over ``nt`` column tiles (CTA k takes the tiles k, k + ctas, ..., all
+    in column tile k % nt), ``parts`` s1/s2 partials (one per CTA of a
+    column tile; partial p owns the 128-row tiles p, p + parts, ...), and
+    its shared memory (bytes, static included). Neither cin nor the
+    prologue changes the plan."""
+    del cin, prologue
+    bn = _tile_n(cout)
+    ctas = _rows_grid(cout, bn, rows, sms)
+    return dict(bn=bn, nt=cout // bn, ctas=ctas, parts=ctas // (cout // bn),
+                smem=_rows_smem(bn, True))
+
+
+def conv1x1_bn_fwd_tiles_reference(x2d, w, a=None, b=None, *, sms):
+    """K7's forward the kernels' way, in plain PyTorch, for the tests:
+    128-row tiles (the last one padded with zero rows, as TMA fills it),
+    the prologue applied to every row of a tile, y from the f32 products,
+    s1/s2 per partial k of ``k7_fwd_plan``'s over its tiles k, k + parts,
+    ... with the rows past the end left out (with the prologue their y is
+    relu(b) w, not zero), and the partials summed in bwd_reduce_kernel's
+    order. Same contract as :func:`conv1x1_bn_fwd_reference`."""
+    rows, cin = x2d.shape
+    cout = w.shape[1]
+    plan = k7_fwd_plan(rows, cin, cout, a is not None, sms)
+    parts = plan["parts"]
+    tiles = -(-rows // _ROW_TILE)
+    y = torch.empty(rows, cout, dtype=x2d.dtype)
+    part = torch.zeros(parts, 2, cout)
+    for k in range(parts):
+        for tile in range(k, tiles, parts):
+            r0 = tile * _ROW_TILE
+            here = min(_ROW_TILE, rows - r0)
+            xs = F.pad(x2d[r0:r0 + here], (0, 0, 0, _ROW_TILE - here))
+            y32 = _prologue(xs, a, b)[0].float() @ w.float()
+            y[r0:r0 + here] = y32[:here].to(x2d.dtype)
+            part[k, 0] += y32[:here].sum(0)
+            part[k, 1] += (y32[:here] * y32[:here]).sum(0)
+    s1, s2 = _col_reduce(part)
+    return y, s1, s2
 
 
 def k7_bwd_plan(rows, cin, cout, prologue, sms, one_pass=None):
@@ -371,30 +429,26 @@ def k7_bwd_plan(rows, cin, cout, prologue, sms, one_pass=None):
     want = max(1, sms // dw_tiles)
     ksplit = _up(-(-rows // want), _BWD_DW_ROWS)
 
-    def rows_smem(bn, red):
-        # the ring, two tiles' epilogue buffers, the da/db sums
-        return (1024 + _BWD_ROW_STAGES * (_ROW_TILE * 128 + 64 * bn * 2)
-                + 2 * _ROW_TILE * bn * 2 + red * 2 * bn * 4 + _BARRIERS)
     return dict(
         design="three_pass", bn_dyc=bn_dyc, bn_dx=bn_dx, dw_tile=dw_tile,
         dyc_ctas=_rows_grid(cout, bn_dyc, rows, sms),
         dx_ctas=_rows_grid(cin, bn_dx, rows, sms),
         dadb_parts=_rows_grid(cin, bn_dx, rows, sms) // (cin // bn_dx),
         splits=-(-rows // ksplit), ksplit=ksplit,
-        smem=dict(dyc=rows_smem(bn_dyc, 1),
-                  dx=rows_smem(bn_dx, 8 if prologue else 1),
+        smem=dict(dyc=_rows_smem(bn_dyc, False),
+                  dx=_rows_smem(bn_dx, prologue),
                   dw=1024 + _BWD_DW_STAGES * _BWD_DW_ROWS
                   * (dw_tile[0] + dw_tile[1]) * 2 + _BARRIERS))
 
 
 def _col_reduce(parts):
-    """``parts.sum(0)`` in col_reduce_kernel's order: 16 row groups each
-    sum their rows t = ty, ty + 16, ... in turn, then the group sums are
-    added in order."""
+    """``parts.sum(0)`` in bwd_reduce_kernel's order, the one every
+    partial of K7 is summed in: 8 row groups each sum their rows t = ty,
+    ty + 8, ... in turn, then the group sums are added in order."""
     groups = []
-    for ty in range(16):
+    for ty in range(8):
         acc = torch.zeros_like(parts[0])
-        for t in range(ty, parts.shape[0], 16):
+        for t in range(ty, parts.shape[0], 8):
             acc = acc + parts[t]
         groups.append(acc)
     out = groups[0]
@@ -411,7 +465,7 @@ def conv1x1_bn_bwd_onepass_reference(x2d, w, a, b, gy, gs1, gs2, *, ctas):
     dw use it, dx (through the mask) per tile; dw summed per CTA over its
     tiles (at 64 x 64 per consumer warpgroup: rows 0-63 and 64-127 of
     each tile apart), da/db per CTA; the partials summed in
-    col_reduce_kernel's order. Same contract as
+    bwd_reduce_kernel's order. Same contract as
     :func:`conv1x1_bn_bwd_reference`."""
     rows, cin = x2d.shape
     cout = w.shape[1]

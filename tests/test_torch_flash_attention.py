@@ -99,6 +99,51 @@ def _jax_lse(ref, q, k, v, causal, scale):
     return lse.reshape(b, h, sq)
 
 
+def _f64_attention(x, causal, scale):
+    """out, dq, dk, dv and lse ``[b, h, sq]`` of the same inputs in f64
+    numpy: softmax attention (query head i reads key/value head i // g)
+    and its gradient from ``dout``; causal cases have sq == sk."""
+    q, k, v, do = (x[n].astype(np.float64) for n in ("q", "k", "v", "dout"))
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    kh, vh = (np.repeat(t, h // kv, axis=2) for t in (k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", q, kh) * scale
+    if causal:
+        assert sq == sk
+        s = np.where(np.tril(np.ones((sq, sk), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    p /= l
+    dp = np.einsum("bqhd,bkhd->bhqk", do, vh)
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+
+    def per_kv(t):   # [b, sk, h, d] summed over each key/value head's group
+        return t.reshape(b, sk, kv, h // kv, d).sum(3)
+    return dict(out=np.einsum("bhqk,bkhd->bqhd", p, vh),
+                dq=np.einsum("bhqk,bkhd->bqhd", ds, kh) * scale,
+                dk=per_kv(np.einsum("bhqk,bqhd->bkhd", ds, q) * scale),
+                dv=per_kv(np.einsum("bhqk,bqhd->bkhd", p, do)),
+                lse=(m + np.log(l))[..., 0])
+
+
+def _assert_close_or_name_the_side(got, want, name, x, causal, scale):
+    """``assert_allclose(got, want)`` at ATOL/RTOL; where it fails, the
+    message also gives each side's largest error against the f64
+    reference of the same inputs, so that a failing run names the side
+    that moved."""
+    try:
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+    except AssertionError as e:
+        exact = _f64_attention(x, causal, scale)[name]
+        raise AssertionError(
+            f"{e}\n{name} against an f64 reference of the same inputs: "
+            f"port max abs err {float(np.abs(got - exact).max())}, JAX "
+            f"{float(np.abs(np.asarray(want, np.float64) - exact).max())}"
+        ) from None
+
+
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])
 def test_flash_plain_matches_pallas(ref, case):
     """out, lse, dq, dk and dv of the port's plain flash attention equal
@@ -120,12 +165,12 @@ def test_flash_plain_matches_pallas(ref, case):
     *want, want_lse = ref.jax.jit(jax_side)(
         *(jnp.asarray(x[n]) for n in ("q", "k", "v", "dout")))
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=RTOL,
-                                   err_msg=name)
+        _assert_close_or_name_the_side(g, np.asarray(w), name, x, causal,
+                                       scale)
     _, lse = hop_fa.flash_attention_fwd_reference(
         *(torch.from_numpy(x[n]) for n in "qkv"), causal, scale)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL,
-                               rtol=RTOL)
+    _assert_close_or_name_the_side(lse.numpy(), np.asarray(want_lse), "lse",
+                                   x, causal, scale)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])

@@ -272,6 +272,84 @@ def test_conv1x1_bn_bwd_onepass_model_matches_plain(case):
             _close(g, wnt.numpy(), name)
 
 
+@pytest.mark.parametrize("shape", K7_BWD_SHAPES)
+def test_k7_fwd_plan_fits_shared_memory(shape):
+    """K7's forward kernel fits an H100 block's 227 KB of shared memory
+    (dynamic, from a 1024-byte boundary, and static) at every shape."""
+    rows, cin, cout, pro = shape
+    plan = hop_ru.k7_fwd_plan(rows, cin, cout, pro, sms=132)
+    assert plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("shape", K7_BWD_SHAPES)
+def test_k7_fwd_grid_covers_every_tile_once(shape):
+    """The forward's persistent grid: at most one CTA per SM, a multiple
+    of the column tiles (or every tile), so that CTA k stays in column
+    tile k % nt; CTA k's tiles k, k + ctas, ... cover every (row tile,
+    column tile) once, and the CTAs of partial p = k // nt own the row
+    tiles p, p + parts, ... that the tiles model sums."""
+    rows, cin, cout, pro = shape
+    plan = hop_ru.k7_fwd_plan(rows, cin, cout, pro, sms=132)
+    tiles, nt, ctas = -(-rows // 128), plan["nt"], plan["ctas"]
+    assert nt * plan["bn"] == cout and plan["bn"] in (64, 128)
+    assert 1 <= ctas <= 132 and ctas % nt == 0
+    assert plan["parts"] == ctas // nt
+    seen = {}
+    for k in range(ctas):
+        mine = range(k, nt * tiles, ctas)
+        assert {t % nt for t in mine} <= {k % nt}
+        assert [t // nt for t in mine] == list(
+            range(k // nt, tiles, plan["parts"]))
+        for t in mine:
+            seen[t] = seen.get(t, 0) + 1
+    assert sorted(seen) == list(range(nt * tiles))
+    assert set(seen.values()) == {1}
+
+
+K7_FWD_TILE_CASES = {
+    # (rows, cin, cout, prologue, sms): ragged last tiles (the prologue
+    # makes their padding rows relu(b) w, which s1/s2 must leave out);
+    # 128-wide tiles over 3 partials of 2 column tiles and over 2 of 4,
+    # 64-wide tiles over 5 partials
+    "r1000_64x256_prologue_s6": (1000, 64, 256, True, 6),
+    "r1000_64x256_s6": (1000, 64, 256, False, 6),
+    "r300_128x512_prologue_s8": (300, 128, 512, True, 8),
+    "r300_128x512_s8": (300, 128, 512, False, 8),
+    "r700_256x64_s5": (700, 256, 64, False, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_FWD_TILE_CASES))
+def test_conv1x1_bn_fwd_tiles_model_matches_plain(case):
+    """The plain model of the forward kernel's schedule (padded tiles,
+    s1/s2 per partial over its tiles without the rows past the end, the
+    fixed-order sum) equals the plain forward in f32, with a shift b
+    whose relu is not zero."""
+    rows, cin, cout, pro, sms = K7_FWD_TILE_CASES[case]
+    x, w, a, b, _, _, _ = _inputs(np.random.RandomState(rows + cout),
+                                  (rows,), cin, cout, pro, (cin, cout))
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    a, b = (None, None) if a is None else map(torch.from_numpy, (a, b))
+    assert hop_ru.k7_fwd_plan(rows, cin, cout, pro, sms)["parts"] > 1
+    got = hop_ru.conv1x1_bn_fwd_tiles_reference(x, w, a, b, sms=sms)
+    want = hop_ru.conv1x1_bn_fwd_reference(x, w, a, b)
+    for name, g, wnt in zip(("y", "s1", "s2"), got, want):
+        _close(g, wnt.numpy(), name)
+
+
+def test_conv1x1_bn_fwd_tiles_model_matches_pallas(ref):
+    """The forward kernel's schedule against the JAX package's Pallas
+    forward (interpret mode): layer 1 unit b's channels with the
+    prologue, over 3 partials."""
+    x, w, a, b, cy, c1, c2 = _inputs(np.random.RandomState(5), (384,), 64,
+                                     256, True, (64, 256))
+    want, _ = ref["k7"](x, w, a, b, cy, c1, c2)
+    got = hop_ru.conv1x1_bn_fwd_tiles_reference(
+        *map(torch.from_numpy, (x, w, a, b)), sms=6)
+    for name, g, wnt in zip(("y", "s1", "s2"), got, want):
+        _close(g, wnt, name)
+
+
 def _window_pos(h, w, band, pitch, slot):
     """The image position whose window ``slot`` of ``band`` holds (dyc
     for the backward, xn for the forward), or None where it is zero, as
@@ -532,6 +610,33 @@ def test_conv1x1_bn_bwd_kernel_matches_plain_and_repeats(cuda, case):
         if wnt is None:
             assert g is None
             continue
+        assert torch.equal(g, r), f"{name}: two calls differ"
+        _card_close(g, wnt, name)
+
+
+K7_FWD_CARD_CASES = {
+    # (rows, cin, cout, prologue): ragged rows (a last 128-row tile of
+    # 104) with the prologue, whose padding rows s1/s2 must leave out, at
+    # both tile widths
+    "r1000_64x256_prologue": (1000, 64, 256, True),
+    "r1000_128x512_prologue": (1000, 128, 512, True),
+    "r1000_192x320_tiles64": (1000, 192, 320, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K7_FWD_CARD_CASES))
+def test_conv1x1_bn_fwd_kernel_ragged_matches_plain_and_repeats(cuda, case):
+    """K7's forward against the plain version at ragged rows; two calls give equal bits (one s1/s2 partial
+    per CTA, summed in a fixed order)."""
+    rows, cin, cout, pro = K7_FWD_CARD_CASES[case]
+    x, w, a, b, _, _, _ = _card_case(cuda, (rows,), cin, cout, pro,
+                                     (cin, cout), 23)
+    got = hop_ru.conv1x1_bn_fwd_cuda(x, w, a, b)
+    again = hop_ru.conv1x1_bn_fwd_cuda(x, w, a, b)
+    want = hop_ru.conv1x1_bn_fwd_reference(x, w, a, b)
+    torch.cuda.synchronize()
+    for name, g, r, wnt in zip(("y", "s1", "s2"), got, again, want):
         assert torch.equal(g, r), f"{name}: two calls differ"
         _card_close(g, wnt, name)
 
