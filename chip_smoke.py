@@ -33,21 +33,33 @@ version at the main path's four K7 shapes and at ragged rows for each
 design (one pass, three passes), two calls bitwise equal, the times
 beside ``convolution_backward``, the plain version and the bound, and
 the device ms of each part (one pass; dyc, dx, dw; reductions).
+``python3 chip_smoke.py --norms [--root DIR]`` is the same loop for K6
+(RMSNorm forward) and K9 (BatchNorm statistics): the builds' ptxas
+report, every check of phases 3 and 10 on both kernels (K6 at its three
+main shapes, in f32 and f16, at widths 2048, 8192, one that is not a
+multiple of 8 and one above 8192; K9 at its four main shapes and the
+ragged, 8-row, 128-channel and f16 cases), two calls bitwise equal, the
+times back to back and by CUDA-graph replay beside the library call,
+the plain version and the bound, and the wrapper's host microseconds per
+call.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
 
 1. Device: name, count, ``nvidia-smi`` name and power limit; build the
    kernels from the checkout's sources (one nvcc per CUDA source, all
-   four started together, while Triton compiles K6 and K9).
+   six started together).
 2. K5 (ragged paged attention, CUDA) against its plain version on the
    same bf16 pool: decode at mixed depths with an idle row, prefill at
    position 0 and 256, a ragged 100-row chunk, GQA decode, decode at
    phase 7's depths, rows whose horizon ends one column before, on and
    after a span boundary with the full table and an idle row, and an f32
    pool; two calls give equal bits (the fixed-order merge).
-3. K6 (RMSNorm forward, Triton) against its plain version, bf16; the
-   RMSNorm autograd Function's dx/dw on the card against plain autograd.
+3. K6 (RMSNorm forward, CUDA) against its plain version: 8, 128 and
+   8192 rows x 4096 in bf16, f32 and f16 at 128 x 4096, widths 2048,
+   8192, 4100 (not a multiple of 8) and 16384 (the shared-memory path),
+   two calls bitwise equal; the RMSNorm autograd Function's dx/dw on the
+   card against plain autograd.
 4. The flash-attention forward, dq and dkv kernels (CUDA) against their
    plain versions: out, lse, dq, dk, dv for causal s=4096 bf16 (the
    training shape), causal s=1024 f32, GQA 32/8, non-causal 256 x 1024,
@@ -56,7 +68,8 @@ the run with a non-zero exit code and no result line:
    backward call gives equal bits.
 5. Timings of every kernel with CUDA events: kernel, plain version, one
    PyTorch library call for the same function, and the bound (K6 also by
-   CUDA-graph replay, and at the training shape, 8192 x 4096).
+   CUDA-graph replay, at the training shape, 8192 x 4096, and as the
+   wrapper's host microseconds per call).
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
    tokens (kernels) equal dense ``generate`` tokens.
 7. Serving at full Llama-2-7B (bf16, 32 layers): 8 requests through the
@@ -73,14 +86,16 @@ the run with a non-zero exit code and no result line:
    time, tokens/s, MFU, peak memory, exact launch counts per step, a
    falling loss; then a torch.profiler window as for serving.
 10. K7 and K8 (fused conv + BatchNorm, CUDA) forward and backward and
-    K9 (BatchNorm statistics, Triton) against their plain versions at
+    K9 (BatchNorm statistics, CUDA) against their plain versions at
     ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
     (layer 1's second 1x1, 64 -> 256, and layer 2's, 128 -> 512) and
     without (layer 4's first, 2048 -> 512, and layer 3's, 1024 -> 256;
     its backward twice, for equal bits), K8 at layer 1 (56^2, 64),
     layer 3 (14^2, 256) and layer 2 (28^2, 128) (its forward also
-    twice, for equal bits), K9 at 802,816 x 256 and 12,544 x 2048; then
-    their timings beside a PyTorch call and the bound, and K7's and
+    twice, for equal bits), K9 at its four main shapes (802,816 x 256 to
+    12,544 x 2048) and at ragged rows, 8 rows, 128 channels and f16 (each
+    twice, for equal bits); then their timings beside a PyTorch call and
+    the bound (K9 also by CUDA-graph replay), and K7's and
     K8's device time by part (K7: forward, backward one pass or dyc, dx,
     dw, reductions; K8 forward: band kernel, reduction; K8 backward:
     dyc, dw, dx, reductions).
@@ -125,9 +140,10 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # K5: both sides accumulate in f32 over the same bf16 pool; only the
 # order of summation differs
 K5_ATOL = K5_RTOL = 1e-3
-# K6: two bf16 ulps on the output (one rounding each side plus order),
-# f32 rstd to 1e-5
-K6_ATOL = K6_RTOL = 1.6e-2
+# K6 against its plain version, both in f32 over the same inputs: the
+# output to two ulps of its dtype (one rounding each side plus the order
+# of the row's sum) as atol and rtol alike, f32 to 1e-5; f32 rstd to 1e-5
+K6_TOL = {torch.bfloat16: 1.6e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 K6_RSTD_RTOL = 1e-5
 
 # flash attention: f32 sums in other orders on both sides
@@ -160,6 +176,14 @@ TRAIN_TRAJ_RTOL = 1e-4
 
 # K6 at the training shape: batch 2 x 4096 tokens
 K6_TRAIN_ROWS = 8192
+# K6 beyond the main path's shapes (rows, h, dtype): f32 and f16, widths
+# 2048 and 8192 (the widest row held in registers), 1000 in f32 (a masked
+# tail of 16-byte packs), 4100 (not a multiple of 8: element by element),
+# 16384 and 32768 (the widest, in f32) staged in shared memory
+K6_EXTRA_CASES = [(128, 4096, torch.float32), (128, 4096, torch.float16),
+                  (128, 2048, torch.bfloat16), (128, 8192, torch.bfloat16),
+                  (64, 1000, torch.float32), (128, 4100, torch.bfloat16),
+                  (64, 16384, torch.bfloat16), (8, 32768, torch.float32)]
 LLAMA_LAYERS = 32
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
@@ -239,24 +263,17 @@ def phase_device():
 
 
 def phase_build():
-    """One nvcc per CUDA source, in worker threads, while Triton compiles
-    K6 by launching it once; all must succeed."""
+    """One nvcc per CUDA source, all started together in worker threads;
+    all must succeed."""
     from paddle_tpu_torch.ops.hopper import (bn_stats, flash_attention,
                                              paged_attention, resnet_unit,
                                              rms_norm)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        nvcc = [pool.submit(paged_attention.build),
-                pool.submit(flash_attention.build),
-                pool.submit(resnet_unit.build),
-                pool.submit(resnet_unit.build_conv3x3)]
-        x = torch.ones(8, 4096, device="cuda", dtype=torch.bfloat16)
-        rms_norm.rms_norm_cuda(x, x[0], 1e-5)
-        bn_stats.bn_stats_cuda(x)
-        torch.cuda.synchronize()
-        t_triton = time.perf_counter() - t0
-        nvcc_logs = [f.result() for f in nvcc]
+    builds = (paged_attention.build, flash_attention.build, resnet_unit.build,
+              resnet_unit.build_conv3x3, rms_norm.build, bn_stats.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        nvcc_logs = list(pool.map(lambda build: build(), builds))
     t_all = time.perf_counter() - t0
     for nvcc_log in nvcc_logs:
         for line in nvcc_log.splitlines():
@@ -264,8 +281,7 @@ def phase_build():
                 log(f"[build] ptxas: {line.split(chr(39))[1]}")
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] seconds={t_all} (triton K6 and K9 first launches "
-        f"{t_triton})")
+    log(f"[build] seconds={t_all}")
 
 
 # -- phase 2 and 5: K5 --------------------------------------------------------
@@ -567,43 +583,94 @@ def k5_sweep(results, widths=(0, 64, 128, 256, 512)):
 
 # -- phase 3 and 5: K6 --------------------------------------------------------
 
-def phase_k6():
+def host_us(fn, calls=100, rounds=5):
+    """Host microseconds per call of ``fn`` (enqueue only: the calls run
+    back to back without a synchronise, well inside the launch queue):
+    (least, median, every round) of ``rounds`` rounds of ``calls``."""
+    us = []
+    for _ in range(rounds):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return min(us), sorted(us)[len(us) // 2], us
+
+
+def k6_inputs(gen, rows, h, dtype):
+    x = torch.randn(rows, h, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dtype)
+    return x, w
+
+
+def k6_check(name, x, w):
+    """K6 against its plain version on (x, w), called twice for equal
+    bits. Returns (max_abs_err of out, a failure message or None)."""
     from paddle_tpu_torch.ops.hopper.rms_norm import (rms_norm_cuda,
                                                       rms_norm_reference)
 
+    out, rstd = rms_norm_cuda(x, w, 1e-5)
+    out2, rstd2 = rms_norm_cuda(x, w, 1e-5)
+    want, want_r = rms_norm_reference(x, w, 1e-5)
+    torch.cuda.synchronize()
+    tol = K6_TOL[x.dtype]
+    err = (out.float() - want.float()).abs()
+    max_err = float(err.max())
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (err <= tol + tol * want.float().abs()).all())
+    rstd_ok = bool(((rstd - want_r).abs() <= K6_RSTD_RTOL
+                    * want_r.abs()).all())
+    same = torch.equal(out, out2) and torch.equal(rstd, rstd2)
+    log(f"[k6] {name} max_abs_err={max_err} tol=atol {tol} rtol {tol} "
+        f"ok={ok} rstd_rtol {K6_RSTD_RTOL} rstd_ok={rstd_ok} "
+        f"bitwise_equal={same}")
+    if ok and rstd_ok and same:
+        return max_err, None
+    return max_err, (f"K6 {name}: kernel disagrees with the plain version"
+                     f" (out ok={ok}, rstd ok={rstd_ok}, equal bits={same})")
+
+
+def k6_cases():
+    """(name, rows, h, dtype, main): the main path's three shapes (timed)
+    and K6_EXTRA_CASES."""
+    cases = [(f"rows{rows}_h4096", rows, 4096, torch.bfloat16, True)
+             for rows in (8, 128, K6_TRAIN_ROWS)]
+    cases += [(f"rows{rows}_h{h}_{str(dt).split('.')[-1]}", rows, h, dt,
+               False) for rows, h, dt in K6_EXTRA_CASES]
+    return cases
+
+
+def phase_k6(failures=None):
+    """K6 at every case of :func:`k6_cases`. A failure ends the run, or,
+    given a ``failures`` list, is added to it."""
     gen = torch.Generator(device="cuda").manual_seed(99)
     results = {}
-    for rows in (8, 128, K6_TRAIN_ROWS):
-        x = torch.randn(rows, 4096, device="cuda", generator=gen).bfloat16()
-        w = (1 + 0.1 * torch.randn(4096, device="cuda",
-                                   generator=gen)).bfloat16()
-        out, rstd = rms_norm_cuda(x, w, 1e-5)
-        want, want_r = rms_norm_reference(x, w, 1e-5)
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs()
-        max_err = float(err.max())
-        ok = bool((err <= K6_ATOL + K6_RTOL * want.float().abs()).all())
-        rstd_ok = bool(((rstd - want_r).abs()
-                        <= K6_RSTD_RTOL * want_r.abs()).all())
-        log(f"[k6] rows={rows} h=4096 bf16 max_abs_err={max_err} "
-            f"tol=atol {K6_ATOL} rtol {K6_RTOL} ok={ok} "
-            f"rstd_rtol {K6_RSTD_RTOL} rstd_ok={rstd_ok}")
-        check(ok and rstd_ok, f"K6 rows={rows}: kernel disagrees with the "
-              f"plain version")
-        results[f"rows{rows}_h4096"] = dict(x=x, w=w, max_err=max_err)
+    for name, rows, h, dtype, main in k6_cases():
+        x, w = k6_inputs(gen, rows, h, dtype)
+        max_err, failure = k6_check(name, x, w)
+        if failures is None:
+            check(failure is None, failure)
+        elif failure:
+            failures.append(failure)
+        results[name] = dict(x=x, w=w, max_err=max_err, main=main)
     return results
 
 
 def time_k6(results):
-    """K6 beside F.rms_norm, the plain version and the bound: back to
-    back (``ms``) and by CUDA-graph replay (``graph_ms``, K6 and the
-    library call alike), which leaves out the host's launch cost (for K6,
-    Triton's Python launcher)."""
+    """K6 at the main shapes beside F.rms_norm, the plain version and the
+    bound: back to back (``ms``) and by CUDA-graph replay (``graph_ms``,
+    K6 and the library call alike), which leaves out the host's launch
+    cost, and the wrapper's host microseconds per call."""
     from paddle_tpu_torch.ops.hopper.rms_norm import (rms_norm_cuda,
                                                       rms_norm_reference)
 
     lib = getattr(torch.nn.functional, "rms_norm", None)
     for name, r in results.items():
+        if not r["main"]:
+            continue
         x, w = r["x"], r["w"]
         rows, h = x.shape
         el = x.element_size()
@@ -621,11 +688,15 @@ def time_k6(results):
             lambda: lib(x, (h,), w, 1e-5), iters=100))
         r["library_graph_ms"] = (None if lib is None else time_ms_graph(
             lambda: lib(x, (h,), w, 1e-5), iters=100))
+        us_min, us_med, us = host_us(lambda: rms_norm_cuda(x, w, 1e-5))
+        r["host_us"] = us_min
         log(f"[time] k6 {name} ms={r['ms']} graph_ms={r['graph_ms']} "
             f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
             f"library_graph_ms={r['library_graph_ms']} bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}) bound_share="
             f"{r['bound_ms'] / r['graph_ms']}")
+        log(f"[k6-host] {name} host_us_per_call min={us_min} "
+            f"median={us_med} rounds={us}")
 
 
 def phase_k6_grad():
@@ -1318,7 +1389,7 @@ RESNET_LAUNCHES = dict(k7_fwd=32, k7_bwd=32, k8_fwd=11, k8_bwd=11, k9=4)
 # 2e-7 to 4e-6 (limit 2e-5); dw reads 2e-6 to 4.3e-5, the most in K8's
 # layer-1 case, whose nine taps each sum 802,816 rows (limit 2e-4). A
 # kernel that drops one partial sum of its deterministic reduction is
-# off by more: one of K9's 1,568 row partials by ~6e-4, one of K7's
+# off by more: one of K9's 523 row partials by ~2e-3, one of K7's
 # forward's per-CTA partials of s2 (at most one per SM) by about its share
 # of the rows, ~1/132.
 RU_BF16_REL = 2.0 ** -7
@@ -1353,7 +1424,20 @@ RU_CASES = [
     ("conv3x3_layer3_256x14x14x256", "k8", dict(n=256, h=14, w=14, c=256)),
     ("conv3x3_layer2_256x28x28x128", "k8", dict(n=256, h=28, w=28, c=128)),
 ]
-K9_CASES = [("rows802816_c256", 802816, 256), ("rows12544_c2048", 12544, 2048)]
+# K9 (name, rows, c, dtype, main): the main path's four shapes (the
+# downsample BatchNorms of layers 1-4, timed), then ragged rows (a last
+# row range of 8 rows, under one 32-row group), 8 rows, 128-channel
+# strips and f16
+K9_CASES = [
+    ("rows802816_c256", 802816, 256, torch.bfloat16, True),
+    ("rows200704_c512", 200704, 512, torch.bfloat16, True),
+    ("rows50176_c1024", 50176, 1024, torch.bfloat16, True),
+    ("rows12544_c2048", 12544, 2048, torch.bfloat16, True),
+    ("rows1000_c256", 1000, 256, torch.bfloat16, False),
+    ("rows8_c256", 8, 256, torch.bfloat16, False),
+    ("rows12544_c128", 12544, 128, torch.bfloat16, False),
+    ("rows50176_c1024_f16", 50176, 1024, torch.float16, False),
+]
 
 
 def _bound(nbytes, ops_by_type):
@@ -1419,11 +1503,9 @@ def _rel_err(got, want):
 
 def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES, backward=True):
     """K7 and K8 (forward and, with ``backward``, backward) and K9 against
-    their plain versions at ResNet-50 shapes; K8's forward and K7's
-    backward twice, for equal bits. The backward versions both take the
-    plain forward's y."""
-    from paddle_tpu_torch.ops.hopper import bn_stats as bn
-
+    their plain versions at ResNet-50 shapes; K8's forward, K7's
+    backward and K9 twice, for equal bits. The backward versions both take
+    the plain forward's y."""
     gen = torch.Generator(device="cuda").manual_seed(2024)
     results = {}
     for name, kind, shape in cases:
@@ -1460,22 +1542,39 @@ def phase_resnet_kernels(cases=RU_CASES, k9_cases=K9_CASES, backward=True):
         results[name] = dict(kind=kind, shape=shape, case=c, y=want[0],
                              errs=errs)
         del got, gotb, wantb
-    for name, rows, ch in k9_cases:
+    for name, rows, ch, dtype, main in k9_cases:
         x = (torch.randn(rows, ch, device="cuda", generator=gen) * 2
-             + 1.5).bfloat16()
-        got = bn.bn_stats_cuda(x)
-        want = bn.bn_stats_reference(x)
-        torch.cuda.synchronize()
-        errs = {}
-        for key, g, wnt in zip(("mean", "m2"), got, want):
-            err, rel = _rel_err(g, wnt)
-            errs[key] = err
-            log(f"[resnet-kernels] k9 {name} {key} max_abs_err={err} "
-                f"rel_to_max={rel} tol={RU_SUM_REL[key]}")
-            check(rel <= RU_SUM_REL[key], f"K9 {name}: {key} disagrees "
-                  f"with the plain version")
-        results[f"k9_{name}"] = dict(kind="k9", x=x, errs=errs)
+             + 1.5).to(dtype)
+        errs, failure = k9_check(name, x)
+        check(failure is None, failure)
+        results[f"k9_{name}"] = dict(kind="k9", x=x, errs=errs, main=main)
     return results
+
+
+def k9_check(name, x):
+    """K9 against its plain version on x, called twice for equal bits.
+    Returns ({"mean": max_abs_err, "m2": ...}, a failure message or
+    None)."""
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+
+    got, again = bn.bn_stats_cuda(x), bn.bn_stats_cuda(x)
+    want = bn.bn_stats_reference(x)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    errs, bad = {}, []
+    for key, g, wnt in zip(("mean", "m2"), got, want):
+        err, rel = _rel_err(g, wnt)
+        errs[key] = err
+        log(f"[resnet-kernels] k9 {name} {key} max_abs_err={err} "
+            f"rel_to_max={rel} tol={RU_SUM_REL[key]}")
+        if not (bool(torch.isfinite(g).all()) and rel <= RU_SUM_REL[key]):
+            bad.append(key)
+    log(f"[resnet-kernels] k9 {name} bitwise_equal={same}")
+    if not same:
+        bad.append("two calls differ")
+    if not bad:
+        return errs, None
+    return errs, f"K9 {name}: {', '.join(bad)} disagree with the plain version"
 
 
 def _ru_bounds(kind, c):
@@ -1561,24 +1660,11 @@ def ru_parts(fn, args, iters=5):
 
 
 def time_resnet_kernels(results, backward=True):
-    from paddle_tpu_torch.ops.hopper import bn_stats as bn
-
     timing = {}
     for name, r in results.items():
         if r["kind"] == "k9":
-            x = r["x"]
-            rows, ch = x.shape
-            t = dict(ms=time_ms(lambda: bn.bn_stats_cuda(x)),
-                     plain_ms=time_ms(lambda: bn.bn_stats_reference(x),
-                                      iters=5, warmup=1),
-                     library_ms=time_ms(lambda: torch.var_mean(x, dim=0)))
-            t["bound_ms"], t["bound_by"] = _bound(
-                rows * ch * 2 + 2 * ch * 4, {torch.float32: 3 * rows * ch})
-            timing[name] = dict(k9=t)
-            log(f"[time] k9 {name} ms={t['ms']} plain_ms={t['plain_ms']} "
-                f"library_ms={t['library_ms']} (torch.var_mean) bound_ms="
-                f"{t['bound_ms']} ({t['bound_by']}) bound_share="
-                f"{t['bound_ms'] / t['ms']}")
+            if r["main"]:
+                timing[name] = dict(k9=time_k9(r["x"]))
             continue
         kind, c, y = r["kind"], r["case"], r["y"]
         fwd_k, fwd_p, bwd_k, bwd_p = _ru_fns(kind)
@@ -1613,6 +1699,36 @@ def time_resnet_kernels(results, backward=True):
     results.clear()
     torch.cuda.empty_cache()
     return timing
+
+
+def time_k9(x):
+    """K9 on x beside torch.var_mean, the plain version and the bound:
+    back to back (``ms``) and by CUDA-graph replay (``graph_ms``, K9 and
+    the library call alike), and the wrapper's host microseconds per
+    call."""
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+
+    rows, ch = x.shape
+    t = dict(ms=time_ms(lambda: bn.bn_stats_cuda(x)),
+             graph_ms=time_ms_graph(lambda: bn.bn_stats_cuda(x)),
+             plain_ms=time_ms(lambda: bn.bn_stats_reference(x), iters=5,
+                              warmup=1),
+             library_ms=time_ms(lambda: torch.var_mean(x, dim=0)),
+             library_graph_ms=time_ms_graph(
+                 lambda: torch.var_mean(x, dim=0)))
+    t["bound_ms"], t["bound_by"] = _bound(
+        rows * ch * x.element_size() + 2 * ch * 4,
+        {torch.float32: 3 * rows * ch})
+    us_min, us_med, us = host_us(lambda: bn.bn_stats_cuda(x))
+    t["host_us"] = us_min
+    log(f"[time] k9 rows{rows}_c{ch} ms={t['ms']} graph_ms={t['graph_ms']} "
+        f"plain_ms={t['plain_ms']} library_ms={t['library_ms']} "
+        f"library_graph_ms={t['library_graph_ms']} (torch.var_mean) "
+        f"bound_ms={t['bound_ms']} ({t['bound_by']}) bound_share="
+        f"{t['bound_ms'] / t['graph_ms']}")
+    log(f"[k9-host] rows{rows}_c{ch} host_us_per_call min={us_min} "
+        f"median={us_med} rounds={us}")
+    return t
 
 
 def _block_run(blk, x, cot, fused_direct=False):
@@ -2274,6 +2390,103 @@ def k5_only():
     return 0
 
 
+def norms_host_parts():
+    """Host microseconds of each part of a K6 call at 8 x 4096 and of a
+    K9 call at 12,544 x 2048 (the least of 5 rounds of 100 back-to-back
+    calls, enqueue only): the checks, each allocation, the stream lookup,
+    the library call (K6 also without its launch: ctypes alone), the
+    whole wrapper, and the library function for the same work
+    (F.rms_norm, torch.var_mean)."""
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+    from paddle_tpu_torch.ops.hopper import rms_norm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, w = k6_inputs(gen, 8, 4096, torch.bfloat16)
+    out, rstd = rn.rms_norm_cuda(x, w, 1e-5)
+    lib = rn._library()
+    dev = x.get_device()
+    device = x.device
+    xb = torch.randn(12544, 2048, device="cuda", generator=gen).bfloat16()
+    sms = bn._sm_count(dev)
+    plan = bn.bn_stats_plan(12544, 2048, sms)
+    part = torch.empty((plan["parts"], 2, 2048), device="cuda")
+    stats = torch.empty((2, 2048), device="cuda")
+    blib = bn._library()
+    parts = {
+        "k6": {
+            "check": lambda: rn._check(x, w),
+            "empty_like": lambda: torch.empty_like(x),
+            "empty_rstd": lambda: torch.empty((8, 1), device=device,
+                                              dtype=torch.float32),
+            "stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+            "library_call_no_launch": lambda: lib.rms_norm_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), rstd.data_ptr(),
+                0, 4096, 1, 1e-5, dev,
+                torch._C._cuda_getCurrentRawStream(dev)),
+            "library_call": lambda: lib.rms_norm_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), rstd.data_ptr(),
+                8, 4096, 1, 1e-5, dev,
+                torch._C._cuda_getCurrentRawStream(dev)),
+            "wrapper": lambda: rn.rms_norm_cuda(x, w, 1e-5),
+            "F.rms_norm": lambda: torch.nn.functional.rms_norm(
+                x, (4096,), w, 1e-5),
+        },
+        "k9": {
+            "check": lambda: bn._check(xb),
+            "plan": lambda: bn.bn_stats_plan(12544, 2048, bn._sm_count(dev)),
+            "empty": lambda: torch.empty((plan["parts"] + 1, 2, 2048),
+                                         device=device, dtype=torch.float32),
+            "library_call": lambda: blib.bn_stats_launch(
+                xb.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                stats.data_ptr() + 4 * 2048, 12544, 2048, 1, sms, dev,
+                torch._C._cuda_getCurrentRawStream(dev)),
+            "wrapper": lambda: bn.bn_stats_cuda(xb),
+            "torch.var_mean": lambda: torch.var_mean(xb, dim=0),
+        },
+    }
+    for kernel, fns in parts.items():
+        us = {name: host_us(fn)[0] for name, fn in fns.items()}
+        log(f"[norms-host] {kernel} parts_us_per_call={json.dumps(us)}")
+
+
+def norms_only():
+    """``--norms``: build K6's and K9's libraries alone (ptxas registers,
+    spills and shared memory), then every case of phase 3 (K6) and of
+    phase 10 (K9) against the plain version, two calls bitwise equal, and
+    at the main shapes the times back to back and by CUDA-graph replay
+    beside the library call (F.rms_norm, torch.var_mean), the plain
+    version and the bound, and the wrapper's host microseconds per call.
+    Every case runs; the failures are reported together at the end. Works
+    on another checkout's port too (``--root``; one whose kernels need no
+    build step is built by its first launch). Prints no result line."""
+    from paddle_tpu_torch.ops.hopper import bn_stats as bn
+    from paddle_tpu_torch.ops.hopper import rms_norm
+
+    phase_device()
+    log(f"[norms] implementation={os.path.dirname(rms_norm.__file__)}")
+    for mod in (rms_norm, bn):
+        if hasattr(mod, "build"):
+            build_log(mod.build)
+    failures = []
+    time_k6(phase_k6(failures))
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    for name, rows, ch, dtype, main in K9_CASES:
+        x = (torch.randn(rows, ch, device="cuda", generator=gen) * 2
+             + 1.5).to(dtype)
+        _, failure = k9_check(name, x)
+        if failure:
+            failures.append(failure)
+        if main:
+            time_k9(x)
+        del x
+        torch.cuda.empty_cache()
+    if hasattr(rms_norm, "_check"):
+        norms_host_parts()
+    log(f"[norms] failures={failures}")
+    check(not failures, f"norms: {failures}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -2282,7 +2495,8 @@ def main() -> int:
     argv = sys.argv[1:]
     root = HERE
     if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"],
-                    ["--flash-bwd"], ["--k7-fwd"], ["--k7-bwd"]) \
+                    ["--flash-bwd"], ["--k7-fwd"], ["--k7-bwd"],
+                    ["--norms"]) \
             and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
@@ -2302,6 +2516,8 @@ def main() -> int:
         return k7_fwd_only()
     if argv == ["--k7-bwd"]:
         return k7_only()
+    if argv == ["--norms"]:
+        return norms_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()
@@ -2328,14 +2544,16 @@ def main() -> int:
     shape = FLASH_CASES[0][0]
     kernels = [
         k5_entry(k5_launches, k5),
-        dict(kernel_entry("rms_norm", "triton",
-                          "paddle_tpu_torch/ops/hopper/rms_norm.py",
+        dict(kernel_entry("rms_norm", "cuda",
+                          "paddle_tpu_torch/csrc/rms_norm.cu",
                           "paddle_tpu/ops/pallas/rms_norm.py:55",
                           k6_launches, k6, "rows8_h4096"),
              graph_ms=k6["rows8_h4096"]["graph_ms"],
+             host_us=k6["rows8_h4096"]["host_us"],
              other_shapes={k: {f: r[f] for f in (
                  "ms", "graph_ms", "library_ms", "library_graph_ms",
-                 "bound_ms")} for k, r in k6.items() if k != "rows8_h4096"}),
+                 "bound_ms", "host_us")} for k, r in k6.items()
+                 if r["main"] and k != "rows8_h4096"}),
         dict(timed_entry("flash_attention_fwd", "cuda", src, f"{pallas}:298",
                          train["fwd"], max(max(e["out"], e["lse"])
                                            for e in flash.values()),
@@ -2366,14 +2584,16 @@ def main() -> int:
                         max(ru_errs[c][err_key] for c in cases),
                         ru_times[cases[0]][d], cases[0]),
             other_shapes={c: ru_times[c][d] for c in cases[1:]}))
-    k9_cases = [f"k9_{c}" for c, _, _ in K9_CASES]
+    k9_cases = [f"k9_{c[0]}" for c in K9_CASES]
+    k9_main = [f"k9_{c[0]}" for c in K9_CASES if c[4]]
     kernels.append(dict(
-        timed_entry("bn_stats", "triton",
-                    "paddle_tpu_torch/ops/hopper/bn_stats.py",
+        timed_entry("bn_stats", "cuda", "paddle_tpu_torch/csrc/bn_stats.cu",
                     "paddle_tpu/ops/pallas/bn_stats.py:59", resnet["k9"],
                     max(max(ru_errs[c].values()) for c in k9_cases),
-                    ru_times[k9_cases[0]]["k9"], K9_CASES[0][0]),
-        other_shapes={c: ru_times[c]["k9"] for c in k9_cases[1:]}))
+                    ru_times[k9_main[0]]["k9"], K9_CASES[0][0]),
+        graph_ms=ru_times[k9_main[0]]["k9"]["graph_ms"],
+        host_us=ru_times[k9_main[0]]["k9"]["host_us"],
+        other_shapes={c: ru_times[c]["k9"] for c in k9_main[1:]}))
     log(f"[done] seconds={time.perf_counter() - t_start} (of which the "
         f"ResNet phases 10-12: {t_resnet})")
     print(json.dumps({"kernels": kernels}), flush=True)

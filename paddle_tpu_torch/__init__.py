@@ -10,13 +10,13 @@ plain version. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
 Ported so far: Llama serving (``models``, ``serving``), with kernels
-K5 (ragged paged attention, CUDA C++) and K6 (RMSNorm forward, Triton);
+K5 (ragged paged attention) and K6 (RMSNorm forward), CUDA C++;
 single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
 ``jit.TrainStep``), with the flash-attention forward, dq and dkv kernels
 (CUDA C++) and RMSNorm's gradient; single-device ResNet training
 (``vision.models``, ``nn`` layers, ``optimizer.Momentum``), with the fused
-conv+BatchNorm kernels K7 and K8 (CUDA C++) and the BatchNorm-statistics
-kernel K9 (Triton).
+conv+BatchNorm kernels K7 and K8 and the BatchNorm-statistics kernel K9
+(CUDA C++).
 """
 
 from . import flags, vision

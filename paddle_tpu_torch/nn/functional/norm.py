@@ -2,7 +2,7 @@
 ``rms_norm``, ``batch_norm`` and ``ema_update_stats``).
 
 ``rms_norm`` goes through ``RMSNormFunction`` on both devices, so it has
-a gradient everywhere: the tensor's device picks the forward (the Triton
+a gradient everywhere: the tensor's device picks the forward (the CUDA
 kernel K6 for a CUDA tensor, its plain version for a CPU tensor), and the
 backward is the same plain PyTorch code on both. No flag chooses, and a
 CUDA input never falls back.

@@ -3,7 +3,8 @@
 - ``paged_attention``: K5, ragged paged attention (CUDA C++, sm_90a,
   ``csrc/paged_attention.cu``), replacing
   ``paddle_tpu/ops/pallas/paged_attention.py``.
-- ``rms_norm``: K6, RMSNorm forward (Triton), replacing
+- ``rms_norm``: K6, RMSNorm forward (CUDA C++, sm_90a,
+  ``csrc/rms_norm.cu``), replacing
   ``paddle_tpu/ops/pallas/rms_norm.py``, with the autograd Function
   whose backward is plain PyTorch (XLA code in the JAX package).
 - ``flash_attention``: K1/K3 (forward) and K2/K4 (dq and dkv), flash
@@ -16,7 +17,8 @@
   ``csrc/resnet_unit.cu``), replacing
   ``paddle_tpu/ops/pallas/resnet_unit.py``, with their autograd
   Functions.
-- ``bn_stats``: K9, BatchNorm statistics (Triton), replacing
+- ``bn_stats``: K9, BatchNorm statistics (CUDA C++, sm_90a,
+  ``csrc/bn_stats.cu``), replacing
   ``paddle_tpu/ops/pallas/bn_stats.py``, with the autograd Function
   whose backward is plain PyTorch.
 

@@ -9,31 +9,39 @@ closed form of ``_bwd`` (``dx = (g_mean + 2 x g_m2) / rows``), plain
 PyTorch on both devices, as it is XLA code outside any ``pallas_call``
 in the JAX package.
 
-The kernel is Triton: a column reduction with no product. What bounds it
-on an H100 is HBM bytes (each bf16 element is read once for two f32
-adds), so the design reads every element exactly once: a first program
-grid sums blocks of 512 rows by 128 channels into f32 partials, a second
-small grid adds the partials of each channel in a fixed order and
-scales them (the TPU kernel carries the sums through its sequential grid
-in VMEM; Hopper's programs run in parallel). Both stages are
-deterministic: no atomics.
+The kernel is CUDA C++ for ``sm_90a`` (``paddle_tpu_torch/csrc/bn_stats.cu``),
+compiled with ``nvcc`` into a shared library with a plain C interface on
+first use and called through ``ctypes``; the source's header note says
+how it works. What bounds it on an H100 is HBM bytes (each bf16 element
+is read once for two f32 adds). The TPU kernel carries its sums through
+its sequential grid in VMEM; on Hopper the CTAs run in parallel, so each
+CTA sums a strip of channels over a contiguous range of rows into one
+f32 partial, and a second kernel, launched by the same C call, adds the
+partials of each channel in a fixed order and scales them. No atomics:
+two calls give equal bits. :func:`bn_stats_plan` mirrors the launch and
+:func:`bn_stats_tiles_reference` models its summation order for the CPU
+tests.
 
-Triton is imported inside the function that builds the kernels, so the
-module imports where Triton is missing. A CPU tensor runs
-:func:`bn_stats_reference`; a CUDA tensor launches the kernel or raises,
-and never falls back.
+A CPU tensor runs :func:`bn_stats_reference`; a CUDA tensor launches the
+kernel or raises, and never falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-ROWS_PER_PROGRAM = 512
-BLOCK_ROWS = 32
-BLOCK_C = 128
-BLOCK_PARTS = 32
+from ._build import build_library
+
+# csrc/bn_stats.cu: threads of a partial CTA, rows a slot loads at once,
+# partial CTAs resident on an SM, warps of the final CTA
+THREADS = 256
+UNROLL = 4
+CTAS_PER_SM = 4
+FINAL_WARPS = 32
+_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def supported(rows, c):
@@ -48,86 +56,132 @@ def bn_stats_reference(x2d):
     return x.sum(0) * inv, (x * x).sum(0) * inv
 
 
+@functools.lru_cache(maxsize=256)
+def bn_stats_plan(rows, c, sms):
+    """K9's launch at one shape (bn_stats.cu's ``make_plan``): channel
+    strips of ``strip`` (256 where c allows, else 128), ``slots`` rows a
+    CTA loads at once (8 threads' 16-byte loads cover 64 channels), row
+    groups of ``group`` rows (one step of every slot), ``parts`` CTAs
+    along the rows, each owning ``rows_per_part`` contiguous rows (a
+    whole number of groups; the last range is cut at ``rows``), about
+    ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs in all (``ctas``)."""
+    strip = 256 if c % 256 == 0 else 128
+    slots = THREADS // (strip // 8)
+    group = slots * UNROLL
+    strips = c // strip
+    target = max(1, sms * CTAS_PER_SM // strips)
+    per = -(-rows // target)
+    rows_per_part = -(-per // group) * group
+    parts = -(-rows // rows_per_part)
+    return dict(strip=strip, slots=slots, group=group, strips=strips,
+                rows_per_part=rows_per_part, parts=parts,
+                ctas=parts * strips, final_warps=FINAL_WARPS)
+
+
+def bn_stats_tiles_reference(x2d, plan):
+    """K9 the kernels' way, in plain PyTorch f32, for the tests: per part,
+    each row slot j adds the rows j, j + slots, ... of the part's range
+    in order; the slots add in slot order into the part's partial; final
+    warp w adds the partials w, w + final_warps, ... in order, the warps
+    add in warp order, and the sums are scaled by 1 / rows. Same contract
+    as :func:`bn_stats_reference`."""
+    rows, c = x2d.shape
+    x = x2d.float()
+    slots, step = plan["slots"], plan["rows_per_part"]
+    part = torch.zeros(plan["parts"], 2, c)
+    for p in range(plan["parts"]):
+        r0, r1 = p * step, min(rows, (p + 1) * step)
+        acc = torch.zeros(2, slots, c)
+        for r in range(r0, r1, slots):       # one row of every slot
+            blk = x[r:min(r + slots, r1)]
+            acc[0, :len(blk)] += blk
+            acc[1, :len(blk)] += blk * blk
+        for j in range(slots):
+            part[p] += acc[:, j]
+    warps = torch.zeros(plan["final_warps"], 2, c)
+    for p in range(plan["parts"]):
+        warps[p % plan["final_warps"]] += part[p]
+    total = torch.zeros(2, c)
+    for w in range(plan["final_warps"]):
+        total += warps[w]
+    inv = torch.tensor(1.0 / rows, dtype=torch.float32)
+    return total[0] * inv, total[1] * inv
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    # the jitted bodies resolve `tl` through the module's globals, as for
-    # kernels defined at module level
-    global triton, tl
-    import triton
-    import triton.language as tl
+def _library():
+    path, _ = build_library("bn_stats", ["bn_stats.cu"])
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bn_stats_launch.argtypes = [p] * 4 + [ctypes.c_longlong] + [i] * 4 \
+        + [p]
+    lib.bn_stats_launch.restype = i
+    return lib
 
-    @triton.jit
-    def bn_stats_partial(x_ptr, part_ptr, rows, c,
-                         ROWS_PER_PROG: tl.constexpr, BLOCK_R: tl.constexpr,
-                         BLOCK: tl.constexpr):
-        pr = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        cmask = cols < c
-        acc1 = tl.zeros([BLOCK_R, BLOCK], tl.float32)
-        acc2 = tl.zeros([BLOCK_R, BLOCK], tl.float32)
-        r0 = pr * ROWS_PER_PROG
-        for i in range(0, ROWS_PER_PROG, BLOCK_R):
-            r = r0 + i + tl.arange(0, BLOCK_R)
-            m = (r < rows)[:, None] & cmask[None, :]
-            x = tl.load(x_ptr + r.to(tl.int64)[:, None] * c + cols[None, :],
-                        mask=m, other=0.0).to(tl.float32)
-            acc1 += x
-            acc2 += x * x
-        base = part_ptr + pr.to(tl.int64) * 2 * c
-        tl.store(base + cols, tl.sum(acc1, axis=0), mask=cmask)
-        tl.store(base + c + cols, tl.sum(acc2, axis=0), mask=cmask)
 
-    @triton.jit
-    def bn_stats_final(part_ptr, mean_ptr, m2_ptr, n_parts, c, inv_rows,
-                       BLOCK_P: tl.constexpr, BLOCK: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        cmask = cols < c
-        acc1 = tl.zeros([BLOCK_P, BLOCK], tl.float32)
-        acc2 = tl.zeros([BLOCK_P, BLOCK], tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            p = p0 + tl.arange(0, BLOCK_P)
-            m = (p < n_parts)[:, None] & cmask[None, :]
-            at = p.to(tl.int64)[:, None] * 2 * c + cols[None, :]
-            acc1 += tl.load(part_ptr + at, mask=m, other=0.0)
-            acc2 += tl.load(part_ptr + at + c, mask=m, other=0.0)
-        tl.store(mean_ptr + cols, tl.sum(acc1, axis=0) * inv_rows, mask=cmask)
-        tl.store(m2_ptr + cols, tl.sum(acc2, axis=0) * inv_rows, mask=cmask)
+def build() -> str:
+    """Build (or reuse) the kernel library now; returns the compiler
+    log ("" when an earlier build was reused)."""
+    _, log = build_library("bn_stats", ["bn_stats.cu"])
+    _library()
+    return log
 
-    return bn_stats_partial, bn_stats_final
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index):
+    # one torch.device per card, kept: making it anew costs a microsecond
+    # of the wrapper's few
+    return torch.device("cuda", index)
+
+
+def _check(x2d):
+    """(rows, c, dtype code, device index) of an input the kernel takes;
+    raises ``ValueError`` on any other."""
+    if x2d.dim() != 2:
+        raise ValueError(f"want x [rows, c], got {tuple(x2d.shape)}")
+    rows, c = x2d.shape
+    if rows < 1 or c < 128 or c % 128:
+        raise ValueError(f"shape {tuple(x2d.shape)}: the kernel takes rows "
+                         f">= 1 and c % 128 == 0")
+    code = _DTYPE_CODES.get(x2d.dtype)
+    if code is None:
+        raise ValueError(f"dtype {x2d.dtype}: the kernel takes bfloat16 and "
+                         f"float16")
+    dev = x2d.get_device()
+    if dev < 0:
+        raise ValueError(f"x must lie on a CUDA device, got {x2d.device}")
+    if not x2d.is_contiguous() or x2d.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    return rows, c, code, dev
 
 
 def bn_stats_cuda(x2d):
-    """Launch K9 on ``x2d [rows, c]`` (a contiguous bf16/f16 CUDA tensor
-    with ``c % 128 == 0``). Returns (mean, E[x^2]), f32 ``[c]``; both
-    stages count as one launch."""
-    if x2d.dim() != 2:
-        raise ValueError(f"want x [rows, c], got {tuple(x2d.shape)}")
-    if not x2d.is_cuda:
-        raise ValueError(f"x must lie on a CUDA device, got {x2d.device}")
-    if x2d.dtype not in (torch.bfloat16, torch.float16):
-        raise ValueError(f"dtype {x2d.dtype}: the kernel takes bfloat16 and "
-                         f"float16")
-    if not x2d.is_contiguous():
-        raise ValueError("x must be contiguous")
-    rows, c = x2d.shape
-    if rows < 1 or c % BLOCK_C:
-        raise ValueError(f"shape {tuple(x2d.shape)}: the kernel takes rows "
-                         f">= 1 and c % {BLOCK_C} == 0")
-    n_parts = -(-rows // ROWS_PER_PROGRAM)
-    dev = x2d.device
-    part = torch.empty((n_parts, 2, c), device=dev, dtype=torch.float32)
-    mean = torch.empty(c, device=dev, dtype=torch.float32)
-    m2 = torch.empty(c, device=dev, dtype=torch.float32)
-    partial, final = _kernels()
-    with torch.cuda.device(dev):
-        partial[(n_parts, c // BLOCK_C)](
-            x2d, part, rows, c, ROWS_PER_PROG=ROWS_PER_PROGRAM,
-            BLOCK_R=BLOCK_ROWS, BLOCK=BLOCK_C, num_warps=4)
-        final[(c // BLOCK_C,)](part, mean, m2, n_parts, c, 1.0 / rows,
-                               BLOCK_P=BLOCK_PARTS, BLOCK=BLOCK_C,
-                               num_warps=4)
+    """Launch K9 on ``x2d [rows, c]`` (a contiguous, 16-byte aligned
+    bf16/f16 CUDA tensor with ``rows >= 1`` and ``c % 128 == 0``).
+    Returns (mean, E[x^2]), f32 ``[c]``; both kernels of a call count as
+    one launch. Raises ``ValueError`` on inputs the kernel does not take
+    and ``RuntimeError`` when the launch fails. The C call launches on
+    x's device (it sets and restores the current device itself)."""
+    rows, c, code, dev = _check(x2d)
+    sms = _sm_count(dev)
+    parts = bn_stats_plan(rows, c, sms)["parts"]
+    # one allocation: the partials [parts, 2, c], then (mean, E[x^2])
+    buf = torch.empty((parts + 1, 2, c), device=_device(dev),
+                      dtype=torch.float32)
+    part_ptr = buf.data_ptr()
+    mean_ptr = part_ptr + parts * 2 * c * 4
+    rc = _library().bn_stats_launch(
+        x2d.data_ptr(), part_ptr, mean_ptr, mean_ptr + 4 * c, rows, c, code,
+        sms, dev, torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"bn_stats kernel launch failed: CUDA error {rc}")
     bn_stats_cuda.launches += 1
-    return mean, m2
+    return buf[parts, 0], buf[parts, 1]
 
 
 bn_stats_cuda.launches = 0

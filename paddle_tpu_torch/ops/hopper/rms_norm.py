@@ -9,26 +9,31 @@ backward (``_vjp_bwd``) is XLA code outside any ``pallas_call`` in the
 JAX package, so it is plain PyTorch here, on both devices
 (:func:`rms_norm_backward`).
 
-The kernel is Triton: one row reduction and an elementwise scale, with
-no matrix product. What bounds it on an H100 is HBM bytes (read x and
-w, write out and rstd: about 2 bytes each way per element in bf16
-against a handful of flops), so the design reads each row exactly once:
-one program per row, the whole row in registers (``BLOCK`` is the next
-power of two of the width, masked at the edge), f32 math, one store.
+The kernel is CUDA C++ for ``sm_90a`` (``paddle_tpu_torch/csrc/rms_norm.cu``),
+compiled with ``nvcc`` into a shared library with a plain C interface on
+first use and called through ``ctypes``; the source's header note says
+how it works. What bounds it on an H100 is HBM bytes at the training
+shape and the launch at the serving shape (8 rows), so the wrapper is
+kept cheap: the argument types are set once, the stream is read as a
+raw handle, the only allocations are the outputs, and one C call makes
+the launch.
 
-Triton is imported inside the function that builds the kernel, so the
-module imports where Triton is missing. :func:`rms_norm_reference` is
-the plain PyTorch version for CPU tensors and for the comparison on the
-card; :func:`rms_norm_cuda` launches the kernel and never falls back.
-A raw kernel launch carries no autograd history, so callers that need a
-gradient go through :class:`RMSNormFunction`.
+:func:`rms_norm_reference` is the plain PyTorch version for CPU tensors
+and for the comparison on the card; :func:`rms_norm_cuda` launches the
+kernel and never falls back. A raw kernel launch carries no autograd
+history, so callers that need a gradient go through
+:class:`RMSNormFunction`.
 """
 
+import ctypes
 import functools
 
 import torch
 
-MAX_WIDTH = 32768   # widest row one program holds in registers
+from ._build import build_library
+
+MAX_WIDTH = 32768   # widest row the kernel takes (csrc/rms_norm.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def rms_norm_reference(x2d, w, eps):
@@ -40,55 +45,68 @@ def rms_norm_reference(x2d, w, eps):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    # the jitted body resolves `tl` through the module's globals, as
-    # for a kernel defined at module level
-    global triton, tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rms_norm_fwd(x_ptr, w_ptr, o_ptr, r_ptr, x_stride, o_stride, h, eps,
-                     BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < h
-        x = tl.load(x_ptr + row * x_stride + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        r = tl.rsqrt(tl.sum(x * x, axis=0) / h + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = x * r * w
-        tl.store(o_ptr + row * o_stride + cols,
-                 y.to(o_ptr.dtype.element_ty), mask=mask)
-        tl.store(r_ptr + row, r)
-
-    return rms_norm_fwd
+def _library():
+    path, _ = build_library("rms_norm", ["rms_norm.cu"])
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rms_norm_launch.argtypes = [p] * 4 + [i] * 3 + [ctypes.c_float, i, p]
+    lib.rms_norm_launch.restype = i
+    return lib
 
 
-def rms_norm_cuda(x2d, w, eps):
-    """Launch kernel K6 on ``x2d [rows, h]`` and ``w [h]`` (CUDA
-    tensors). Returns (out, rstd f32 ``[rows, 1]``)."""
+def build() -> str:
+    """Build (or reuse) the kernel library now; returns the compiler
+    log ("" when an earlier build was reused)."""
+    _, log = build_library("rms_norm", ["rms_norm.cu"])
+    _library()
+    return log
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index):
+    # one torch.device per card, kept: making it anew costs a microsecond
+    # of the wrapper's few
+    return torch.device("cuda", index)
+
+
+def _check(x2d, w):
+    """(rows, h, dtype code, device index) of inputs the kernel takes;
+    raises ``ValueError`` on any other."""
     if x2d.dim() != 2 or w.dim() != 1 or w.shape[0] != x2d.shape[1]:
         raise ValueError(f"want x [rows, h] and w [h]; got "
                          f"{tuple(x2d.shape)} and {tuple(w.shape)}")
-    if not (x2d.is_cuda and w.device == x2d.device):
-        raise ValueError("x and w must lie on one CUDA device")
-    if not (x2d.is_floating_point() and w.is_floating_point()):
-        raise ValueError("rms_norm takes floating-point tensors")
     rows, h = x2d.shape
-    if h > MAX_WIDTH:
-        raise ValueError(f"width {h} exceeds the kernel's {MAX_WIDTH}")
+    if not 1 <= h <= MAX_WIDTH:
+        raise ValueError(f"width {h}: the kernel takes 1 to {MAX_WIDTH}")
+    code = _DTYPE_CODES.get(x2d.dtype)
+    if code is None or w.dtype != x2d.dtype:
+        raise ValueError(f"x/w dtypes {x2d.dtype}/{w.dtype}: want one "
+                         f"dtype of float32, bfloat16, float16")
+    dev = x2d.get_device()
+    if dev < 0 or w.get_device() != dev:
+        raise ValueError("x and w must lie on one CUDA device")
+    return rows, h, code, dev
+
+
+def rms_norm_cuda(x2d, w, eps):
+    """Launch kernel K6 on ``x2d [rows, h]`` and ``w [h]`` (CUDA tensors
+    of one dtype: float32, bfloat16 or float16; ``1 <= h <= MAX_WIDTH``).
+    Returns (out, rstd f32 ``[rows, 1]``). Raises ``ValueError`` on
+    inputs the kernel does not take and ``RuntimeError`` when the launch
+    fails. The C call launches on x's device (it sets and restores the
+    current device itself)."""
+    rows, h, code, dev = _check(x2d, w)
     x2d = x2d.contiguous()
     w = w.contiguous()
     out = torch.empty_like(x2d)
-    rstd = torch.empty((rows, 1), device=x2d.device, dtype=torch.float32)
+    rstd = torch.empty((rows, 1), device=_device(dev), dtype=torch.float32)
     if rows == 0:
         return out, rstd
-    block = 1 << max(h - 1, 1).bit_length()
-    with torch.cuda.device(x2d.device):
-        _kernel()[(rows,)](x2d, w, out, rstd, x2d.stride(0), out.stride(0),
-                           h, float(eps), BLOCK=block,
-                           num_warps=min(16, max(4, block // 1024)))
+    rc = _library().rms_norm_launch(
+        x2d.data_ptr(), w.data_ptr(), out.data_ptr(), rstd.data_ptr(), rows,
+        h, code, eps, dev, torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {rc}")
     rms_norm_cuda.launches += 1
     return out, rstd
 

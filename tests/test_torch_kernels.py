@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.hopper import bn_stats as hop_bn
 from paddle_tpu_torch.ops.hopper import paged_attention as hop_pa
 from paddle_tpu_torch.ops.hopper import rms_norm as hop_rms
 from paddle_tpu_torch.serving import paged_attention as torch_pa
@@ -242,6 +243,50 @@ def test_rms_norm_functional_on_cpu_uses_plain_version():
     assert hop_rms.rms_norm_cuda.launches == before
 
 
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+# (wrapper call, what the error names): a CPU tensor, then shapes and
+# dtypes the kernels do not take
+NORM_WRAPPER_REFUSALS = {
+    "rms_cpu_tensor": (lambda: hop_rms.rms_norm_cuda(_bf16(8, 64), _bf16(64),
+                                                     1e-5), "CUDA"),
+    "rms_x_not_2d": (lambda: hop_rms.rms_norm_cuda(_bf16(2, 8, 64),
+                                                   _bf16(64), 1e-5), "want x"),
+    "rms_w_width": (lambda: hop_rms.rms_norm_cuda(_bf16(8, 64), _bf16(32),
+                                                  1e-5), "want x"),
+    "rms_too_wide": (lambda: hop_rms.rms_norm_cuda(
+        _bf16(1, hop_rms.MAX_WIDTH + 1), _bf16(hop_rms.MAX_WIDTH + 1), 1e-5),
+        "width"),
+    "rms_no_width": (lambda: hop_rms.rms_norm_cuda(_bf16(8, 0), _bf16(0),
+                                                   1e-5), "width"),
+    "rms_two_dtypes": (lambda: hop_rms.rms_norm_cuda(
+        _bf16(8, 64), torch.ones(64), 1e-5), "dtype"),
+    "rms_int_dtype": (lambda: hop_rms.rms_norm_cuda(
+        torch.zeros(8, 64, dtype=torch.int32),
+        torch.zeros(64, dtype=torch.int32), 1e-5), "dtype"),
+    "bn_cpu_tensor": (lambda: hop_bn.bn_stats_cuda(_bf16(8, 128)), "CUDA"),
+    "bn_x_not_2d": (lambda: hop_bn.bn_stats_cuda(_bf16(128)), "want x"),
+    "bn_c_not_128": (lambda: hop_bn.bn_stats_cuda(_bf16(8, 100)), "c % 128"),
+    "bn_no_rows": (lambda: hop_bn.bn_stats_cuda(_bf16(0, 128)), "rows"),
+    "bn_f32": (lambda: hop_bn.bn_stats_cuda(torch.zeros(8, 128)), "dtype"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NORM_WRAPPER_REFUSALS))
+def test_norm_wrappers_refuse_cpu_tensors_and_shapes_they_do_not_take(case):
+    """rms_norm_cuda (K6) and bn_stats_cuda (K9) raise ValueError on a CPU
+    tensor and on shapes and dtypes their kernels do not take (checked
+    before the device, so the CPU shows each), and launch nothing."""
+    call, names = NORM_WRAPPER_REFUSALS[case]
+    before = hop_rms.rms_norm_cuda.launches, hop_bn.bn_stats_cuda.launches
+    with pytest.raises(ValueError, match=names):
+        call()
+    assert (hop_rms.rms_norm_cuda.launches,
+            hop_bn.bn_stats_cuda.launches) == before
+
+
 @pytest.mark.parametrize("jax_route", ["rms_norm_pallas", "F.rms_norm"])
 def test_rms_norm_function_grads_match_jax(ref, jax_route):
     """dx and dw of the port's RMSNormFunction (the plain forward and the
@@ -409,20 +454,35 @@ def test_paged_attend_kernel_rejects_unsupported_shapes(cuda):
         hop_pa.paged_attend_cuda(q, kb, kb, tab, pos, kv_heads=2, head_dim=96)
 
 
+# K6 against its plain version: the output to two ulps of its dtype (one
+# rounding each side plus the order of the row's sum), f32 to 1e-5
+K6_TOL = {"bfloat16": 1.6e-2, "float16": 2e-3, "float32": 1e-5}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 128])
-def test_rms_norm_kernel_matches_plain(cuda, rows):
-    """Kernel K6 equals the plain version: output within 2 bf16 ulps,
-    rstd to 1e-5."""
-    gen = torch.Generator(device=cuda).manual_seed(rows)
-    x = torch.randn(rows, 4096, device=cuda, generator=gen).bfloat16()
-    w = (1 + 0.1 * torch.randn(4096, device=cuda, generator=gen)).bfloat16()
+@pytest.mark.parametrize("rows,h,dtype", [
+    (8, 4096, "bfloat16"), (128, 4096, "bfloat16"), (8192, 4096, "bfloat16"),
+    (128, 4096, "float32"), (128, 4096, "float16"), (128, 2048, "bfloat16"),
+    (128, 8192, "bfloat16"), (64, 1000, "float32"), (128, 4100, "bfloat16"),
+    (64, 16384, "bfloat16"), (8, 32768, "float32")])
+def test_rms_norm_kernel_matches_plain(cuda, rows, h, dtype):
+    """Kernel K6 equals the plain version at the main path's shapes, in
+    f32 and f16, at widths 2048 and 8192 (registers), 1000 in f32 (a
+    masked tail of packs), 4100 (not a multiple of 8) and 16384 and
+    32768 (staged in shared memory): the output to two ulps, rstd to
+    1e-5; two calls give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + h)
+    tdt = getattr(torch, dtype)
+    x = torch.randn(rows, h, device=cuda, generator=gen).to(tdt)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=gen)).to(tdt)
     out, rstd = hop_rms.rms_norm_cuda(x, w, 1e-5)
+    out2, rstd2 = hop_rms.rms_norm_cuda(x, w, 1e-5)
     want, want_r = hop_rms.rms_norm_reference(x, w, 1e-5)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), want.float(), atol=1.6e-2,
-                               rtol=1.6e-2)
+    tol = K6_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(rstd, want_r, atol=0, rtol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(rstd, rstd2)
 
 
 @pytest.mark.gpu

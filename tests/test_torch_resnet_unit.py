@@ -153,6 +153,77 @@ def test_bn_stats_plain_matches_pallas(ref, rows, c):
     _close(dx, want_dx, "dx")
 
 
+# K9's shapes: the main path's four (the downsample BatchNorms of layers
+# 1-4 at batch 256, 224^2), ragged rows, 8 rows, 128-channel strips
+K9_SHAPES = [(802816, 256), (200704, 512), (50176, 1024), (12544, 2048),
+             (1000, 256), (8, 256), (12544, 128)]
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_bn_stats_plan_covers_every_row_once(shape):
+    """K9's launch at 132 SMs: 256- or 128-channel strips that tile c, a
+    CTA's slots covering a strip row (8 channels a thread), at most
+    CTAS_PER_SM CTAs an SM, contiguous row ranges of whole row groups
+    (the last cut at rows, never empty); and the partial kernel's loop
+    (slot j takes rows r0 + j + slots * (UNROLL * k + u), masked at the
+    range's end) visits every row of every range exactly once."""
+    rows, c = shape
+    plan = hop_bn.bn_stats_plan(rows, c, 132)
+    strip, slots, rpp = plan["strip"], plan["slots"], plan["rows_per_part"]
+    assert strip == (256 if c % 256 == 0 else 128)
+    assert strip * plan["strips"] == c
+    assert slots * strip // 8 == hop_bn.THREADS
+    assert plan["group"] == slots * hop_bn.UNROLL and rpp % plan["group"] == 0
+    assert plan["ctas"] == plan["parts"] * plan["strips"]
+    assert plan["ctas"] <= 132 * hop_bn.CTAS_PER_SM
+    assert (plan["parts"] - 1) * rpp < rows <= plan["parts"] * rpp
+    seen = np.zeros(rows, np.int64)
+    for p in range(plan["parts"]):
+        r0, r1 = p * rpp, min(rows, (p + 1) * rpp)
+        for slot in range(slots):
+            steps = np.arange(r0 + slot, r1, slots * hop_bn.UNROLL)
+            for u in range(hop_bn.UNROLL):
+                rr = steps + u * slots
+                np.add.at(seen, rr[rr < r1], 1)
+    assert (seen == 1).all()
+
+
+K9_TILE_CASES = {
+    # (rows, c, sms, against the Pallas kernel too): 4 partials of
+    # 128- and of 256-channel strips at the shapes whose Pallas calls
+    # test_bn_stats_plain_matches_pallas compiles; a ragged last range
+    # (40 rows of a 32-row group's multiple) over 11 partials; three
+    # 128-channel strips with a ragged last range of 72 rows
+    "r256_c128_sms1": (256, 128, 1, True),
+    "r1024_c256_sms1": (1024, 256, 1, True),
+    "r1000_c256_sms3": (1000, 256, 3, False),
+    "r200_c384_sms2": (200, 384, 2, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K9_TILE_CASES))
+def test_bn_stats_tiles_model_matches_plain_and_pallas(ref, case):
+    """The plain model of K9's summation order (per slot over its rows,
+    slots in order into a partial per CTA, partials by warp, warps in
+    order) equals the plain statistics in f32 and, at the shapes the
+    Pallas kernel is already compiled for, its interpret-mode mean and
+    E[x^2]; more than one partial each, a non-centred input."""
+    rows, c, sms, pallas = K9_TILE_CASES[case]
+    rng = np.random.RandomState(rows)
+    x = (rng.randn(rows, c) + 1.5).astype(np.float32)
+    plan = hop_bn.bn_stats_plan(rows, c, sms)
+    assert plan["parts"] > 1
+    got = hop_bn.bn_stats_tiles_reference(torch.from_numpy(x), plan)
+    want = hop_bn.bn_stats_reference(torch.from_numpy(x))
+    for name, g, wnt in zip(("mean", "m2"), got, want):
+        _close(g, wnt.numpy(), name)
+    if pallas:
+        zero = np.zeros(c, np.float32)
+        want_out, _ = ref["k9"](x, zero, zero)
+        for name, g, wnt in zip(("mean", "m2"), got, want_out):
+            _close(g, wnt, name)
+
+
 SHAPES_3X3 = [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
               (256, 14, 14, 256, 256), (256, 7, 7, 512, 512),
               (2, 16, 16, 64, 64), (2, 8, 8, 128, 128), (8, 4, 4, 64, 64)]
@@ -704,11 +775,22 @@ def test_conv3x3_bn_fwd_bands_match_plain_on_card(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,c", [(256, 128), (12544, 2048), (1000, 256)])
-def test_bn_stats_kernel_matches_plain(cuda, rows, c):
-    x = (torch.randn(rows, c, device=cuda) + 1.5).bfloat16()
+@pytest.mark.parametrize("rows,c,dtype", [
+    (256, 128, "bfloat16"), (12544, 2048, "bfloat16"), (1000, 256, "bfloat16"),
+    (802816, 256, "bfloat16"), (200704, 512, "bfloat16"),
+    (50176, 1024, "bfloat16"), (8, 256, "bfloat16"), (12544, 128, "bfloat16"),
+    (50176, 1024, "float16")])
+def test_bn_stats_kernel_matches_plain(cuda, rows, c, dtype):
+    """K9 equals the plain statistics at the main path's four shapes and
+    at ragged rows, 8 rows, 128-channel strips and f16; two calls give
+    equal bits (fixed-order sums, no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + c)
+    x = (torch.randn(rows, c, device=cuda, generator=gen) * 2
+         + 1.5).to(getattr(torch, dtype))
     got = hop_bn.bn_stats_cuda(x)
+    again = hop_bn.bn_stats_cuda(x)
     want = hop_bn.bn_stats_reference(x)
     torch.cuda.synchronize()
-    for name, g, wnt in zip(("mean", "m2"), got, want):
+    for name, g, a, wnt in zip(("mean", "m2"), got, again, want):
+        assert torch.equal(g, a), f"{name}: two calls differ"
         _card_close(g, wnt, name)
