@@ -53,8 +53,11 @@ the run with a non-zero exit code and no result line:
    same bf16 pool: decode at mixed depths with an idle row, prefill at
    position 0 and 256, a ragged 100-row chunk, GQA decode, decode at
    phase 7's depths, rows whose horizon ends one column before, on and
-   after a span boundary with the full table and an idle row, and an f32
-   pool; two calls give equal bits (the fixed-order merge).
+   after a span boundary with the full table and an idle row, an f32
+   pool; speculative verify rows [8, 8] with an idle slot, a prefill
+   chunk from position 191 (after a capped prefix hit), and the draft
+   model's decode and 128-row catch-up at 32 heads over 4 KV heads,
+   head_dim 64; two calls give equal bits (the fixed-order merge).
 3. K6 (RMSNorm forward, CUDA) against its plain version: 8, 128 and
    8192 rows x 4096 in bf16, f32 and f16 at 128 x 4096, widths 2048,
    8192, 4100 (not a multiple of 8) and 16384 (the shared-memory path),
@@ -71,13 +74,28 @@ the run with a non-zero exit code and no result line:
    CUDA-graph replay, at the training shape, 8192 x 4096, and as the
    wrapper's host microseconds per call).
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
-   tokens (kernels) equal dense ``generate`` tokens.
-7. Serving at full Llama-2-7B (bf16, 32 layers): 8 requests through the
-   engine; throughput, TTFT/TPOT, peak memory, exact launch counts; then
-   a short torch.profiler window: device time by kernel family and the
-   device's idle share; then one prefill and one decode-only dispatch
-   from the window replayed under the profiler, by family and with K5's
-   split and merge kernels apart.
+   tokens (kernels) equal dense ``generate`` tokens, with the default
+   engine (prefix cache on); a shared-prefix set (4 prompts on one
+   40-token prefix and an exact resubmit, which copies a block on write)
+   with caching on and off; a repeat-heavy set under n-gram speculation
+   and under a 2-layer f32 draft model of TinyLlama's widths. A mismatch
+   logs the dense path's top-2 logit gap.
+7. Serving at full Llama-2-7B (bf16, 32 layers; block 16, 8 slots,
+   prefill chunk 128): 8 requests through the engine; throughput,
+   TTFT/TPOT, peak memory, exact launch counts; then a short
+   torch.profiler window: device time by kernel family and the device's
+   idle share; then one prefill and one decode-only dispatch from the
+   window replayed under the profiler, by family and with K5's split and
+   merge kernels apart. Then (a) bench.py's shared-prefix mix (32
+   requests on 4 system prompts of 192 tokens, Zipf 1.2, plus 4 exact
+   resubmits, 64 new tokens, one burst) with caching on and off; (b) its
+   repeat-heavy mix (32 requests, a 16-token pattern tiled 8 times, 128
+   new tokens, token budget 512) with n-gram speculation and without;
+   (c) 8 of those requests, 32 new tokens, with a bf16 draft model of
+   TinyLlama-1.1B's geometry (22 layers, random weights). Each run logs
+   TTFT, TPOT, tokens/s, peak memory, prefix and speculation counters,
+   and holds its launches to K5 = 32 x target + 22 x draft dispatches and
+   K6 = 65 x target + 45 x draft dispatches.
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
    the CPU (plain versions), then a 3-step TrainStep loss trajectory.
@@ -118,6 +136,7 @@ exits with code 2 and prints no result.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import re
@@ -201,6 +220,15 @@ def check(cond, msg):
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def release_device_memory():
+    """Free what dropped objects held on the card. A serving engine with
+    speculation is a reference cycle (its scheduler holds the engine's
+    lookahead method), so its pool (~17 GB at Llama-2-7B) waits for the
+    cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -363,6 +391,7 @@ def k5_cases(gen):
     """Every K5 case: name -> inputs."""
     mb = 4096 // 16
     mha = dict(h=32, kv=32, d=128, bs=16, max_blocks=mb)
+    draft = dict(h=32, kv=4, d=64, bs=16, max_blocks=mb)
     return {
         "decode_b8_h32": k5_case(gen, b=8, s=1, positions=DECODE_POSITIONS,
                                  idle=(0,), **mha),
@@ -385,6 +414,22 @@ def k5_cases(gen):
         "decode_b8_h32_f32": k5_case(gen, b=8, s=1,
                                      positions=DECODE_POSITIONS, idle=(0,),
                                      dtype=torch.float32, **mha),
+        # speculative verify rows: the last token + 7 drafts per slot at
+        # phase 7's depths, slot 3 idle (its 8 queries read scratch); the
+        # engine reads only each row's first 1 + k outputs, the rest are
+        # padding queries that must stay finite
+        "verify_b8_s8": k5_case(gen, b=8, s=8, positions=serving_depths(),
+                                idle=(3,), **mha),
+        # a prefill chunk after a capped prefix hit on a 192-token prompt:
+        # it starts on the last row of the 12th block
+        "prefill_s32_pos191": k5_case(gen, b=1, s=32, positions=[191],
+                                      **mha),
+        # the draft model (TinyLlama's geometry: 32 heads over 4 KV heads,
+        # head_dim 64) over the target's tables: decode and catch-up
+        "draft_decode_b8_h32_kv4_d64": k5_case(
+            gen, b=8, s=1, positions=serving_depths(), idle=(0,), **draft),
+        "draft_prefill_s128_h32_kv4_d64": k5_case(
+            gen, b=1, s=128, positions=[128], **draft),
     }
 
 
@@ -927,130 +972,323 @@ def _dense_last_logits(model, tokens):
     logits (for the top-2 gap of a mismatch report)."""
     cfg = model.config
     d = cfg.hidden_size // cfg.num_attention_heads
+    dev = next(model.parameters()).device
     caches = [(torch.zeros(1, len(tokens), cfg.num_key_value_heads, d,
-                           device="cuda"),
+                           device=dev),
                torch.zeros(1, len(tokens), cfg.num_key_value_heads, d,
-                           device="cuda"))
+                           device=dev))
               for _ in range(cfg.num_hidden_layers)]
     with torch.no_grad():
-        logits, _ = model(torch.tensor([tokens], device="cuda"),
+        logits, _ = model(torch.tensor([tokens], device=dev),
                           kv_caches=caches, position_offset=0)
     return logits[0, -1].float()
 
 
+def _check_greedy(model, label, prompts, got, n_new):
+    """Each request's engine tokens against dense greedy ``generate``;
+    on a mismatch, log the first differing step and the dense path's
+    top-2 logit gap there, and fail."""
+    dev = next(model.parameters()).device
+    for i, (p, toks) in enumerate(zip(prompts, got)):
+        want = model.generate(torch.tensor([p], device=dev),
+                              max_new_tokens=n_new)[0, len(p):].tolist()
+        if toks != want:
+            step = next(j for j, (a, b) in enumerate(zip(toks, want))
+                        if a != b)
+            top2 = torch.topk(_dense_last_logits(model, p + want[:step]), 2)
+            gap = float(top2.values[0] - top2.values[1])
+            log(f"[parity] MISMATCH {label} request {i} at step {step}: "
+                f"engine {toks} dense {want} top-2 logit gap {gap}")
+            raise SmokeFailure(f"{label}: engine and dense greedy tokens "
+                               f"differ")
+        log(f"[parity] {label} request {i} prompt_len={len(p)} "
+            f"tokens={toks} equal=True")
+
+
+def _engine_outputs(engine, prompts, n_new):
+    rids = [engine.add_request(p, max_new_tokens=n_new) for p in prompts]
+    done = engine.run()
+    engine.pool.check_invariants()
+    return [done[r].output_ids for r in rids]
+
+
+def repeat_heavy_prompts(rng, vocab, n_req, pat_len, reps, jitter):
+    """bench.py's repeat-heavy mix (``_repeat_heavy_prompts``): a random
+    pattern tiled ``reps`` times plus up to ``jitter`` more tokens."""
+    prompts = []
+    for _ in range(n_req):
+        pat = rng.integers(0, vocab, pat_len).tolist()
+        n = pat_len * reps + int(rng.integers(0, jitter + 1))
+        prompts.append((pat * (reps + 1))[:n])
+    return prompts
+
+
+def tinyllama_config(**kw):
+    """The draft model's geometry: TinyLlama-1.1B's published config
+    (Llama-2's 32000-token vocabulary, hidden 2048, intermediate 5632,
+    22 layers, 32 heads over 4 KV heads, head_dim 64)."""
+    from paddle_tpu_torch import LlamaConfig
+
+    base = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                num_hidden_layers=22, num_attention_heads=32,
+                num_key_value_heads=4, max_position_embeddings=2048)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
 def phase_parity():
+    """Phase 6: engine greedy tokens equal dense ``generate`` at
+    Llama-2-7B width, 2 layers, f32: the default engine (prefix cache
+    on); a shared-prefix set with caching on and off; a repeat-heavy set
+    under n-gram and draft-model speculation."""
     from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 
     # f32 products run in full f32, not TF32, on both paths
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
     model = LlamaForCausalLM(cfg, seed=0)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (5, 17, 29, 40)]
     engine = ServingEngine.from_model(model)
-    rids = [engine.add_request(p, max_new_tokens=8) for p in prompts]
-    done = engine.run()
-    for rid, p in zip(rids, prompts):
-        got = done[rid].output_ids
-        want = model.generate(torch.tensor([p], device="cuda"),
-                              max_new_tokens=8)[0, len(p):].tolist()
-        if got != want:
-            step = next(i for i, (a, b) in enumerate(zip(got, want))
-                        if a != b)
-            top2 = torch.topk(_dense_last_logits(model, p + want[:step]), 2)
-            gap = float(top2.values[0] - top2.values[1])
-            log(f"[parity] MISMATCH request {rid} at step {step}: engine "
-                f"{got} dense {want} top-2 logit gap {gap}")
-            raise SmokeFailure("engine and dense greedy tokens differ")
-        log(f"[parity] request {rid} prompt_len={len(p)} tokens={got} "
-            f"equal=True")
+    check(engine.pool.prefix_cache, "the engine's default has no prefix "
+          "cache")
+    _check_greedy(model, "default", prompts,
+                  _engine_outputs(engine, prompts, 8), 8)
     log(f"[parity] llama2_7b width, 2 layers, f32: {len(prompts)} requests "
         f"equal (engine dispatches={engine.dispatches})")
-    del model, engine
-    torch.cuda.empty_cache()
+    # four prompts on one 40-token prefix; the first (48 tokens, three
+    # whole blocks) is resubmitted right after itself, so the copy's
+    # capped hit (47 tokens) ends inside a block the original holds
+    prefix = rng.integers(0, cfg.vocab_size, 40).tolist()
+    shared = [prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in (8, 3, 11, 21)]
+    shared.insert(1, list(shared[0]))
+    for cache in (True, False):
+        engine = ServingEngine.from_model(model, prefix_cache=cache)
+        _check_greedy(model, f"shared_prefix cache={cache}", shared,
+                      _engine_outputs(engine, shared, 8), 8)
+        m = engine.metrics.snapshot()
+        log(f"[parity] shared_prefix cache={cache}: prefix_hits="
+            f"{m['prefix_hits']} hit_tokens={m['prefix_hit_tokens']} "
+            f"cow_copies={m['cow_copies']} tokens_computed="
+            f"{m['tokens_computed']}")
+        if cache:
+            check(m["prefix_hits"] > 0 and m["cow_copies"] > 0,
+                  "shared-prefix set: no prefix hit or no copy-on-write")
+    draft = LlamaForCausalLM(tinyllama_config(num_hidden_layers=2,
+                                              dtype="float32"), seed=1)
+    rep = repeat_heavy_prompts(rng, cfg.vocab_size, 6, 16, 3, 8)
+    for mode in ("ngram", "draft"):
+        engine = ServingEngine.from_model(
+            model, spec=mode, draft_model=draft if mode == "draft" else None)
+        _check_greedy(model, f"spec={mode}", rep,
+                      _engine_outputs(engine, rep, 24), 24)
+        m = engine.metrics.snapshot()
+        log(f"[parity] spec={mode}: proposed={m['spec_proposed']} "
+            f"accepted={m['spec_accepted']} verify_dispatches="
+            f"{engine.verify_dispatches}")
+        check(engine.verify_dispatches > 0, f"spec={mode}: no verify row "
+              f"was dispatched")
+    log(f"[parity] seconds={time.perf_counter() - t0}")
+    del model, engine, draft
+    release_device_memory()
 
 
 # -- phase 7: full Llama-2-7B serving -----------------------------------------
 
-def phase_serving():
-    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
+def zipf_prompts(rng, vocab, n_req, n_prefixes, prefix_len, suffix_max,
+                 alpha=1.2):
+    """bench.py's shared-prefix mix (``_zipf_prompts``), draw for draw:
+    ``n_prefixes`` system prompts, each request picks one by Zipf(alpha)
+    popularity and appends a unique suffix of 1..suffix_max tokens."""
+    prefixes = [rng.randint(0, vocab, (prefix_len,)).tolist()
+                for _ in range(n_prefixes)]
+    probs = np.arange(1, n_prefixes + 1, dtype=np.float64) ** -float(alpha)
+    probs /= probs.sum()
+    prompts = []
+    for _ in range(n_req):
+        k = int(rng.choice(n_prefixes, p=probs))
+        n_suf = int(rng.randint(1, suffix_max + 1))
+        prompts.append(prefixes[k] + rng.randint(0, vocab, (n_suf,)).tolist())
+    return prompts
+
+
+def shared_prefix_mix(vocab):
+    """Phase 7a's requests: bench.py's ``serve_prefix`` mix at its chip
+    sizes (32 requests, 4 system prompts of 192 tokens, Zipf 1.2, suffixes
+    of 1-32 tokens, RandomState(0)) plus 4 exact resubmits: the first
+    prompt whose length is whole blocks of 16 right after itself (its
+    capped hit ends inside a block the original still holds: a
+    copy-on-write), and the first three prompts at the end (their blocks
+    are cached by then)."""
+    prompts = zipf_prompts(np.random.RandomState(0), vocab, 32, 4, 192, 32)
+    whole = next(i for i, p in enumerate(prompts) if len(p) % 16 == 0)
+    prompts.insert(whole + 1, list(prompts[whole]))
+    return prompts + [list(p) for p in prompts[:3]]
+
+
+def first_divergence(a, b):
+    """Per request, the index of the first output token where two runs
+    differ, -1 where they are equal."""
+    return [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), -1)
+            for p, q in zip(a, b)]
+
+
+def serve_run(engine, label, prompts, max_new):
+    """One burst of requests (every arrival at t0) through ``engine``:
+    every dispatch's logits checked finite, K5/K6 launches counted over
+    this run alone and held to 32 x target dispatches + 22 x draft
+    dispatches (K5) and 65 x target + 45 x draft (K6), each request held
+    to ``max_new`` tokens and the pool to its invariants. Logs the
+    run's numbers and returns them."""
     from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
     from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
     from paddle_tpu_torch.serving.robustness import now_s
+
+    finite = []
+    for name in ("_dispatch", "_dispatch_full"):
+        def checked(*args, _fn=getattr(engine, name)):
+            out = _fn(*args)
+            finite.append(bool(np.isfinite(out).all()))
+            return out
+        setattr(engine, name, checked)
+    draft = getattr(engine._proposer, "model", None)
+    draft_layers = 0 if draft is None else draft.config.num_hidden_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d0 = engine.dispatches
+    dd0 = getattr(engine._proposer, "dispatches", 0)
+    paged_attend_cuda.launches = 0
+    rms_norm_cuda.launches = 0
+    t_arrival = now_s()
+    rids = [engine.add_request(p, max_new_tokens=max_new,
+                               arrival_s=t_arrival) for p in prompts]
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
+    del engine._dispatch, engine._dispatch_full   # the wrappers' cycles
+    n_target = engine.dispatches - d0
+    n_draft = getattr(engine._proposer, "dispatches", 0) - dd0
+    m = engine.metrics.snapshot()
+    out_tokens = sum(len(done[r].output) for r in rids)
+    r = dict(label=label, wall_s=wall, output_tok_s=out_tokens / wall,
+             steps=m["steps"], dispatches=n_target,
+             verify_dispatches=engine.verify_dispatches,
+             draft_dispatches=n_draft, k5=k5, k6=k6,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             outputs=[done[i].output_ids for i in rids],
+             **{k: m[k] for k in (
+                 "ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+                 "tokens_computed", "prefix_hits", "prefix_hit_tokens",
+                 "prefix_hit_rate", "cow_copies", "preemptions",
+                 "spec_proposed", "spec_accepted", "spec_accept_rate",
+                 "spec_tokens_per_step_p50", "spec_tokens_per_step_p95")})
+    log(f"[serve:{label}] requests={len(prompts)} max_new={max_new} "
+        + " ".join(f"{k}={v}" for k, v in r.items()
+                   if k not in ("label", "outputs")))
+    check(sorted(done) == sorted(rids), f"{label}: not every request "
+          f"finished")
+    check(all(len(done[i].output) == max_new for i in rids),
+          f"{label}: a request finished with other than {max_new} tokens")
+    check(finite and all(finite), f"{label}: non-finite logits")
+    check(k5 == LLAMA_LAYERS * n_target + draft_layers * n_draft,
+          f"{label}: K5 launches {k5} != 32 x {n_target} + "
+          f"{draft_layers} x {n_draft}")
+    check(k6 == (2 * LLAMA_LAYERS + 1) * n_target
+          + (2 * draft_layers + 1) * n_draft,
+          f"{label}: K6 launches {k6} != 65 x {n_target} + "
+          f"{2 * draft_layers + 1} x {n_draft}")
+    engine.pool.check_invariants()
+    return r
+
+
+def phase_serving():
+    """Phase 7: full Llama-2-7B in bf16 through the engine (block 16, 8
+    slots, prefill chunk 128): the main run and its profile window, then
+    the shared-prefix mix with caching on and off (7a), the repeat-heavy
+    mix with n-gram speculation and without (7b), and a short run with a
+    TinyLlama-geometry draft model (7c). Returns each run's numbers."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
     check(cfg.num_hidden_layers == LLAMA_LAYERS, "expected 32 layers")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)
+    knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
     # warm-up outside the timed run (first cuBLAS calls, allocator):
     # one request through a throwaway engine with a small pool
-    warm = ServingEngine.from_model(model, block_size=16, max_slots=8,
-                                    prefill_chunk=128, pool_blocks=64)
+    warm = ServingEngine.from_model(model, pool_blocks=64, **knobs)
     warm.add_request(list(range(1, 129)), max_new_tokens=2)
     warm.run()
     del warm
-    engine = ServingEngine.from_model(model, block_size=16, max_slots=8,
-                                      prefill_chunk=128)
+    engine = ServingEngine.from_model(model, **knobs)
     torch.cuda.synchronize()
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     log(f"[serve] model+pool setup seconds={time.perf_counter() - t0} "
         f"pool_blocks={engine.pool.num_blocks} weight_bytes={weight_bytes}")
-
-    finite = []
-    dispatch = engine._dispatch
-
-    def checked_dispatch(*args):
-        out = dispatch(*args)
-        finite.append(bool(np.isfinite(out).all()))
-        return out
-
-    engine._dispatch = checked_dispatch
     rng = np.random.default_rng(7)
     lengths = rng.integers(128, 513, 8)
-    t_arrival = now_s()
-    rids = [engine.add_request(rng.integers(0, cfg.vocab_size, n).tolist(),
-                               max_new_tokens=64, arrival_s=t_arrival)
-            for n in lengths]
-    paged_attend_cuda.launches = 0
-    rms_norm_cuda.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
-    m = engine.metrics.snapshot()
-    out_tokens = sum(len(done[r].output) for r in rids)
-    log(f"[serve] prompts={lengths.tolist()} max_new=64 wall_s={wall} "
-        f"output_tok_s={out_tokens / wall} steps={m['steps']} "
-        f"dispatches={engine.dispatches}")
-    log(f"[serve] ttft_p50_s={m['ttft_p50_s']} ttft_p95_s={m['ttft_p95_s']} "
-        f"tpot_p50_s={m['tpot_p50_s']} tpot_p95_s={m['tpot_p95_s']} "
-        f"mean_batch_occupancy={m['mean_batch_occupancy']} "
-        f"preemptions={m['preemptions']}")
-    log(f"[serve] phase_seconds={json.dumps(m['phase_seconds'])}")
-    log(f"[serve] peak_memory_bytes={torch.cuda.max_memory_allocated()}")
-    log(f"[serve] launches k5={k5} (32 x {engine.dispatches} = "
-        f"{LLAMA_LAYERS * engine.dispatches}) k6={k6} (65 x "
-        f"{engine.dispatches} = {(2 * LLAMA_LAYERS + 1) * engine.dispatches})")
-    check(sorted(done) == sorted(rids), "not every request finished")
-    check(all(len(done[r].output) == 64 for r in rids),
-          "a request finished with other than 64 tokens")
-    check(finite and all(finite), "non-finite logits in the serving run")
-    check(k5 == LLAMA_LAYERS * engine.dispatches,
-          f"K5 launches {k5} != 32 x {engine.dispatches}")
-    check(k6 == (2 * LLAMA_LAYERS + 1) * engine.dispatches,
-          f"K6 launches {k6} != 65 x {engine.dispatches}")
+    runs = {"main": serve_run(
+        engine, "main", [rng.integers(0, cfg.vocab_size, n).tolist()
+                         for n in lengths], 64)}
+    log(f"[serve] prompts={lengths.tolist()} phase_seconds="
+        f"{json.dumps(engine.metrics.snapshot()['phase_seconds'])}")
     profile_window(engine, cfg.vocab_size)
-    # the wrapper holds the engine's bound method, a reference cycle:
-    # drop it so the weights and the pool (~30 GB) are freed here
-    del engine._dispatch
-    del model, engine
-    torch.cuda.empty_cache()
-    return k5, k6
+    del engine
+    release_device_memory()
+
+    t0 = time.perf_counter()
+    shared = shared_prefix_mix(cfg.vocab_size)
+    for cache in (True, False):
+        engine = ServingEngine.from_model(model, prefix_cache=cache, **knobs)
+        label = f"prefix_cache_{'on' if cache else 'off'}"
+        runs[label] = serve_run(engine, label, shared, 64)
+        del engine
+        release_device_memory()
+    on = runs["prefix_cache_on"]
+    check(on["prefix_hits"] > 0 and on["cow_copies"] > 0,
+          "7a: no prefix hit or no copy-on-write with caching on")
+    log(f"[serve:7a] seconds={time.perf_counter() - t0} first differing "
+        f"output token, caching on against off, per request (-1: equal): "
+        f"{first_divergence(on['outputs'], runs['prefix_cache_off']['outputs'])}"
+        f" (bf16: a cached prefix was computed in other chunks, so a near "
+        f"tie may round apart; phase 6 holds the f32 tokens equal)")
+
+    t0 = time.perf_counter()
+    rep = repeat_heavy_prompts(np.random.default_rng(0), cfg.vocab_size,
+                               32, 16, 8, 16)
+    for spec in ("ngram", "off"):
+        engine = ServingEngine.from_model(model, spec=spec,
+                                          token_budget=512, **knobs)
+        runs[f"spec_{spec}"] = serve_run(engine, f"spec_{spec}", rep, 128)
+        del engine
+        release_device_memory()
+    ng = runs["spec_ngram"]
+    check(ng["spec_proposed"] > 0 and ng["verify_dispatches"] > 0,
+          "7b: no draft proposed or no verify row dispatched")
+    log(f"[serve:7b] seconds={time.perf_counter() - t0} first differing "
+        f"output token, speculation on against off, per request (-1: "
+        f"equal): {first_divergence(ng['outputs'], runs['spec_off']['outputs'])}")
+
+    t0 = time.perf_counter()
+    draft = LlamaForCausalLM(tinyllama_config(dtype="bfloat16"), seed=1)
+    engine = ServingEngine.from_model(model, spec="draft", draft_model=draft,
+                                      **knobs)
+    runs["spec_draft"] = serve_run(engine, "spec_draft", rep[:8], 32)
+    check(runs["spec_draft"]["draft_dispatches"] > 0,
+          "7c: the draft model made no dispatch")
+    log(f"[serve:7c] seconds={time.perf_counter() - t0} draft weight_bytes="
+        f"{sum(p.numel() * p.element_size() for p in draft.parameters())}")
+    del model, engine, draft
+    release_device_memory()
+    return runs
 
 
 # K5's family: its split kernels (paged_attend_kernel_cc, _tc) and merge
@@ -1135,7 +1373,7 @@ def profile_window(engine, vocab, steps=4):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / (engine.dispatches - d0)
-    engine._dispatch = dispatch
+    del engine._dispatch
     d0 = engine.dispatches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1151,7 +1389,7 @@ def profile_window(engine, vocab, steps=4):
     log(f"[profile] device_ms_per_dispatch_by_family={json.dumps(device_ms)}")
     engine._dispatch = capturing_dispatch
     engine.run()
-    engine._dispatch = dispatch
+    del engine._dispatch        # back to the method, no reference cycle
     profile_dispatch_kinds(engine, captured)
 
 
@@ -2529,7 +2767,9 @@ def main() -> int:
     time_k6(k6)
     flash_times = time_flash(flash)
     phase_parity()
-    k5_launches, k6_launches = phase_serving()
+    runs = phase_serving()
+    k5_launches = sum(r["k5"] for r in runs.values())
+    k6_launches = sum(r["k6"] for r in runs.values())
     phase_train_parity()
     train = phase_training()
     t_resnet = time.perf_counter()
@@ -2543,11 +2783,13 @@ def main() -> int:
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
     kernels = [
-        k5_entry(k5_launches, k5),
+        dict(k5_entry(k5_launches, k5),
+             launches_by_run={k: r["k5"] for k, r in runs.items()}),
         dict(kernel_entry("rms_norm", "cuda",
                           "paddle_tpu_torch/csrc/rms_norm.cu",
                           "paddle_tpu/ops/pallas/rms_norm.py:55",
                           k6_launches, k6, "rows8_h4096"),
+             launches_by_run={k: r["k6"] for k, r in runs.items()},
              graph_ms=k6["rows8_h4096"]["graph_ms"],
              host_us=k6["rows8_h4096"]["host_us"],
              other_shapes={k: {f: r[f] for f in (

@@ -9,7 +9,8 @@ a CUDA tensor launches the kernel (or raises), a CPU tensor runs the
 plain version. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-Ported so far: Llama serving (``models``, ``serving``), with kernels
+Ported so far: Llama serving (``models``, ``serving``, with the prefix
+cache and speculative decoding), with kernels
 K5 (ragged paged attention) and K6 (RMSNorm forward), CUDA C++;
 single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
 ``jit.TrainStep``), with the flash-attention forward, dq and dkv kernels

@@ -3,7 +3,9 @@
 One registry, three surfaces: :func:`define_flag` at import time,
 ``FLAGS_*`` environment variables read when a flag is defined, and
 :func:`set_flags` / :func:`get_flags` at run time. Only the flags the
-serving slice and the ResNet model read are defined here. The attention,
+serving slice (with its prefix cache and speculative decoding) and the
+ResNet model read are defined here; ``serving_host_tier`` is not: the
+host tier is not ported, and its engine argument raises. The attention,
 RMSNorm and BN-statistics kernels are not chosen by flags: the tensor's
 device picks between a kernel and its plain version. The two ResNet
 flags below choose something else, a different composition of the
@@ -93,6 +95,47 @@ define_flag("serving_pool_blocks", 0,
 define_flag("serving_token_budget", 0,
             "tokens of work per engine step (decodes + prefill chunk); 0 "
             "means prefill_chunk + max_batch_slots")
+define_flag("serving_prefix_cache", True,
+            "prefix caching + copy-on-write KV sharing in the paged "
+            "pool (serving/kv_pool.py): full blocks are refcounted "
+            "and indexed by token content, add_request/admission "
+            "acquire the longest resident prefix instead of "
+            "re-prefilling it, and freed zero-ref blocks park in an "
+            "LRU cached set the allocator reclaims under pressure. "
+            "Greedy outputs are equal with this on or off "
+            "(tests/test_torch_serving_prefix_spec.py)")
+define_flag("serving_prefix_cached_blocks", 0,
+            "budget of zero-ref cached prefix blocks retained after "
+            "their last reference drops; beyond it the LRU block is "
+            "evicted to the free list immediately. 0 = unbounded: "
+            "cached blocks are reclaimable capacity the allocator "
+            "evicts under pressure anyway")
+define_flag("serving_spec", "off",
+            "speculative decoding mode for the serving engine "
+            "(serving/speculation.py): 'ngram' = prompt/output n-gram "
+            "proposer, 'draft' = small draft model sharing the paged "
+            "pool's block tables (requires ServingEngine(..., "
+            "draft_model=)), 'off' = plain one-token decode. Binds at "
+            "engine construction. Greedy outputs are equal to the "
+            "dense path with speculation on or off; seeded stochastic "
+            "outputs equal the spec-off engine's (sample-and-match)")
+define_flag("serving_spec_lookahead", 4,
+            "draft tokens per speculative verify row (k): each "
+            "speculating sequence submits its last token + k drafts "
+            "as one ragged multi-token row and emits accepted+1 "
+            "tokens. The verify batch is [slots, W], W the next power "
+            "of two >= 1+k; adaptive back-off can shrink a sequence's "
+            "k below this, never above")
+define_flag("serving_spec_ngram_max", 3,
+            "longest suffix n-gram the ngram proposer matches against "
+            "the request's own token history before proposing the "
+            "continuation of the most recent earlier occurrence "
+            "(longest n wins, then latest occurrence)")
+define_flag("serving_spec_min_accept", 0.0,
+            "per-sequence rolling-acceptance floor for adaptive "
+            "lookahead: below it a sequence's lookahead backs off to 1 "
+            "draft until acceptance recovers; 0 disables back-off",
+            type=float)
 
 # -- vision (vision/models/resnet.py, nn/functional/norm.py) ----------------
 define_flag("use_fused_resnet_unit", False,

@@ -1,4 +1,5 @@
-"""Paged KV-cache block pool (port of ``serving/kv_pool.py``).
+"""Paged KV-cache block pool with refcounted prefix sharing (port of
+``serving/kv_pool.py``).
 
 The cache is a pool of fixed-size blocks,
 ``[num_blocks, block_size, kv_heads, head_dim]`` per layer, on the
@@ -7,28 +8,52 @@ exactly the context it has produced; blocks are allocated on demand and
 returned on finish or preemption, and the attention kernel addresses
 K/V through the table (``serving/paged_attention.py``).
 
+PREFIX CACHING (``FLAGS_serving_prefix_cache``): every block is
+refcounted (one count per table that references it). Full blocks whose
+content is final are registered in an exact radix index keyed on
+``(parent_block_id, block_tokens)``, so a new request acquires the
+longest resident full-block prefix of its prompt by bumping refcounts
+instead of recomputing it. The match is capped at ``len(tokens) - 1``,
+so the last acquired block may cover positions the request still has to
+write: the first write into a block with refcount > 1 is a
+COPY-ON-WRITE (:meth:`KVBlockPool.prepare_write` returns the
+``(src, dst)`` pairs the caller copies on the device before writing). A
+sole-owner block that is merely indexed is deregistered and written in
+place. Freed blocks that are registered park in an LRU ``cached`` set,
+which the allocator reclaims oldest first before it raises
+:class:`PoolOOM`; ``check_invariants`` accounts
+``allocated + cached + free == usable``.
+
 Host-side accounting lives here: a LIFO free list (freshly freed blocks
-are reused first) with an O(1) membership set, per-sequence tables and
-alloc/free/OOM counters. Block 0 is RESERVED as scratch: padding rows of
-a bucketed prefill chunk and idle decode slots write there, so the step
-needs no conditional write. Scratch contents are garbage by design and
-the attention mask guarantees they are never read by a real row.
+are reused first) with an O(1) membership set, per-sequence tables,
+refcounts, the prefix index and alloc/free/OOM/hit/COW counters. Block 0
+is RESERVED as scratch: padding rows of a bucketed prefill chunk and
+idle decode slots write there, so the step needs no conditional write.
+Scratch contents are garbage by design and the attention mask
+guarantees they are never read by a real row.
 
 Allocation is all-or-nothing: :meth:`KVBlockPool.ensure` either extends
-a table to cover the requested tokens or raises :class:`PoolOOM` with
-the free list untouched; the scheduler's preemption depends on that.
+a table to cover the requested tokens (plus a copy-on-write
+reservation) or raises :class:`PoolOOM` with the pool untouched; the
+scheduler's preemption depends on that.
 
-Not ported yet: the prefix index with refcounted sharing and
-copy-on-write, the host-RAM tier, and ``export_seq``/``import_seq``.
+Not ported yet: the host-RAM tier behind the cached set (``host_tier``
+raises) and ``export_seq``/``import_seq``.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
 
+from ..flags import flag_value
 from ..framework.device import resolve_device
+
+# sentinel parent id for the first block of a token path in the prefix
+# index (block ids are >= 1, so -1 can never collide)
+_ROOT = -1
 
 
 class PoolOOM(RuntimeError):
@@ -52,12 +77,28 @@ class PagedLayerCache:
 
 class KVBlockPool:
     """Fixed-size KV block pool shared by every sequence of an engine.
-    Each usable block is either allocated (in exactly one table) or on
-    the free list. ``device=None`` is the card (it raises without one);
-    pass ``device="cpu"`` for the CPU."""
+    ``device=None`` is the card (it raises without one); pass
+    ``device="cpu"`` for the CPU.
+
+    Every usable block is in exactly ONE of three states:
+
+    - **allocated**: referenced by >= 1 table (``_ref[b]`` counts them;
+      a shared prefix block has refcount > 1);
+    - **cached**: refcount 0 but registered in the prefix index,
+      parked in an LRU set, reused on a prefix hit or reclaimed by the
+      allocator under pressure;
+    - **free**: on the LIFO free list (``_free_set`` mirrors it for
+      O(1) double-free detection).
+    """
 
     def __init__(self, *, num_layers, num_blocks, block_size, kv_heads,
-                 head_dim, dtype=torch.float32, device=None):
+                 head_dim, dtype=torch.float32, device=None,
+                 prefix_cache=None, host_tier=None):
+        if host_tier:
+            # not ported: refuse rather than run without the tier
+            raise ValueError(
+                "host_tier=True: the host-RAM prefix tier is not ported "
+                "yet (ROADMAP queue 1, item 5)")
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is the reserved "
@@ -82,9 +123,29 @@ class KVBlockPool:
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._free_set = set(self._free)
         self._tables: dict[int, list[int]] = {}
+        # block -> tables referencing it (allocated blocks only)
+        self._ref: dict[int, int] = {}
+        # prefix index: (parent block | _ROOT, tokens) -> block, its
+        # exact reverse map, and each parent's registered children (a
+        # parent's reuse cascades them out of the index)
+        self._index: dict[tuple, int] = {}
+        self._block_key: dict[int, tuple] = {}
+        self._children: dict[int, set[int]] = {}
+        # zero-ref registered blocks, oldest first (LRU reclaim)
+        self._cached: OrderedDict[int, None] = OrderedDict()
+        # per-seq count of table blocks already registered, so
+        # registration costs O(new full blocks) per step
+        self._registered: dict[int, int] = {}
+        self.prefix_cache = (bool(flag_value("serving_prefix_cache"))
+                             if prefix_cache is None else bool(prefix_cache))
         self.allocs = 0
         self.frees = 0
         self.oom_events = 0
+        self.prefix_hits = 0          # lookups that matched >= min blocks
+        self.prefix_hit_tokens = 0    # tokens served from resident blocks
+        self.prefix_miss_tokens = 0   # cacheable tokens with no match
+        self.cow_copies = 0           # copy-on-write block duplications
+        self.cached_evictions = 0     # cached blocks reclaimed/aged out
 
     # -- capacity accounting ---------------------------------------------
     @property
@@ -97,8 +158,14 @@ class KVBlockPool:
         return len(self._free)
 
     @property
+    def num_cached(self) -> int:
+        """Zero-ref prefix blocks parked for reuse: reclaimable, counted
+        apart from both allocated and free."""
+        return len(self._cached)
+
+    @property
     def num_allocated(self) -> int:
-        return self.num_usable - len(self._free)
+        return self.num_usable - len(self._free) - len(self._cached)
 
     @property
     def utilization(self) -> float:
@@ -114,58 +181,344 @@ class KVBlockPool:
         return list(self._tables.get(seq_id, ()))
 
     def holds(self, seq_id: int) -> bool:
-        """Whether seq_id holds any blocks."""
+        """Whether seq_id references any blocks."""
         return bool(self._tables.get(seq_id))
 
-    def ensure(self, seq_id: int, n_tokens: int) -> None:
-        """Grow seq_id's table to cover n_tokens. All-or-nothing:
-        raises PoolOOM with the free list untouched when short."""
-        tab = self._tables.setdefault(seq_id, [])
-        need = self.blocks_for(n_tokens) - len(tab)
-        if need <= 0:
-            return
-        if need > len(self._free):
-            self.oom_events += 1
-            raise PoolOOM(
-                f"seq {seq_id} needs {need} more block(s) for {n_tokens} "
-                f"tokens; {len(self._free)} free of {self.num_usable}")
-        for _ in range(need):
+    def _take_block(self) -> int:
+        """One block off the free list, or the LRU cached block
+        (deregistered) when the free list is empty. The caller
+        guarantees one is available."""
+        if self._free:
             b = self._free.pop()
             self._free_set.discard(b)
-            tab.append(b)
-        self.allocs += need
+            return b
+        b, _ = self._cached.popitem(last=False)
+        self._deregister(b)
+        self.cached_evictions += 1
+        return b
 
-    def can_extend(self, seq_id: int, n_tokens: int) -> bool:
-        """Whether :meth:`ensure` for n_tokens would succeed now."""
-        need = self.blocks_for(n_tokens) - len(self._tables.get(seq_id, ()))
-        return need <= len(self._free)
+    def ensure(self, seq_id: int, n_tokens: int, reserve: int = 0) -> None:
+        """Grow seq_id's table to cover n_tokens. All-or-nothing: raises
+        PoolOOM with the pool untouched when short. ``reserve`` demands
+        that many more reclaimable blocks WITHOUT allocating them: the
+        scheduler passes the pending copy-on-write count
+        (:meth:`cow_need`), so a planned write never lacks its COW
+        block."""
+        tab = self._tables.setdefault(seq_id, [])
+        need = self.blocks_for(n_tokens) - len(tab)
+        if need <= 0 and reserve <= 0:
+            return
+        if max(need, 0) + reserve > len(self._free) + len(self._cached):
+            self.oom_events += 1
+            raise PoolOOM(
+                f"seq {seq_id} needs {max(need, 0)} more block(s) "
+                f"(+{reserve} copy-on-write reserve) for {n_tokens} "
+                f"tokens; {len(self._free)} free + {len(self._cached)} "
+                f"cached of {self.num_usable}")
+        for _ in range(max(need, 0)):
+            b = self._take_block()
+            tab.append(b)
+            self._ref[b] = 1
+        self.allocs += max(need, 0)
+
+    def _release_blocks(self, blocks, seq_id: int) -> None:
+        """Drop one reference from each block, in the caller's order
+        (``free_seq``/``trim`` pass the table tail reversed, so LIFO
+        reuse hands back the hottest blocks first and deep blocks enter
+        the LRU older than their parents). A block reaching zero parks
+        in the cached set when it is registered, else goes back to the
+        free list. A block that is already free is an accounting bug:
+        fail loudly."""
+        for b in blocks:
+            r = self._ref.get(b, 0)
+            if b == 0 or r <= 0 or b in self._free_set:
+                raise RuntimeError(
+                    f"double-free of block {b} (seq {seq_id})")
+            if r > 1:
+                self._ref[b] = r - 1
+                continue
+            del self._ref[b]
+            if self.prefix_cache and b in self._block_key:
+                self._cached[b] = None
+            else:
+                self._free.append(b)
+                self._free_set.add(b)
+        self.frees += len(blocks)
+        cap = int(flag_value("serving_prefix_cached_blocks"))
+        if cap > 0:
+            while len(self._cached) > cap:
+                b, _ = self._cached.popitem(last=False)
+                self._deregister(b)
+                self._free.append(b)
+                self._free_set.add(b)
+                self.cached_evictions += 1
 
     def free_seq(self, seq_id: int) -> None:
-        """Release every block of seq_id (finish or preemption). A block
-        that is already free is an accounting bug: fail loudly."""
+        """Release every block of seq_id (finish or preemption)."""
         tab = self._tables.pop(seq_id, None)
+        self._registered.pop(seq_id, None)
         if tab is None:
             return
-        for b in reversed(tab):   # LIFO reuse hands back the hottest first
-            if b == 0 or b in self._free_set:
-                raise RuntimeError(f"double-free of block {b} (seq {seq_id})")
-            self._free.append(b)
-            self._free_set.add(b)
-        self.frees += len(tab)
+        self._release_blocks(list(reversed(tab)), seq_id)
+
+    def trim(self, seq_id: int, n_tokens: int) -> int:
+        """Shrink seq_id's table to exactly cover ``n_tokens``, releasing
+        the tail: the speculative-decoding rewind. Rejected draft rows
+        inside the kept boundary block need no cleanup (the mask never
+        reads past a row's position and the next write overwrites them).
+        Returns the number of table entries released."""
+        tab = self._tables.get(seq_id)
+        keep = self.blocks_for(max(int(n_tokens), 0))
+        if tab is None or len(tab) <= keep:
+            return 0
+        drop = tab[keep:]
+        del tab[keep:]
+        if self._registered.get(seq_id, 0) > keep:
+            self._registered[seq_id] = keep
+        self._release_blocks(list(reversed(drop)), seq_id)
+        return len(drop)
+
+    def can_extend(self, seq_id: int, n_tokens: int,
+                   reserve: int = 0) -> bool:
+        """Whether :meth:`ensure` for ``n_tokens`` (+ ``reserve``) would
+        succeed now: the scheduler's probe for draft rows, which never
+        preempt and never count an OOM event."""
+        need = self.blocks_for(n_tokens) - len(self._tables.get(seq_id, ()))
+        return (max(need, 0) + max(reserve, 0)
+                <= len(self._free) + len(self._cached))
+
+    # -- prefix index ------------------------------------------------------
+    def _match_chain(self, tokens) -> list[int]:
+        chain: list[int] = []
+        parent = _ROOT
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            b = self._index.get((parent, tuple(tokens[i * bs:(i + 1) * bs])))
+            if b is None:
+                break
+            chain.append(b)
+            parent = b
+        return chain
+
+    def _capped_hit(self, chain, tokens) -> int:
+        """Tokens a matched chain may serve, capped at ``len(tokens) - 1``
+        (the last token is always recomputed, so the forward pass yields
+        the logits of the next one). Any whole block counts, as with the
+        JAX package's default ``serving_prefix_min_blocks`` of 1."""
+        return min(len(chain) * self.block_size, len(tokens) - 1)
+
+    def peek_prefix_tiered(self, tokens) -> tuple:
+        """``(device_tokens, host_tokens)`` a request with these tokens
+        would start past, acquiring nothing. Without the host tier the
+        second is always 0."""
+        if not self.prefix_cache or len(tokens) < 2:
+            return (0, 0)
+        return (self._capped_hit(self._match_chain(tokens), tokens), 0)
+
+    def peek_prefix(self, tokens) -> int:
+        """Resident tokens a request with these tokens would start past
+        on a prefix hit, acquiring nothing."""
+        return sum(self.peek_prefix_tiered(tokens))
+
+    def acquire_prefix(self, seq_id: int, tokens,
+                       defer_miss: bool = False) -> int:
+        """Point seq_id's (empty) table at the longest resident
+        full-block prefix of ``tokens``, bumping refcounts; returns the
+        number of cached tokens (the caller moves its context cursor
+        there). Acquired blocks leave the cached set. ``defer_miss``
+        (the add_request probe) skips miss accounting on a total miss:
+        the binding lookup at admission counts it, so each request's
+        outcome lands in the hit/miss counters once."""
+        if not self.prefix_cache:
+            return 0
+        if self._tables.get(seq_id):
+            raise RuntimeError(
+                f"acquire_prefix: seq {seq_id} already holds blocks")
+        chain = self._match_chain(tokens) if len(tokens) >= 2 else []
+        c = self._capped_hit(chain, tokens)
+        if c <= 0:
+            if not defer_miss:
+                self.prefix_miss_tokens += max(0, len(tokens) - 1)
+            return 0
+        n_keep = -(-c // self.block_size)
+        tab = self._tables.setdefault(seq_id, [])
+        for b in chain[:n_keep]:
+            if b in self._cached:
+                del self._cached[b]
+            self._ref[b] = self._ref.get(b, 0) + 1
+            tab.append(b)
+        # the acquired blocks are in the index already: registration
+        # for this seq resumes after them
+        self._registered[seq_id] = len(tab)
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += c
+        self.prefix_miss_tokens += max(0, len(tokens) - 1 - c)
+        return c
+
+    def register_prefix_blocks(self, seq_id: int, tokens, ctx: int) -> None:
+        """Index every full block of seq_id's table whose content is now
+        final (the context cursor passed its end). First writer wins:
+        content already indexed under another block keeps that entry and
+        stops this seq's chain (deeper entries would be unreachable
+        without their parent)."""
+        if not self.prefix_cache:
+            return
+        tab = self._tables.get(seq_id)
+        if not tab:
+            return
+        bs = self.block_size
+        done = self._registered.get(seq_id, 0)
+        full = min(ctx // bs, len(tab), len(tokens) // bs)
+        while done < full:
+            b = tab[done]
+            parent = tab[done - 1] if done else _ROOT
+            if done and parent not in self._block_key:
+                # the chain must anchor in the index
+                break
+            key = (parent, tuple(tokens[done * bs:(done + 1) * bs]))
+            existing = self._index.get(key)
+            if existing is not None:
+                if existing != b:
+                    break
+            else:
+                old = self._block_key.get(b)
+                if old is not None and old != key:
+                    # one block carries ONE key: a stale entry (a rewind
+                    # re-walked the chain through a replaced parent) and
+                    # its descendants go first
+                    self._deregister(b)
+                self._index[key] = b
+                self._block_key[b] = key
+                if parent != _ROOT:
+                    self._children.setdefault(parent, set()).add(b)
+            done += 1
+        self._registered[seq_id] = done
+
+    def _deregister(self, b: int) -> None:
+        """Drop block b's index entry (it is reused or written in place)
+        and CASCADE its registered descendants out: their keys name b as
+        parent and would resolve a wrong token path once b holds new
+        content. Cascaded blocks parked in the cached set are
+        unreachable capacity, returned to the free list at once."""
+        if b not in self._block_key:
+            return
+        key = self._block_key.pop(b)
+        if self._index.get(key) == b:
+            del self._index[key]
+        parent = key[0]
+        if parent != _ROOT and parent in self._children:
+            self._children[parent].discard(b)
+            if not self._children[parent]:
+                del self._children[parent]
+        for child in list(self._children.get(b, ())):
+            self._deregister(child)
+            if child in self._cached:
+                del self._cached[child]
+                self._free.append(child)
+                self._free_set.add(child)
+                self.cached_evictions += 1
+        self._children.pop(b, None)
+
+    # -- copy-on-write -----------------------------------------------------
+    def cow_need(self, seq_id: int, write_start: int, n: int = 1) -> int:
+        """Blocks :meth:`prepare_write` would duplicate for a write of
+        ``n`` tokens from ``write_start``: the still-shared blocks the
+        range touches (at most 1 with the engine's append-only writes)."""
+        tab = self._tables.get(seq_id)
+        if not tab or n <= 0:
+            return 0
+        first = write_start // self.block_size
+        last = (write_start + n - 1) // self.block_size
+        return sum(1 for j in range(first, min(last + 1, len(tab)))
+                   if self._ref.get(tab[j], 0) > 1)
+
+    def prepare_write(self, seq_id: int, start: int, n: int) -> list:
+        """Make positions [start, start+n) of seq_id's table privately
+        writable; returns the (src, dst) block pairs the caller MUST copy
+        on the device before its write lands. A shared block is swapped
+        for a fresh private one (copy-on-write); a sole-owner block that
+        is merely indexed is deregistered and written in place."""
+        if n <= 0:
+            return []
+        tab = self._tables.get(seq_id)
+        if not tab:
+            return []
+        copies: list[tuple[int, int]] = []
+        first = start // self.block_size
+        last = (start + n - 1) // self.block_size
+        for j in range(first, min(last + 1, len(tab))):
+            b = tab[j]
+            if self._ref.get(b, 0) > 1:
+                if not self._free and not self._cached:
+                    # unreachable when the scheduler reserved cow_need()
+                    # at planning; a loud backstop for hand-driven pools
+                    self.oom_events += 1
+                    raise PoolOOM(
+                        f"copy-on-write for seq {seq_id} block {j} "
+                        f"needs a free block; none reclaimable")
+                nb = self._take_block()
+                self._ref[b] -= 1
+                self._ref[nb] = 1
+                tab[j] = nb
+                copies.append((b, nb))
+                self.cow_copies += 1
+                self.allocs += 1
+            elif b in self._block_key:
+                self._deregister(b)
+            if j < self._registered.get(seq_id, 0):
+                # the block no longer carries an index entry: register
+                # again from here once the new content is final
+                self._registered[seq_id] = j
+        return copies
 
     # -- invariants (tests + debugging) ----------------------------------
     def check_invariants(self) -> None:
-        alloc: list[int] = [b for tab in self._tables.values() for b in tab]
+        counts: dict[int, int] = {}
+        for tab in self._tables.values():
+            for b in tab:
+                counts[b] = counts.get(b, 0) + 1
+        if counts != self._ref:
+            raise RuntimeError(
+                f"refcounts diverge from table membership: tables say "
+                f"{counts}, _ref says {self._ref}")
+        alloc = set(counts)
+        cached = set(self._cached)
         free = set(self._free)
         if len(self._free) != len(free) or free != self._free_set:
             raise RuntimeError("free list / free set divergence")
-        if len(alloc) != len(set(alloc)):
-            raise RuntimeError("a block is in two tables")
-        if 0 in alloc or 0 in free:
+        if 0 in alloc or 0 in free or 0 in cached:
             raise RuntimeError("scratch block 0 entered circulation")
-        if set(alloc) & free:
-            raise RuntimeError("a block is both allocated and free")
-        if len(alloc) + len(free) != self.num_usable:
+        if (alloc & free) or (alloc & cached) or (free & cached):
+            raise RuntimeError("a block is in two of allocated/cached/free")
+        if len(alloc) + len(cached) + len(free) != self.num_usable:
             raise RuntimeError(
-                f"leak: {len(alloc)} allocated + {len(free)} free != "
-                f"{self.num_usable} usable")
+                f"leak: {len(alloc)} allocated + {len(cached)} cached + "
+                f"{len(free)} free != {self.num_usable} usable")
+        for b in cached:
+            if b not in self._block_key:
+                raise RuntimeError(
+                    f"cached block {b} is not in the prefix index")
+        for key, b in self._index.items():
+            if self._block_key.get(b) != key:
+                raise RuntimeError("prefix index / block-key divergence")
+            if b not in counts and b not in cached:
+                raise RuntimeError(f"prefix index points at free block {b}")
+        for b, key in self._block_key.items():
+            if self._index.get(key) != b:
+                raise RuntimeError("block-key / prefix index divergence")
+
+    def stats(self) -> dict:
+        return {"num_blocks": self.num_blocks,
+                "block_size": self.block_size,
+                "free": self.num_free,
+                "cached": self.num_cached,
+                "allocated": self.num_allocated,
+                "utilization": round(self.utilization, 4),
+                "allocs": self.allocs, "frees": self.frees,
+                "oom_events": self.oom_events,
+                "prefix_cache": self.prefix_cache,
+                "prefix_hits": self.prefix_hits,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_miss_tokens": self.prefix_miss_tokens,
+                "cow_copies": self.cow_copies,
+                "cached_evictions": self.cached_evictions}

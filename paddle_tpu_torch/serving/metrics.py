@@ -7,12 +7,16 @@ telemetry registry).
 - Engine steps, output and computed tokens, decode-batch occupancy,
   pool utilisation, preemptions, and per-step phase seconds
   (schedule / prefill / decode / sample / other).
+- Prefix cache: hits, hit and miss tokens, copy-on-write copies and the
+  cached-block count, synced from the pool once a step (``on_prefix``).
+- Speculative decoding: draft tokens proposed and accepted, and
+  accepted tokens per engine step.
 
 Timestamps are host wall-clock (``robustness.now_s``) taken around the
 step; a device phase's seconds include waiting for the device, since the
 step reads its logits back to the host. TTFT/TPOT samples live in
 fixed-size reservoirs, so a long run keeps flat memory while the counts
-stay exact.
+stay exact. The telemetry families of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,6 +67,14 @@ class ServingMetrics:
         self.pool_oom_events = 0
         self.steps = 0
         self.phase_seconds = dict.fromkeys(STEP_PHASES, 0.0)
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_miss_tokens = 0
+        self.cow_copies = 0
+        self.prefix_cached_blocks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_step_tokens = Reservoir(seed=3)
         self.ttft_s = Reservoir(seed=1)
         self.tpot_s = Reservoir(seed=2)
         self._decode_slot_steps = 0
@@ -78,8 +90,12 @@ class ServingMetrics:
     def on_token(self):
         self.tokens_out += 1
 
-    def on_token_gap(self, gap_s: float):
-        self.tpot_s.add(gap_s)
+    def on_token_gap(self, gap_s: float, n: int = 1):
+        """``n`` output tokens of one sequence arrived ``gap_s`` apart:
+        a verify step that emits several tokens spreads its wall time
+        over them instead of reporting zero gaps."""
+        for _ in range(int(n)):
+            self.tpot_s.add(gap_s)
 
     def on_finish(self):
         self.requests_finished += 1
@@ -88,6 +104,43 @@ class ServingMetrics:
         """n context tokens had their K/V computed this step (prefill
         chunks, decode rows, and recomputation after a preemption)."""
         self.tokens_computed += int(n)
+
+    def on_spec_tokens(self, kept: int, rejected: int):
+        """One verify row's compute: ``kept`` positions whose K/V
+        survives and ``rejected`` positions past the accepted point,
+        whose K/V was rewound."""
+        self.tokens_computed += int(kept) + int(rejected)
+
+    def on_spec_verify(self, proposed: int, accepted: int):
+        """One sequence's verify outcome: draft tokens judged and kept
+        (before eos or the length limit cut the emission short)."""
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+
+    def on_spec_step(self, accepted_tokens: int):
+        """Accepted draft tokens across one engine step's verify rows."""
+        self.spec_step_tokens.add(float(accepted_tokens))
+
+    def on_prefix(self, hits, hit_tokens, miss_tokens, cow, cached_blocks):
+        """The pool's prefix-cache counters since the last step."""
+        self.prefix_hits += int(hits)
+        self.prefix_hit_tokens += int(hit_tokens)
+        self.prefix_miss_tokens += int(miss_tokens)
+        self.cow_copies += int(cow)
+        self.prefix_cached_blocks = int(cached_blocks)
+
+    @property
+    def prefix_hit_rate(self) -> float | None:
+        """Cached over cacheable tokens; None before any lookup."""
+        total = self.prefix_hit_tokens + self.prefix_miss_tokens
+        return None if total <= 0 else self.prefix_hit_tokens / total
+
+    @property
+    def spec_accept_rate(self) -> float | None:
+        """Accepted over proposed draft tokens; None before a proposal."""
+        if self.spec_proposed <= 0:
+            return None
+        return self.spec_accepted / self.spec_proposed
 
     def on_preempt(self):
         self.preemptions += 1
@@ -128,4 +181,16 @@ class ServingMetrics:
             "ttft_p95_s": self.ttft_s.percentile(95),
             "tpot_p50_s": self.tpot_s.percentile(50),
             "tpot_p95_s": self.tpot_s.percentile(95),
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_miss_tokens": self.prefix_miss_tokens,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "cow_copies": self.cow_copies,
+            "prefix_cached_blocks": self.prefix_cached_blocks,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": self.spec_accept_rate,
+            "spec_steps": self.spec_step_tokens.count,
+            "spec_tokens_per_step_p50": self.spec_step_tokens.percentile(50),
+            "spec_tokens_per_step_p95": self.spec_step_tokens.percentile(95),
         }

@@ -26,6 +26,7 @@ overwritten before it ever enters a validity window.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.hopper.paged_attention import (paged_attend_cuda,
@@ -87,8 +88,30 @@ def ragged_paged_attention(q, k, v, cache: PagedLayerCache, positions, *,
 
 def gather_copy_blocks(kbufs, vbufs, src, dst):
     """Copy block ``src``'s rows onto block ``dst`` in every layer's K
-    and V buffer, in place (the device half of copy-on-write, kept for
-    the prefix cache's port)."""
+    and V buffer, in place: the device half of copy-on-write."""
     for buf in (*kbufs, *vbufs):
         buf[dst] = buf[src]
     return kbufs, vbufs
+
+
+def paged_forward(model, kbufs, vbufs, ids, positions, lengths,
+                  block_tables, *, full=False) -> np.ndarray:
+    """One model call over paged caches from host arrays: ids
+    ``[B, s]``, positions and lengths ``[B]``, block_tables
+    ``[B, max_blocks]`` (int32 numpy). Returns f32 logits on the host:
+    each row's LAST VALID position ``[B, vocab]`` (the LM head runs on
+    those rows only), or with ``full`` every position ``[B, s, vocab]``
+    (speculative verify rows). The serving engine and the draft-model
+    proposer both step through here, each over its own buffers."""
+    dev = kbufs[0].device
+    ids_t = torch.from_numpy(ids).to(dev)
+    pos_t = torch.from_numpy(positions).to(dev)
+    len_t = torch.from_numpy(lengths).to(dev)
+    tab_t = torch.from_numpy(block_tables).to(dev)
+    caches = [PagedLayerCache(k, v, tab_t, len_t)
+              for k, v in zip(kbufs, vbufs)]
+    rows = None if full else (len_t - 1).clamp(min=0)
+    with torch.no_grad():
+        logits, _ = model(ids_t, kv_caches=caches, position_offset=pos_t,
+                          logits_rows=rows)
+    return logits.float().cpu().numpy()

@@ -1,13 +1,17 @@
 """Continuous-batching scheduler (port of ``serving/scheduler.py``):
 token-budgeted FCFS admission, chunked prefill interleaved with decode,
-preemption by recompute.
+preemption by recompute, prefix-cache lookups and speculative lookahead.
 
 One engine step = one :meth:`Scheduler.schedule` call:
 
 - DECODE every RUNNING sequence (one token each), planned first;
 - PREFILL one chunk of the oldest sequence that still needs context,
   sized ``min(prefill_chunk, budget - decodes, remaining)``;
-- ADMIT waiting sequences into free slots (FCFS) before planning.
+- ADMIT waiting sequences into free slots (FCFS) before planning;
+- SPECULATE: with a lookahead oracle (``spec_k``), what the token budget
+  has left after decode and prefill funds draft tokens per decoding
+  sequence (``StepPlan.spec``), FCFS, each count halved until the pool
+  can hold it without preempting anyone.
 
 Preemption by recompute: when the pool is exhausted the NEWEST active
 sequence holding blocks is evicted: its blocks are freed, its context
@@ -17,8 +21,15 @@ re-prefilled, so decoding continues where it stopped. The oldest
 active sequence is never preempted, so it can always take the whole
 pool: no deadlock.
 
-Not ported yet: prefix-cache lookups, copy-on-write reservations and
-speculative verify rows.
+Prefix caching (``kv_pool.py``): admission makes the BINDING prefix
+lookup. A sequence about to prefill with no blocks acquires the longest
+resident full-block prefix of its tokens and moves ``ctx`` past it, so
+its prefill starts after the shared prefix (a preemption replay thus
+re-acquires the blocks its own rewind just cached). A chunk that starts
+inside a shared block reserves its copy-on-write block when planned.
+Under pool pressure, waiting sequences that pin prefix refs release them
+before any active sequence is preempted, which keeps the no-deadlock
+argument.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ PREFILL = "prefill"
 RUNNING = "running"
 FINISHED = "finished"
 
-StepPlan = namedtuple("StepPlan", ["decode", "prefill", "preempted"])
+StepPlan = namedtuple("StepPlan", ["decode", "prefill", "preempted",
+                                   "spec"])
 
 
 class Sequence:
@@ -52,7 +64,7 @@ class Sequence:
                  "top_p", "eos_token_id", "rng", "arrival_s",
                  "first_token_s", "last_token_s", "finish_s",
                  "finish_reason", "outcome", "preemptions", "events",
-                 "events_dropped")
+                 "events_dropped", "spec_off", "spec_hist")
 
     def __init__(self, req_id, prompt, *, max_new_tokens, temperature=0.0,
                  top_k=0, top_p=1.0, eos_token_id=None, seed=0,
@@ -80,6 +92,12 @@ class Sequence:
         self.preemptions = 0
         self.events: list[dict] = []
         self.events_dropped = 0
+        # speculative decoding (speculation.py): spec_off keeps the
+        # sequence on plain decode for the rest of its life; spec_hist
+        # is the rolling (proposed, accepted) window adaptive lookahead
+        # reads
+        self.spec_off = False
+        self.spec_hist: list[tuple[int, int]] = []
 
     @property
     def output_ids(self) -> list[int]:
@@ -102,7 +120,8 @@ class Sequence:
 class Scheduler:
     """Owns the waiting queue and the active set; plans one step."""
 
-    def __init__(self, pool, *, max_slots, prefill_chunk, token_budget):
+    def __init__(self, pool, *, max_slots, prefill_chunk, token_budget,
+                 spec_k=None):
         if max_slots < 1 or prefill_chunk < 1 or token_budget < 1:
             raise ValueError("max_slots, prefill_chunk and token_budget "
                              "must all be >= 1")
@@ -110,6 +129,9 @@ class Scheduler:
         self.max_slots = int(max_slots)
         self.prefill_chunk = int(prefill_chunk)
         self.token_budget = int(token_budget)
+        # the lookahead oracle (engine._spec_plan_k): draft tokens a
+        # RUNNING sequence wants this step; None = speculation off
+        self.spec_k = spec_k
         self.waiting: deque[Sequence] = deque()
         self.active: list[Sequence] = []
 
@@ -150,27 +172,82 @@ class Scheduler:
             cand = next((s for s in self.active if s.state == PREFILL),
                         None)
             if cand is not None:
+                if (self.pool.prefix_cache and cand.ctx == 0
+                        and not self.pool.holds(cand.req_id)):
+                    # the binding prefix lookup, just before compute:
+                    # rewound sequences and arrivals whose add_request
+                    # probe missed (an identical prompt may have
+                    # prefilled since) hit here
+                    c = self.pool.acquire_prefix(cand.req_id, cand.tokens)
+                    if c:
+                        cand.ctx = c
+                        note_event(cand, "prefix_hit", tokens=c)
                 n = min(self.prefill_chunk, budget,
                         cand.prefill_target - cand.ctx)
-                if n > 0 and self._make_room(cand, cand.ctx + n, preempted):
+                # a chunk starting inside a SHARED acquired block copies
+                # it on write: reserve that block now
+                if n > 0 and self._make_room(cand, cand.ctx + n, preempted,
+                                             cow_start=cand.ctx, cow_len=n):
                     prefill = (cand, cand.ctx, n)
 
         # a preemption while planning the prefill may have evicted a
         # member of the decode set; it holds no blocks anymore
         decode = [s for s in decode if s.state == RUNNING]
-        return StepPlan(decode, prefill, preempted)
+
+        # draft rows are priced against the same token budget as the
+        # prefill chunk. They never preempt and never count an OOM
+        # event: can_extend probes first, and a pool too tight for a
+        # guess halves it (down to 0)
+        spec: dict[int, int] = {}
+        if self.spec_k is not None and decode:
+            left = self.token_budget - len(decode) - (
+                0 if prefill is None else prefill[2])
+            for seq in decode:
+                if left <= 0:
+                    break
+                k = min(int(self.spec_k(seq)), left)
+                while k > 0:
+                    reserve = self.pool.cow_need(seq.req_id, seq.ctx, 1 + k)
+                    if self.pool.can_extend(seq.req_id, seq.ctx + 1 + k,
+                                            reserve=reserve):
+                        self.pool.ensure(seq.req_id, seq.ctx + 1 + k,
+                                         reserve=reserve)
+                        spec[seq.req_id] = k
+                        left -= k
+                        break
+                    k //= 2
+        return StepPlan(decode, prefill, preempted, spec)
 
     def _make_room(self, needy: Sequence, n_tokens: int,
-                   preempted: list[Sequence]) -> bool:
+                   preempted: list[Sequence], cow_start: int | None = None,
+                   cow_len: int = 1) -> bool:
         """ensure() with preemption by recompute. Returns False when
         ``needy`` itself had to be evicted; raises PoolOOM only when a
         LONE sequence cannot fit, which the engine's admission check
-        makes unreachable for accepted requests."""
+        makes unreachable for accepted requests.
+
+        Victims, cheapest first: a WAITING sequence pinning prefix refs
+        (releasing them recomputes nothing), then the newest ACTIVE
+        block holder. A victim whose blocks are shared frees less than
+        its table, so one allocation may take several victims; each
+        round lowers the total refcount, so the loop ends.
+        ``cow_start``/``cow_len`` also reserve the copy-on-write blocks
+        of the planned write, counted again each round (preempting the
+        other sharer can remove the need)."""
         while True:
+            reserve = (0 if cow_start is None
+                       else self.pool.cow_need(needy.req_id, cow_start,
+                                               cow_len))
             try:
-                self.pool.ensure(needy.req_id, n_tokens)
+                self.pool.ensure(needy.req_id, n_tokens, reserve=reserve)
                 return True
             except PoolOOM:
+                holders = [s for s in self.waiting
+                           if self.pool.holds(s.req_id)]
+                if holders:
+                    self._release_prefix(
+                        max(holders, key=lambda s: s.req_id))
+                    continue
                 # only sequences that HOLD blocks are useful victims
                 victims = [s for s in self.active
                            if s is not needy and self.pool.holds(s.req_id)]
@@ -182,6 +259,15 @@ class Scheduler:
                     self._preempt(needy, preempted)
                     return False
                 self._preempt(victim, preempted)
+
+    def _release_prefix(self, seq: Sequence) -> None:
+        """Drop a WAITING sequence's acquired prefix refs under pool
+        pressure: the blocks stay cached while unreferenced elsewhere,
+        its cursor rewinds to zero, and it keeps its place in the
+        queue; admission re-acquires what survives."""
+        self.pool.free_seq(seq.req_id)
+        seq.ctx = 0
+        note_event(seq, "prefix_released")
 
     def _preempt(self, seq: Sequence, preempted: list[Sequence]) -> None:
         ctx_discarded = seq.ctx

@@ -27,6 +27,7 @@ import torch
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.hopper import flash_attention as hop_fa
 from paddle_tpu_torch.ops.hopper.flash_attention import FlashAttentionFunction
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from paddle_tpu_torch.ops.hopper import bn_stats as hop_bn
 from paddle_tpu_torch.ops.hopper import paged_attention as hop_pa
 from paddle_tpu_torch.ops.hopper import rms_norm as hop_rms
 from paddle_tpu_torch.serving import paged_attention as torch_pa
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -442,6 +443,46 @@ def test_paged_attend_kernel_is_bitwise_repeatable(cuda, case):
     first = hop_pa.paged_attend_cuda(*args, kv_heads=2, head_dim=128)
     second = hop_pa.paged_attend_cuda(*args, kv_heads=2, head_dim=128)
     assert torch.equal(first, second)
+
+
+# the shapes the prefix cache and speculative decoding add to serving
+# (name, bs, max_blocks, s, positions, lengths, kv, g, d): verify rows
+# (last token + 7 drafts) at serving depths with an idle slot; a prefill
+# chunk from position 191, the last row of the 12th block, as after a
+# capped prefix hit on a 192-token prompt; the draft model's decode and
+# catch-up prefill at TinyLlama's 32 heads over 4 KV heads, head_dim 64
+SERVING_SHAPE_CASES = [
+    ("verify_b8_s8", 16, 64, 8, [160, 257, 300, 0, 415, 511, 544, 130],
+     [8, 8, 8, 0, 8, 8, 8, 8], 32, 1, 128),
+    ("prefill_s32_pos191", 16, 16, 32, [191], [32], 32, 1, 128),
+    ("draft_decode_b8_h32_kv4_d64", 16, 64, 1,
+     [0, 257, 300, 377, 415, 511, 544, 130], [0, 1, 1, 1, 1, 1, 1, 1], 4,
+     8, 64),
+    ("draft_prefill_s128_h32_kv4_d64", 16, 16, 128, [128], [128], 4, 8, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SERVING_SHAPE_CASES, ids=lambda c: c[0])
+def test_paged_attend_kernel_matches_plain_at_serving_shapes(cuda, case):
+    """K5 in bf16 at the prefix cache's and speculation's shapes equals
+    the plain version on the same pool, padding queries of idle rows
+    included (finite, never read by the engine)."""
+    _, bs, max_blocks, s, positions, lengths, kv, g, d = case
+    x = _paged_inputs(np.random.RandomState(3), bs=bs, max_blocks=max_blocks,
+                      s=s, positions=positions, lengths=lengths, kv=kv, g=g,
+                      d=d)
+    q, kb, vb = (torch.from_numpy(x[n]).to(cuda, torch.bfloat16)
+                 for n in ("q", "kbuf", "vbuf"))
+    tab = torch.from_numpy(x["tables"]).to(cuda)
+    pos = torch.from_numpy(x["positions"]).to(cuda)
+    got = hop_pa.paged_attend_cuda(q, kb, vb, tab, pos, kv_heads=kv,
+                                   head_dim=d)
+    want = hop_pa.paged_attend_reference(q, kb, vb, tab, pos, kv_heads=kv,
+                                         head_dim=d)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.gpu

@@ -24,6 +24,7 @@ from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu_torch import (LlamaConfig, LlamaForCausalLM, ServingEngine,
                               load_reference_state)
 from paddle_tpu_torch.serving import PagedLayerCache
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOM = dict(num_hidden_layers=2, num_key_value_heads=2,
             max_position_embeddings=96)
@@ -158,7 +159,8 @@ def _run_both(models, kw, requests):
     returns both engines and {request index: (jax tokens, port tokens)}."""
     jm, tm = models
     jeng = JServingEngine.from_model(jm, prefix_cache=False, **kw)
-    teng = ServingEngine.from_model(tm, device="cpu", **kw)
+    teng = ServingEngine.from_model(tm, device="cpu", prefix_cache=False,
+                                    **kw)
     jids = [jeng.add_request(p, **r) for p, r in requests]
     tids = [teng.add_request(p, **r) for p, r in requests]
     jdone, tdone = jeng.run(), teng.run()

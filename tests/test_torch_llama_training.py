@@ -37,6 +37,7 @@ from paddle_tpu_torch import (LlamaConfig, LlamaForCausalLM,  # noqa: E402
                               TrainStep, llama_loss_fn, load_reference_state)
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm  # noqa: E402
 from paddle_tpu_torch.optimizer import Adam, AdamW  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 GEOM = dict(max_position_embeddings=256)
 

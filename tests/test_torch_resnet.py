@@ -45,6 +45,7 @@ from paddle_tpu_torch.ops.hopper import bn_stats as hop_bn  # noqa: E402
 from paddle_tpu_torch.optimizer import Momentum  # noqa: E402
 from paddle_tpu_torch.vision.models import (  # noqa: E402
     BottleneckBlock, ResNet, resnet50)
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 DEPTH = [1, 1, 1, 1]
 CLASSES, BATCH, SIZE = 10, 2, 64

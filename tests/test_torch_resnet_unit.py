@@ -23,6 +23,7 @@ import torch
 
 from paddle_tpu_torch.ops.hopper import bn_stats as hop_bn
 from paddle_tpu_torch.ops.hopper import resnet_unit as hop_ru
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_REL = 1e-4
 
