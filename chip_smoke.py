@@ -42,6 +42,9 @@ ragged, 8-row, 128-channel and f16 cases), two calls bitwise equal, the
 times back to back and by CUDA-graph replay beside the library call,
 the plain version and the bound, and the wrapper's host microseconds per
 call.
+``python3 chip_smoke.py --tier`` runs the host tier and the robustness
+contract alone: K5 and K6 built, phase 6's host-tier and fault checks,
+then phases 7d and 7e.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -79,7 +82,14 @@ the run with a non-zero exit code and no result line:
    40-token prefix and an exact resubmit, which copies a block on write)
    with caching on and off; a repeat-heavy set under n-gram speculation
    and under a 2-layer f32 draft model of TinyLlama's widths. A mismatch
-   logs the dense path's top-2 logit gap.
+   logs the dense path's top-2 logit gap. Then bench.py's zipf-hosttier
+   mix reduced (12 requests, 3 system prompts of 64 tokens, suffixes of
+   1-8, 8 new, a cached set of 4 blocks), sequential, in its three runs
+   (device, host, cold): tokens equal dense greedy in all three, host
+   computes as many tokens as device and cold more; the host run again
+   under ``serving.decode:times=1`` and under
+   ``serving.host_tier.restore:times=1``: the fault-free tokens, every
+   outcome ok, the reference's retries, a clean pool.
 7. Serving at full Llama-2-7B (bf16, 32 layers; block 16, 8 slots,
    prefill chunk 128): 8 requests through the engine; throughput,
    TTFT/TPOT, peak memory, exact launch counts; then a short
@@ -95,7 +105,25 @@ the run with a non-zero exit code and no result line:
    TinyLlama-1.1B's geometry (22 layers, random weights). Each run logs
    TTFT, TPOT, tokens/s, peak memory, prefix and speculation counters,
    and holds its launches to K5 = 32 x target + 22 x draft dispatches and
-   K6 = 65 x target + 45 x draft dispatches.
+   K6 = 65 x target + 45 x draft dispatches. (d) bench.py's on-chip
+   zipf-hosttier mix (48 requests, 8 system prompts of 192 tokens,
+   suffixes of 1-32, RandomState(7); 16 new where bench.py has 32) in a
+   sequential closed loop,
+   three runs: device (unbounded cached set, a pool that holds
+   everything), host (a cached set of 24 blocks, the host tier on with 1
+   GiB), cold (24 blocks, tier off): host tokens equal device tokens,
+   host computes as many tokens as device, spills and host hits happen,
+   one spilled bf16 block round-trips byte-equal, launches exact; each
+   run's ``[serve:7d-<run>]`` lines add one block's D2H and H2D ms (CUDA
+   events). (e) the robustness contract on phase 7's mix, by counts and
+   states: ``serving.decode:times=1`` and ``serving.prefill:times=1``
+   (every request ok, one replay for each request of the failing plan,
+   SERVING -> DEGRADED -> SERVING after 8 clean steps, exact launches),
+   ``serving.host_tier.restore:times=1`` in a short 7d-style run (one
+   restore failure, no retry, no leaked block), a deadline shorter than
+   the decode (``expired`` with partial output), a cancel in flight,
+   ``serving_max_queue=4`` with 8 arrivals (4 ``queue_full`` sheds) and
+   ``drain()`` to STOPPED.
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
    the CPU (plain versions), then a 3-step TrainStep loss trajectory.
@@ -135,6 +163,7 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -1092,9 +1121,132 @@ def phase_parity():
             f"{engine.verify_dispatches}")
         check(engine.verify_dispatches > 0, f"spec={mode}: no verify row "
               f"was dispatched")
-    log(f"[parity] seconds={time.perf_counter() - t0}")
-    del model, engine, draft
+    del engine, draft
     release_device_memory()
+    phase_parity_tier(model)
+    log(f"[parity] seconds={time.perf_counter() - t0}")
+    del model
+    release_device_memory()
+
+
+@contextlib.contextmanager
+def port_flags(**kw):
+    """The port's FLAGS_* set for the block and restored after it; fault
+    rules are re-armed with zeroed counters."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import fault
+
+    old = flags.get_flags(list(kw))
+    flags.set_flags(kw)
+    fault.reset()
+    try:
+        yield
+    finally:
+        flags.set_flags(old)
+        fault.reset()
+
+
+def closed_loop(engine, prompts, max_new):
+    """bench.py's sequential replay: each request runs to its end before
+    the next arrives. Returns the finished Sequences in order."""
+    seqs = []
+    for p in prompts:
+        rid = engine.add_request(p, max_new_tokens=max_new)
+        seqs.append(engine.run()[rid])
+    return seqs
+
+
+def pool_clean(engine):
+    """Invariants hold and no request holds a block: every usable block
+    is free or cached."""
+    pool = engine.pool
+    pool.check_invariants()
+    return (not engine.requests
+            and pool.num_free + pool.num_cached == pool.num_usable)
+
+
+def hosttier_setup(mode, prompts, max_new, starved, block_size):
+    """(engine arguments, port flags) of one of bench.py's zipf-hosttier
+    runs (bench.py:897-1000): ``device``, an unbounded cached set and a
+    pool that holds every request's blocks at once (nothing is ever
+    evicted); ``host``, the cached set starved to ``starved`` blocks and
+    the host tier on; ``cold``, the same starved set, tier off."""
+    if mode == "device":
+        blocks = 1 + sum(-(-(len(p) + max_new) // block_size) + 1
+                         for p in prompts)
+        return (dict(prefix_cache=True, host_tier=False, pool_blocks=blocks),
+                dict(serving_prefix_cached_blocks=0))
+    return (dict(prefix_cache=True, host_tier=mode == "host"),
+            dict(serving_prefix_cached_blocks=starved))
+
+
+def phase_parity_tier(model):
+    """Phase 6, the host tier and the fault points (f32, 2 layers):
+    bench.py's zipf-hosttier mix reduced (12 requests, 3 system prompts
+    of 64 tokens, suffixes of 1-8, 8 new tokens, a cached set of 4 blocks
+    of 16) in its three runs: greedy tokens equal dense ``generate`` in
+    all three, ``host`` computes as many tokens as ``device`` and
+    ``cold`` more. Then the host run under ``serving.decode:times=1`` and
+    under ``serving.host_tier.restore:times=1``: the fault-free tokens,
+    every outcome ok, the retries the JAX package charges (one replay of
+    the request whose decode failed; none for a restore fault, which
+    falls back to a cold prefill) and a clean pool."""
+    from paddle_tpu_torch import ServingEngine
+
+    prompts = zipf_prompts(np.random.RandomState(7), model.config.vocab_size,
+                           12, 3, 64, 8)
+    check(3 * (64 // 16) > 4, "the hot prefixes must oversubscribe the "
+          "cached set")
+    out, computed = {}, {}
+    for mode in ("device", "host", "cold"):
+        kw, fl = hosttier_setup(mode, prompts, 8, 4, 16)
+        with port_flags(**fl):
+            engine = ServingEngine.from_model(model, block_size=16, **kw)
+            out[mode] = [s.output_ids for s in closed_loop(engine, prompts,
+                                                           8)]
+        check(pool_clean(engine), f"hosttier {mode}: the pool is not clean")
+        m = engine.metrics.snapshot()
+        computed[mode] = m["tokens_computed"]
+        log(f"[parity] hosttier {mode}: tokens_computed="
+            f"{m['tokens_computed']} prefix_hit_tokens="
+            f"{m['prefix_hit_tokens']} host_hits={m['host_tier_hits']} "
+            f"host_hit_tokens={m['host_tier_hit_tokens']} spills="
+            f"{m['host_tier_spills']}")
+        if mode == "host":
+            check(m["host_tier_hits"] > 0 and m["host_tier_spills"] > 0,
+                  "hosttier host: no spill or no host hit")
+    _check_greedy(model, "hosttier device", prompts, out["device"], 8)
+    check(out["host"] == out["device"] and out["cold"] == out["device"],
+          "hosttier: host or cold tokens differ from device tokens")
+    check(computed["host"] == computed["device"] < computed["cold"],
+          f"hosttier: tokens computed {computed} (want host == device < "
+          f"cold)")
+    kw, fl = hosttier_setup("host", prompts, 8, 4, 16)
+    for spec in ("serving.decode:times=1",
+                 "serving.host_tier.restore:times=1"):
+        with port_flags(fault_spec=spec, **fl):
+            engine = ServingEngine.from_model(model, block_size=16, **kw)
+            seqs = closed_loop(engine, prompts, 8)
+        retries = [s.retries for s in seqs]
+        m = engine.metrics.snapshot()
+        log(f"[parity] hosttier host {spec}: retries={retries} "
+            f"step_failures={m['step_failures']} restore_failures="
+            f"{engine.pool.host_restore_failures} outcomes="
+            f"{m['terminal_reasons']}")
+        check([s.output_ids for s in seqs] == out["host"],
+              f"{spec}: tokens differ from the fault-free run")
+        check(all(s.outcome == "ok" for s in seqs), f"{spec}: an outcome "
+              f"other than ok")
+        if "decode" in spec:
+            check(retries == [1] + [0] * 11
+                  and m["step_failures"] == {"decode": 1},
+                  f"{spec}: retries {retries}")
+        else:
+            check(retries == [0] * 12 and m["step_failures"] == {}
+                  and engine.pool.host_restore_failures == 1,
+                  f"{spec}: retries {retries}, restore failures "
+                  f"{engine.pool.host_restore_failures}")
+        check(pool_clean(engine), f"{spec}: the pool is not clean")
 
 
 # -- phase 7: full Llama-2-7B serving -----------------------------------------
@@ -1137,13 +1289,15 @@ def first_divergence(a, b):
             for p, q in zip(a, b)]
 
 
-def serve_run(engine, label, prompts, max_new):
-    """One burst of requests (every arrival at t0) through ``engine``:
-    every dispatch's logits checked finite, K5/K6 launches counted over
-    this run alone and held to 32 x target dispatches + 22 x draft
-    dispatches (K5) and 65 x target + 45 x draft (K6), each request held
-    to ``max_new`` tokens and the pool to its invariants. Logs the
-    run's numbers and returns them."""
+def serve_run(engine, label, prompts, max_new, closed_loop=False):
+    """One burst of requests (every arrival at t0) through ``engine``,
+    or with ``closed_loop`` bench.py's sequential replay (each request
+    arrives when the one before it finished): every dispatch's logits
+    checked finite, K5/K6 launches counted over this run alone and held
+    to 32 x target dispatches + 22 x draft dispatches (K5) and 65 x
+    target + 45 x draft (K6), each request held to ``max_new`` tokens
+    and outcome ok, and the pool to its invariants. Logs the run's
+    numbers and returns them."""
     from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
     from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
     from paddle_tpu_torch.serving.robustness import now_s
@@ -1163,11 +1317,18 @@ def serve_run(engine, label, prompts, max_new):
     dd0 = getattr(engine._proposer, "dispatches", 0)
     paged_attend_cuda.launches = 0
     rms_norm_cuda.launches = 0
-    t_arrival = now_s()
-    rids = [engine.add_request(p, max_new_tokens=max_new,
-                               arrival_s=t_arrival) for p in prompts]
     t0 = time.perf_counter()
-    done = engine.run()
+    if closed_loop:
+        rids, done = [], {}
+        for p in prompts:
+            rids.append(engine.add_request(p, max_new_tokens=max_new))
+            done.update(engine.run())
+    else:
+        t_arrival = now_s()
+        rids = [engine.add_request(p, max_new_tokens=max_new,
+                                   arrival_s=t_arrival) for p in prompts]
+        t0 = time.perf_counter()
+        done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
@@ -1187,7 +1348,11 @@ def serve_run(engine, label, prompts, max_new):
                  "tokens_computed", "prefix_hits", "prefix_hit_tokens",
                  "prefix_hit_rate", "cow_copies", "preemptions",
                  "spec_proposed", "spec_accepted", "spec_accept_rate",
-                 "spec_tokens_per_step_p50", "spec_tokens_per_step_p95")})
+                 "spec_tokens_per_step_p50", "spec_tokens_per_step_p95",
+                 "host_tier_hits", "host_tier_hit_tokens",
+                 "host_tier_spills", "host_tier_evictions",
+                 "host_tier_restore_failures", "host_tier_blocks",
+                 "host_tier_bytes", "terminal_reasons")})
     log(f"[serve:{label}] requests={len(prompts)} max_new={max_new} "
         + " ".join(f"{k}={v}" for k, v in r.items()
                    if k not in ("label", "outputs")))
@@ -1195,6 +1360,8 @@ def serve_run(engine, label, prompts, max_new):
           f"finished")
     check(all(len(done[i].output) == max_new for i in rids),
           f"{label}: a request finished with other than {max_new} tokens")
+    check(all(done[i].outcome == "ok" for i in rids),
+          f"{label}: a request finished with another outcome than ok")
     check(finite and all(finite), f"{label}: non-finite logits")
     check(k5 == LLAMA_LAYERS * n_target + draft_layers * n_draft,
           f"{label}: K5 launches {k5} != 32 x {n_target} + "
@@ -1221,24 +1388,16 @@ def phase_serving():
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)
     knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
-    # warm-up outside the timed run (first cuBLAS calls, allocator):
-    # one request through a throwaway engine with a small pool
-    warm = ServingEngine.from_model(model, pool_blocks=64, **knobs)
-    warm.add_request(list(range(1, 129)), max_new_tokens=2)
-    warm.run()
-    del warm
+    warm_serving(model, knobs)
     engine = ServingEngine.from_model(model, **knobs)
     torch.cuda.synchronize()
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     log(f"[serve] model+pool setup seconds={time.perf_counter() - t0} "
         f"pool_blocks={engine.pool.num_blocks} weight_bytes={weight_bytes}")
-    rng = np.random.default_rng(7)
-    lengths = rng.integers(128, 513, 8)
-    runs = {"main": serve_run(
-        engine, "main", [rng.integers(0, cfg.vocab_size, n).tolist()
-                         for n in lengths], 64)}
-    log(f"[serve] prompts={lengths.tolist()} phase_seconds="
+    prompts = phase7_mix(cfg.vocab_size)
+    runs = {"main": serve_run(engine, "main", prompts, 64)}
+    log(f"[serve] prompts={[len(p) for p in prompts]} phase_seconds="
         f"{json.dumps(engine.metrics.snapshot()['phase_seconds'])}")
     profile_window(engine, cfg.vocab_size)
     del engine
@@ -1286,9 +1445,361 @@ def phase_serving():
           "7c: the draft model made no dispatch")
     log(f"[serve:7c] seconds={time.perf_counter() - t0} draft weight_bytes="
         f"{sum(p.numel() * p.element_size() for p in draft.parameters())}")
-    del model, engine, draft
+    del engine, draft
+    release_device_memory()
+    runs.update(phase_hosttier(model, knobs))
+    phase_guardrails(model, knobs)
+    del model
     release_device_memory()
     return runs
+
+
+def warm_serving(model, knobs):
+    """Warm-up outside the timed runs (first cuBLAS calls, allocator):
+    one request through a throwaway engine with a small pool."""
+    from paddle_tpu_torch import ServingEngine
+
+    warm = ServingEngine.from_model(model, pool_blocks=64, **knobs)
+    warm.add_request(list(range(1, 129)), max_new_tokens=2)
+    warm.run()
+
+
+def tier_only():
+    """``--tier``: the host tier and the robustness contract alone: build
+    K5 and K6, run phase 6's host-tier and fault checks (f32, 2 layers at
+    Llama-2-7B width), then phases 7d and 7e on full Llama-2-7B in bf16.
+    Prints no result line."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import paged_attention, rms_norm
+
+    phase_device()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(lambda build: build(), (paged_attention.build,
+                                              rms_norm.build)))
+    log(f"[build] seconds={time.perf_counter() - t0}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=2,
+                                                   dtype="float32"), seed=0)
+    phase_parity_tier(model)
+    del model
+    release_device_memory()
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(dtype="bfloat16"), seed=0)
+    knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
+    warm_serving(model, knobs)
+    phase_hosttier(model, knobs)
+    phase_guardrails(model, knobs)
+    log(f"[tier] seconds={time.perf_counter() - t0}")
+    return 0
+
+
+def phase7_mix(vocab):
+    """Phase 7's requests: 8 prompts of 128-512 seeded tokens."""
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab, n).tolist()
+            for n in rng.integers(128, 513, 8)]
+
+
+# phase 7d: bench.py's on-chip zipf-hosttier mix (bench.py:939-945), its
+# 32 new tokens cut to 16 (at 32 the device and host runs took 51.9 and
+# 54.0 s on the card, so the three would pass 150 s)
+HOSTTIER_REQUESTS, HOSTTIER_PREFIXES, HOSTTIER_PREFIX_LEN = 48, 8, 192
+HOSTTIER_SUFFIX, HOSTTIER_NEW = 32, 16
+HOSTTIER_BYTES = 1 << 30
+
+
+def hosttier_prompts(vocab, n_req=HOSTTIER_REQUESTS):
+    return zipf_prompts(np.random.RandomState(7), vocab, HOSTTIER_REQUESTS,
+                        HOSTTIER_PREFIXES, HOSTTIER_PREFIX_LEN,
+                        HOSTTIER_SUFFIX)[:n_req]
+
+
+def watch_round_trip(pool, keep=64):
+    """Keep device copies of the blocks the pool spills (the latest spill
+    of each of up to ``keep`` token paths) and, at the first restore of
+    one of them, the block the restore wrote: ``seen["pair"]`` is then
+    (spilled, restored). The copies are taken on the pool's stream, so
+    they read the bytes before the spill and after the restore. Also
+    sums the host seconds spent in the pool's spill and restore calls
+    (enqueueing their copies; the copies themselves are asynchronous)."""
+    seen = {"spilled": {}, "pair": None, "spill_host_s": 0.0,
+            "restore_host_s": 0.0}
+    spill, restore = pool._spill_path, pool._restore_chain
+
+    def spill_probe(b, path):
+        if seen["pair"] is None and (path in seen["spilled"]
+                                     or len(seen["spilled"]) < keep):
+            seen["spilled"][path] = pool._kv[:, :, b].clone()
+        t0 = time.perf_counter()
+        spill(b, path)
+        seen["spill_host_s"] += time.perf_counter() - t0
+
+    def restore_probe(seq_id, chain, keys, tokens):
+        t0 = time.perf_counter()
+        blocks = restore(seq_id, chain, keys, tokens)
+        seen["restore_host_s"] += time.perf_counter() - t0
+        if seen["pair"] is None:
+            for key, b in zip(keys, blocks):
+                if key in seen["spilled"]:
+                    seen["pair"] = (seen["spilled"][key],
+                                    pool._kv[:, :, b].clone())
+                    seen["spilled"].clear()
+                    break
+        return blocks
+
+    pool._spill_path, pool._restore_chain = spill_probe, restore_probe
+    return seen
+
+
+def tier_copy_ms(pool, iters=20):
+    """CUDA-event ms of one block's copies as the host tier makes them:
+    every layer's K and V of a free block to pinned host memory (a gather
+    into a contiguous temporary, then one copy) and back (one copy, then
+    a scatter); and the host ms of allocating one new pinned block, as a
+    spill does when no freed one is cached (``iters`` allocations kept
+    alive, so each is new). Returns (d2h ms, h2d ms, alloc ms, bytes a
+    block)."""
+    b = pool._free[-1]
+    shape = pool._kv[:, :, b].shape
+    host = torch.empty(shape, dtype=pool.dtype, pin_memory=True)
+    d2h = time_ms(lambda: host.copy_(pool._kv[:, :, b], non_blocking=True),
+                  iters)
+    h2d = time_ms(lambda: pool._kv[:, :, b].copy_(host, non_blocking=True),
+                  iters)
+    t0 = time.perf_counter()
+    kept = [torch.empty(shape, dtype=pool.dtype, pin_memory=True)
+            for _ in range(iters)]
+    alloc = (time.perf_counter() - t0) * 1e3 / iters
+    del kept
+    return d2h, h2d, alloc, host.numel() * host.element_size()
+
+
+def phase_hosttier(model, knobs):
+    """Phase 7d: bench.py's on-chip zipf-hosttier mix at full Llama-2-7B
+    in bf16 (48 requests, 8 system prompts of 192 tokens, Zipf 1.2,
+    suffixes of 1-32, RandomState(7); 16 new tokens where bench.py has
+    32), sequential closed
+    loop, three runs: ``device`` (unbounded cached set, a pool that holds
+    everything), ``host`` (a cached set of 2 x 192/16 = 24 blocks, the
+    host tier on with 1 GiB) and ``cold`` (24 blocks, tier off). Host
+    tokens equal device tokens (restored bits are the spilled bits, and
+    the replay runs the same shapes), host computes as many tokens as
+    device, spills and host hits happen, one spilled block round-trips
+    byte-equal; cold is reported by its first divergence (its bf16
+    recompute runs in other shapes). Launches exact (serve_run). Each run
+    also times one block's D2H and H2D copy with CUDA events."""
+    from paddle_tpu_torch import ServingEngine
+
+    t_start = time.perf_counter()
+    vocab = model.config.vocab_size
+    prompts = hosttier_prompts(vocab)
+    bs = knobs["block_size"]
+    starved = 2 * (HOSTTIER_PREFIX_LEN // bs)
+    check(HOSTTIER_PREFIXES * (HOSTTIER_PREFIX_LEN // bs) > starved,
+          "7d: the hot prefixes must oversubscribe the cached set")
+    runs = {}
+    for mode in ("device", "host", "cold"):
+        kw, fl = hosttier_setup(mode, prompts, HOSTTIER_NEW, starved, bs)
+        fl["serving_host_tier_bytes"] = HOSTTIER_BYTES
+        label = f"7d-{mode}"
+        with port_flags(**fl):
+            engine = ServingEngine.from_model(model, **kw, **knobs)
+            watch = watch_round_trip(engine.pool) if mode == "host" else None
+            r = serve_run(engine, label, prompts, HOSTTIER_NEW,
+                          closed_loop=True)
+            if engine.pool.host_tier is not None:
+                r["tier"] = engine.pool.host_tier.stats()
+            # under the run's flags: the tier checks its byte cap
+            check(pool_clean(engine), f"{label}: the pool is not clean")
+        if watch is not None:
+            del engine.pool._spill_path, engine.pool._restore_chain
+            check(watch["pair"] is not None, "7d: no spilled block was "
+                  "restored")
+            check(torch.equal(*watch["pair"]), "7d: a restored bf16 block "
+                  "differs from the block spilled")
+            r["round_trip_equal"] = True
+            r["spill_host_s"] = watch["spill_host_s"]
+            r["restore_host_s"] = watch["restore_host_s"]
+            log(f"[serve:{label}] round_trip_equal=True spill_host_s="
+                f"{watch['spill_host_s']} restore_host_s="
+                f"{watch['restore_host_s']} (host seconds in the pool's "
+                f"spill and restore calls over the run)")
+            del watch
+        d2h, h2d, alloc, nbytes = tier_copy_ms(engine.pool)
+        r.update(d2h_ms_per_block=d2h, h2d_ms_per_block=h2d,
+                 pinned_alloc_ms_per_block=alloc, block_bytes=nbytes)
+        log(f"[serve:{label}] d2h_ms_per_block={d2h} h2d_ms_per_block={h2d}"
+            f" pinned_alloc_ms_per_block={alloc} (host)"
+            f" block_bytes={nbytes} d2h_gb_s={nbytes / d2h / 1e6} "
+            f"h2d_gb_s={nbytes / h2d / 1e6} host_tier={r.get('tier')}")
+        runs[f"7d_{mode}"] = r
+        del engine
+        release_device_memory()
+    dev, host, cold = (runs[f"7d_{m}"] for m in ("device", "host", "cold"))
+    check(host["outputs"] == dev["outputs"], "7d: host tokens differ from "
+          "device tokens")
+    check(host["tokens_computed"] == dev["tokens_computed"],
+          f"7d: host computed {host['tokens_computed']} tokens, device "
+          f"{dev['tokens_computed']}")
+    check(host["host_tier_spills"] > 0 and host["host_tier_hits"] > 0,
+          "7d: no spill or no host hit")
+    log(f"[serve:7d] seconds={time.perf_counter() - t_start} tokens_computed "
+        f"device/host/cold={dev['tokens_computed']}/{host['tokens_computed']}"
+        f"/{cold['tokens_computed']} first differing output token, cold "
+        f"against device, per request (-1: equal): "
+        f"{first_divergence(cold['outputs'], dev['outputs'])}")
+    return runs
+
+
+def _drive_states(engine):
+    """Step until no work is left; returns the finished Sequences by id
+    and the lifecycle state after each step."""
+    done, states = {}, []
+    while engine.has_work():
+        for seq in engine.step():
+            done[seq.req_id] = seq
+        states.append(engine.lifecycle.state)
+    return done, states
+
+
+def phase_guardrails(model, knobs):
+    """Phase 7e, full Llama-2-7B in bf16, phase 7's 8-request mix: the
+    robustness contract on the card, held by counts and states.
+    ``serving.decode:times=1`` and ``serving.prefill:times=1``: every
+    request ok, one step failure, one replay for each request of the
+    failing plan and none for the others, SERVING -> DEGRADED -> SERVING
+    after RECOVERY_CLEAN_STEPS clean steps, exact launches, a clean pool.
+    ``serving.host_tier.restore:times=1`` in a short 7d-style run: one
+    restore failure, every request ok without a retry, no leaked block.
+    A deadline shorter than the request's decode: ``expired`` with
+    partial output. A cancel in flight. ``serving_max_queue=4`` with 8
+    arrivals: 4 sheds (``queue_full``). ``drain()`` to STOPPED."""
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
+    from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
+    from paddle_tpu_torch.serving import RequestRejected
+    from paddle_tpu_torch.serving.robustness import RECOVERY_CLEAN_STEPS
+
+    t_start = time.perf_counter()
+    prompts = phase7_mix(model.config.vocab_size)
+    for site in ("decode", "prefill"):
+        with port_flags(fault_spec=f"serving.{site}:times=1"):
+            engine = ServingEngine.from_model(model, **knobs)
+            blamed = []
+            on_failure = engine._on_phase_failure
+
+            def record(planned, phase, exc, finished, _f=on_failure):
+                blamed.extend(s.req_id for s in planned)
+                _f(planned, phase, exc, finished)
+            engine._on_phase_failure = record
+            paged_attend_cuda.launches = rms_norm_cuda.launches = 0
+            rids = [engine.add_request(p, max_new_tokens=32) for p in prompts]
+            done, states = _drive_states(engine)
+            k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
+            del engine._on_phase_failure
+        retries = {r: done[r].retries for r in rids}
+        first = states.index("degraded") if "degraded" in states else -1
+        log(f"[serve:7e] serving.{site}:times=1 blamed={blamed} retries="
+            f"{retries} step_failures={engine.metrics.step_failures} "
+            f"states={states} dispatches={engine.dispatches} k5={k5} k6={k6}")
+        check(all(done[r].outcome == "ok" and len(done[r].output) == 32
+                  for r in rids), f"7e {site}: a request did not finish ok")
+        check(engine.metrics.step_failures == {site: 1},
+              f"7e {site}: step failures {engine.metrics.step_failures}")
+        check(len(blamed) >= 1 and retries == {
+            r: int(r in blamed) for r in rids}, f"7e {site}: retries "
+            f"{retries}, blamed {blamed}")
+        check(first >= 0 and states[first:first + RECOVERY_CLEAN_STEPS]
+              == ["degraded"] * RECOVERY_CLEAN_STEPS
+              and states[first + RECOVERY_CLEAN_STEPS] == "serving",
+              f"7e {site}: lifecycle {states}")
+        check(k5 == LLAMA_LAYERS * engine.dispatches
+              and k6 == (2 * LLAMA_LAYERS + 1) * engine.dispatches,
+              f"7e {site}: launches K5 {k5} K6 {k6} for "
+              f"{engine.dispatches} dispatches")
+        check(pool_clean(engine), f"7e {site}: the pool is not clean")
+        del engine
+        release_device_memory()
+
+    short = hosttier_prompts(model.config.vocab_size, 12)
+    kw, fl = hosttier_setup("host", short, 8, 2 * (HOSTTIER_PREFIX_LEN
+                                                   // knobs["block_size"]),
+                            knobs["block_size"])
+    with port_flags(fault_spec="serving.host_tier.restore:times=1",
+                    serving_host_tier_bytes=HOSTTIER_BYTES, **fl):
+        engine = ServingEngine.from_model(model, **kw, **knobs)
+        seqs = closed_loop(engine, short, 8)
+        pool = engine.pool
+        tier = pool.host_tier.stats()
+        clean = pool_clean(engine)
+    log(f"[serve:7e] serving.host_tier.restore:times=1 restore_failures="
+        f"{pool.host_restore_failures} host_hits={pool.host_hits} "
+        f"tier={tier} retries={[s.retries for s in seqs]}")
+    check(pool.host_restore_failures == 1, "7e restore: want one restore "
+          "failure")
+    check(all(s.outcome == "ok" and s.retries == 0 for s in seqs),
+          "7e restore: a request did not finish ok without a retry")
+    check(clean, "7e restore: a block leaked")
+    del engine, pool
+    release_device_memory()
+
+    engine = ServingEngine.from_model(model, **knobs)
+    # the deadline: twice one 8-token run of the same prompt, so the
+    # request (its prefix cached by then) expires mid-decode
+    t0 = time.perf_counter()
+    closed_loop(engine, prompts[:1], 8)
+    probe_s = time.perf_counter() - t0
+    rid = engine.add_request(prompts[0], max_new_tokens=128,
+                             deadline_s=2 * probe_s)
+    seq = engine.run()[rid]
+    log(f"[serve:7e] deadline_s={2 * probe_s} outcome={seq.outcome} "
+        f"output_tokens={len(seq.output)}")
+    check(seq.outcome == "expired" and 1 <= len(seq.output) < 128,
+          f"7e deadline: outcome {seq.outcome} with {len(seq.output)} tokens")
+
+    r1 = engine.add_request(prompts[1], max_new_tokens=32)
+    r2 = engine.add_request(prompts[2], max_new_tokens=32)
+    while not engine.requests[r1].output:
+        engine.step()
+    cancelled = engine.cancel(r1)
+    done = engine.run()
+    log(f"[serve:7e] cancel: outcome={cancelled.outcome} output_tokens="
+        f"{len(cancelled.output)} other={done[r2].outcome}")
+    check(cancelled.outcome == "cancelled" and cancelled.output
+          and engine.pool.table(r1) == [] and r1 not in done
+          and done[r2].outcome == "ok", "7e cancel")
+
+    causes = []
+    with port_flags(serving_max_queue=4):
+        for p in prompts:
+            try:
+                engine.add_request(p, max_new_tokens=8)
+            except RequestRejected as e:
+                causes.append(e.cause)
+    done = engine.run()
+    log(f"[serve:7e] max_queue=4, 8 arrivals: sheds={engine.metrics.sheds} "
+        f"causes={causes} finished={len(done)}")
+    check(causes == ["queue_full"] * 4
+          and engine.metrics.sheds == {"queue_full": 4}
+          and sorted(s.outcome for s in done.values()) == ["ok"] * 4,
+          "7e shedding")
+
+    rids = [engine.add_request(p, max_new_tokens=8) for p in prompts[:2]]
+    done = engine.drain()
+    try:
+        engine.add_request(prompts[0], max_new_tokens=8)
+        refused = None
+    except RequestRejected as e:
+        refused = e.cause
+    log(f"[serve:7e] drain: state={engine.lifecycle.state} outcomes="
+        f"{[done[r].outcome for r in rids]} refused={refused} "
+        f"terminal={engine.metrics.terminal} seconds="
+        f"{time.perf_counter() - t_start}")
+    check(engine.lifecycle.state == "stopped" and refused == "draining"
+          and all(done[r].outcome == "ok" for r in rids), "7e drain")
+    check(pool_clean(engine), "7e: the pool is not clean")
+    del engine
+    release_device_memory()
 
 
 # K5's family: its split kernels (paged_attend_kernel_cc, _tc) and merge
@@ -2756,6 +3267,8 @@ def main() -> int:
         return k7_only()
     if argv == ["--norms"]:
         return norms_only()
+    if argv == ["--tier"]:
+        return tier_only()
     t_start = time.perf_counter()
     name, count, _ = phase_device()
     phase_build()

@@ -3,9 +3,11 @@
 One registry, three surfaces: :func:`define_flag` at import time,
 ``FLAGS_*`` environment variables read when a flag is defined, and
 :func:`set_flags` / :func:`get_flags` at run time. Only the flags the
-serving slice (with its prefix cache and speculative decoding) and the
-ResNet model read are defined here; ``serving_host_tier`` is not: the
-host tier is not ported, and its engine argument raises. The attention,
+serving slice (with its prefix cache, speculative decoding, host-RAM
+tier and robustness contract) and the ResNet model read are defined
+here; ``fault_spec`` is defined beside its registry in
+``distributed/fault.py``, which re-arms the rules whenever it changes
+(``on_change``). The attention,
 RMSNorm and BN-statistics kernels are not chosen by flags: the tensor's
 device picks between a kernel and its plain version. The two ResNet
 flags below choose something else, a different composition of the
@@ -16,21 +18,22 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any
+from typing import Any, Callable
 
 _LOCK = threading.RLock()
 _REGISTRY: dict[str, "_Flag"] = {}
 
 
 class _Flag:
-    __slots__ = ("name", "type", "value", "default", "help")
+    __slots__ = ("name", "type", "value", "default", "help", "on_change")
 
-    def __init__(self, name, type_, default, help_):
+    def __init__(self, name, type_, default, help_, on_change=None):
         self.name = name
         self.type = type_
         self.default = default
         self.value = default
         self.help = help_
+        self.on_change = on_change
 
 
 def _parse(type_: type, raw: str) -> Any:
@@ -40,11 +43,13 @@ def _parse(type_: type, raw: str) -> Any:
 
 
 def define_flag(name: str, default: Any, help: str = "",
-                type: type | None = None) -> None:
-    """Register a flag. Env var ``FLAGS_<name>`` overrides the default."""
+                type: type | None = None,
+                on_change: Callable[[Any], None] | None = None) -> None:
+    """Register a flag. Env var ``FLAGS_<name>`` overrides the default.
+    ``on_change(value)`` runs after every :func:`set_flags` of it."""
     type_ = type if type is not None else default.__class__
     with _LOCK:
-        flag = _Flag(name, type_, default, help)
+        flag = _Flag(name, type_, default, help, on_change)
         env = os.environ.get("FLAGS_" + name)
         if env is not None:
             flag.value = _parse(type_, env)
@@ -67,6 +72,8 @@ def set_flags(flags: dict[str, Any]) -> None:
                 flag.value = _parse(flag.type, value)
             else:
                 flag.value = flag.type(value)
+            if flag.on_change is not None:
+                flag.on_change(flag.value)
 
 
 def get_flags(names: str | list[str]) -> dict[str, Any]:
@@ -95,6 +102,27 @@ define_flag("serving_pool_blocks", 0,
 define_flag("serving_token_budget", 0,
             "tokens of work per engine step (decodes + prefill chunk); 0 "
             "means prefill_chunk + max_batch_slots")
+define_flag("serving_max_queue", 0,
+            "bounded admission (serving/robustness.py): max WAITING "
+            "requests per engine — an arrival finding the queue full "
+            "is SHED at add_request (RequestRejected, terminal reason "
+            "'shed') instead of growing the deque forever; 0 "
+            "(default) = unbounded")
+define_flag("serving_step_retries", 2,
+            "step-failure isolation: recompute attempts per sequence "
+            "(over its lifetime) after an exception in its "
+            "prefill/decode/sample plan component — the replay reuses "
+            "preemption-by-recompute (blocks freed, prompt+output "
+            "re-prefilled); beyond the budget the sequence is "
+            "quarantined with terminal reason 'failed' while every "
+            "other sequence keeps serving. 0 = quarantine on first "
+            "failure")
+define_flag("serving_hung_step_s", 0.0,
+            "hung-step detector threshold (seconds): an engine step "
+            "exceeding this is reported (robustness._report_degraded) "
+            "and flips the engine lifecycle to DEGRADED until "
+            "clean steps accumulate; 0 (default) disables",
+            type=float)
 define_flag("serving_prefix_cache", True,
             "prefix caching + copy-on-write KV sharing in the paged "
             "pool (serving/kv_pool.py): full blocks are refcounted "
@@ -110,6 +138,36 @@ define_flag("serving_prefix_cached_blocks", 0,
             "evicted to the free list immediately. 0 = unbounded: "
             "cached blocks are reclaimable capacity the allocator "
             "evicts under pressure anyway")
+define_flag("serving_prefix_min_blocks", 1,
+            "minimum matched FULL blocks before a prefix lookup "
+            "counts as a hit and bumps refcounts — shorter matches "
+            "skip sharing (the bookkeeping outweighs a sub-block "
+            "saving); 1 (default) shares from the first full block")
+define_flag("serving_host_tier", False,
+            "host-RAM spill tier behind the paged pool's prefix cache "
+            "(serving/host_tier.py): blocks evicted from the device "
+            "cached-LRU set copy their contents + token path to a "
+            "bounded host store instead of vanishing, and a prefix "
+            "hit on a host-resident chain restores them through an "
+            "asynchronous host-to-device block copy on the engine's "
+            "stream, ahead of the request's cold-suffix prefill. "
+            "Default off — every existing eviction/allocation path "
+            "stays the same. Requires FLAGS_serving_prefix_cache; "
+            "binds at pool construction")
+define_flag("serving_host_tier_bytes", 1 << 26,
+            "host-tier capacity in bytes of spilled K+V payload "
+            "(2 * layers * block_size * kv_heads * head_dim * "
+            "itemsize per block); beyond it the LRU host entry is "
+            "dropped. 0 keeps the tier empty (spills copy and "
+            "immediately age out). Read per spill, so a change takes "
+            "effect at the next eviction. Default 64 MiB")
+define_flag("serving_host_tier_restore_frac", 0.35,
+            "admission price of one host-resident prefix token "
+            "(robustness.AdmissionController.priced_tokens), as a "
+            "fraction of a cold token: the restore is a host-to-device "
+            "block copy, cheaper than recompute but not free, so a "
+            "host hit must shed-price strictly between a device hit "
+            "(0.0) and cold (1.0). Clamped to [0, 1]", type=float)
 define_flag("serving_spec", "off",
             "speculative decoding mode for the serving engine "
             "(serving/speculation.py): 'ngram' = prompt/output n-gram "
@@ -135,6 +193,12 @@ define_flag("serving_spec_min_accept", 0.0,
             "per-sequence rolling-acceptance floor for adaptive "
             "lookahead: below it a sequence's lookahead backs off to 1 "
             "draft until acceptance recovers; 0 disables back-off",
+            type=float)
+define_flag("serving_drain_timeout_s", 30.0,
+            "default ServingEngine.drain() deadline: in-flight "
+            "requests get this many seconds to finish after "
+            "admissions stop; stragglers still running at the "
+            "deadline are finished with terminal reason 'cancelled'",
             type=float)
 
 # -- vision (vision/models/resnet.py, nn/functional/norm.py) ----------------

@@ -37,11 +37,29 @@ accepted + 1 tokens per row, and ``pool.trim`` rewinds the rejected
 positions. A step where no row drafts takes the plain ``[max_slots, 1]``
 decode. Greedy outputs equal the dense path's.
 
-Not ported yet: the host-RAM prefix tier (``host_tier`` raises),
-deadlines and cancellation, load shedding and admission pricing,
-step-failure quarantine (a failing proposer is not caught), drain and
-health, telemetry, fleet hooks, and CUDA graphs for the decode
-signature.
+Host-RAM tier (``host_tier.py``, ``FLAGS_serving_host_tier``, off by
+default): blocks leaving the device cached set spill to a bounded host
+store and restore on reuse (``kv_pool.py``); admission prices a host hit
+between a device hit and a cold prompt.
+
+SLO guardrails (``robustness.py``): per-request deadlines and
+``cancel()``, bounded admission with load shedding
+(``FLAGS_serving_max_queue`` and the estimated queue delay), step-failure
+isolation with quarantine after ``FLAGS_serving_step_retries`` recompute
+replays, a hung-step detector, fault points (``serving.prefill``,
+``serving.decode``, ``serving.sample``, ``serving.pool_alloc``,
+``serving.host_tier.restore``, ``serving.spec.propose``,
+``serving.spec.verify`` under ``FLAGS_fault_spec``, all outside the
+device step), and the SERVING -> DEGRADED -> DRAINING -> STOPPED
+lifecycle with ``drain()`` and ``health()``. A proposer or verify fault
+degrades exactly that sequence to plain decode. Every request leaves
+with one terminal outcome (ok, expired, cancelled, shed, failed) on
+``Sequence.outcome``.
+
+Not ported yet: telemetry (spans, flight dumps, gauges, the goodput
+ledger), the fleet hooks (publishing, routing signals, request
+handoff and migration: ``export_request``/``import_request``), and CUDA
+graphs for the decode signature.
 """
 
 from __future__ import annotations
@@ -51,10 +69,15 @@ import torch
 
 from ..flags import flag_value
 from ..framework.device import resolve_device
+from . import robustness
 from .kv_pool import KVBlockPool, PoolOOM
 from .metrics import STEP_PHASES, ServingMetrics
 from .paged_attention import gather_copy_blocks, paged_forward
-from .robustness import OK, note_event, now_s
+from .robustness import (CANCELLED, DRAINING, OK, STOPPED,
+                         AdmissionController, Lifecycle, RequestRejected,
+                         SampleFailures, check_hung_step, fault_point,
+                         handle_schedule_failure, handle_step_failure,
+                         note_event, now_s, sweep_deadlines)
 from .scheduler import RUNNING, Scheduler, Sequence
 from .speculation import (SPEC_MODES, adaptive_k, build_proposer,
                           note_acceptance, processed_probs, verify_draft)
@@ -74,9 +97,9 @@ def sample_token(logits: np.ndarray, seq: Sequence) -> int:
 class ServingEngine:
     """Continuous-batching engine over a model exposing
     ``forward(ids, kv_caches=..., position_offset=..., logits_rows=...)
-    -> (logits, caches)``. ``prefix_cache`` and ``spec`` default to their
-    flags; ``spec="draft"`` needs ``draft_model``, a smaller model of the
-    same vocabulary on the same device."""
+    -> (logits, caches)``. ``prefix_cache``, ``spec`` and ``host_tier``
+    default to their flags; ``spec="draft"`` needs ``draft_model``, a
+    smaller model of the same vocabulary on the same device."""
 
     def __init__(self, model, *, num_layers, kv_heads, head_dim,
                  max_context, eos_token_id=None, block_size=None,
@@ -151,8 +174,16 @@ class ServingEngine:
         self._next_id = 0
         self._oom_seen = 0
         self._prefix_seen = (0, 0, 0, 0)
+        # host-tier counter high-water, the same per-step delta pattern
+        self._host_seen = (0, 0, 0, 0, 0)
+        self.lifecycle = Lifecycle()
+        self._admission = AdmissionController()
+        self._last_step_s = None
         self._sample_s = 0.0
         self._step_t0 = now_s()
+        # lifetime proposal/acceptance totals for health()
+        self._spec_proposed_life = 0
+        self._spec_accepted_life = 0
         # the verify width W: a power of two covering 1 + lookahead, so
         # the batch shape never varies with a sequence's adaptive k
         self._proposer = None
@@ -180,81 +211,179 @@ class ServingEngine:
     # -- request API -------------------------------------------------------
     def add_request(self, prompt, *, max_new_tokens=16, temperature=0.0,
                     top_k=0, top_p=1.0, eos_token_id=None, seed=0,
-                    arrival_s=None) -> int:
+                    arrival_s=None, deadline_s=None) -> int:
         """Queue a request; returns its id. Rejects what could never
-        complete: the scheduler's no-deadlock argument assumes every
-        admitted request fits the pool alone. ``arrival_s`` (a
-        ``robustness.now_s`` time) back-dates the TTFT clock."""
+        complete (the scheduler's no-deadlock argument assumes every
+        admitted request fits the pool alone) and SHEDS, with
+        :class:`RequestRejected` (a ValueError), what the engine should
+        not take on: requests beyond ``max_context``, a full waiting
+        queue (``FLAGS_serving_max_queue``), an estimated queue delay
+        already past the request's deadline, or a draining or stopped
+        engine. ``arrival_s`` (a ``robustness.now_s`` time) back-dates
+        the TTFT clock; ``deadline_s`` (seconds from arrival) arms a
+        deadline, after which the request finishes ``expired`` wherever
+        it is."""
+        if self.lifecycle.state in (DRAINING, STOPPED):
+            self.metrics.on_shed("draining")
+            raise RequestRejected(
+                "draining", f"engine is {self.lifecycle.state}; "
+                f"not accepting new requests")
         prompt = np.asarray(prompt).reshape(-1).tolist()
+        total = len(prompt) + int(max_new_tokens)
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if not np.isfinite(temperature):
             raise ValueError(f"non-finite temperature {temperature!r}")
-        total = len(prompt) + int(max_new_tokens)
+        if deadline_s is not None and float(deadline_s) <= 0.0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         if total > self.max_context:
-            raise ValueError(
+            # it could never reach its prefill target: shed at the door
+            self.metrics.on_shed("max_context")
+            raise RequestRejected(
+                "max_context",
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
                 f"exceeds max context {self.max_context}")
         # the final emitted token's KV is never written: the worst-case
         # pool need is total-1 tokens
         if self.pool.blocks_for(total - 1) > self.pool.num_usable:
+            self.metrics.on_shed("pool_capacity")
             raise PoolOOM(
                 f"request needs {self.pool.blocks_for(total - 1)} "
                 f"blocks; the whole pool has {self.pool.num_usable}")
+        # the deadline runs from ARRIVAL: a back-dated arrival has
+        # already used part of it, so shedding sees what is left
+        remaining_s = None
+        if deadline_s is not None:
+            remaining_s = float(deadline_s)
+            if arrival_s is not None:
+                remaining_s -= max(0.0, now_s() - float(arrival_s))
+            if remaining_s <= 0.0:
+                self.metrics.on_shed("est_delay")
+                raise RequestRejected(
+                    "est_delay",
+                    f"deadline {deadline_s}s was already consumed by "
+                    f"pre-admission queueing: the request would expire "
+                    f"before its first token")
+        # cache-aware pricing: a resident prefix costs only the uncached
+        # prefill, a host-resident one prices between a device hit and
+        # cold; the peek is read-only
+        dev_hint, host_hint = self.pool.peek_prefix_tiered(prompt)
+        self._admission.check(
+            self.metrics, self.scheduler, remaining_s,
+            own_tokens=self._admission.priced_tokens(
+                len(prompt), int(max_new_tokens), dev_hint, host_hint))
         rid = self._next_id
         self._next_id += 1
         seq = Sequence(rid, prompt, max_new_tokens=max_new_tokens,
                        temperature=temperature, top_k=top_k, top_p=top_p,
                        eos_token_id=(self.eos_token_id if eos_token_id is None
                                      else eos_token_id),
-                       seed=seed, arrival_s=arrival_s)
+                       seed=seed, arrival_s=arrival_s, deadline_s=deadline_s)
+        note_event(seq, "arrival", t_s=seq.arrival_s,
+                   prompt_len=seq.prompt_len)
         if self.pool.prefix_cache:
             # pin the resident prefix now so it cannot be evicted while
             # the request queues; a total miss leaves its hit/miss
             # accounting to the binding lookup at admission
             seq.ctx = self.pool.acquire_prefix(rid, seq.tokens,
                                                defer_miss=True)
-        note_event(seq, "arrival", t_s=seq.arrival_s,
-                   prompt_len=seq.prompt_len)
+            if seq.ctx:
+                note_event(seq, "prefix_hit", tokens=seq.ctx)
+                restored = self.pool.take_last_restored()
+                if restored:
+                    note_event(seq, "host_restore", tokens=restored)
         self.requests[rid] = seq
         self.scheduler.add(seq)
         self.metrics.on_arrival()
         return rid
 
+    def cancel(self, req_id: int) -> Sequence | None:
+        """Cancel an in-flight request (waiting, prefilling or
+        decoding): its blocks are freed at once, it finishes with
+        terminal reason ``cancelled``, and the Sequence (with any
+        partial output) is returned; it will not also appear in a later
+        ``step()``'s finished list. Unknown or finished ids return None.
+        Call between steps."""
+        seq = self.requests.get(req_id)
+        if seq is None:
+            return None
+        self._finish_terminal(seq, CANCELLED, [])
+        return seq
+
     def has_work(self) -> bool:
         return self.scheduler.has_work()
 
     def step(self) -> list[Sequence]:
-        """One engine iteration: plan, prefill one chunk, decode the
-        batch. Returns the sequences that FINISHED this step."""
+        """One engine iteration: sweep deadlines, plan, prefill one
+        chunk, decode the batch. Returns the sequences that FINISHED this
+        step (every terminal outcome)."""
         finished: list[Sequence] = []
-        t_step = self._step_t0 = now_s()
-        plan = self.scheduler.schedule()
-        phases = dict.fromkeys(STEP_PHASES, 0.0)
-        phases["schedule"] = now_s() - t_step
         self._sample_s = 0.0
+        t_step = self._step_t0 = now_s()
+        sweep_deadlines(self, t_step, finished)
+        t0 = now_s()
+        try:
+            plan = self.scheduler.schedule()
+        except ConnectionError as e:
+            # a planning blip (an injected serving.pool_alloc fault): no
+            # plan component to blame, nobody is charged a retry, and the
+            # step yields nothing. Planning may have preempted victims
+            # before raising, so every draft state is dropped
+            if self._proposer is not None:
+                for rid in self.requests:
+                    self._proposer.forget(rid)
+            handle_schedule_failure(self, e)
+            return finished
+        phases = dict.fromkeys(STEP_PHASES, 0.0)
+        phases["schedule"] = now_s() - t0
         for seq in plan.preempted:
             self.metrics.on_preempt()
             self._spec_forget(seq)   # rewound blocks invalidate draft K/V
         self.metrics.pool_oom_events += self.pool.oom_events - self._oom_seen
         self._oom_seen = self.pool.oom_events
+        t0 = now_s()
+        step_failed = False
+        tokens_done = 0
         if plan.prefill is not None:
-            t0, s0 = now_s(), self._sample_s
-            self._run_prefill(*plan.prefill, finished)
-            phases["prefill"] = (now_s() - t0) - (self._sample_s - s0)
+            seq, start, n = plan.prefill
+            tp, s0 = now_s(), self._sample_s
+            try:
+                self._run_prefill(seq, start, n, finished)
+                tokens_done += n
+            except Exception as e:
+                step_failed = True
+                self._on_phase_failure([seq], "prefill", e, finished)
+            finally:
+                phases["prefill"] = (now_s() - tp) - (self._sample_s - s0)
         if plan.decode:
-            t0, s0 = now_s(), self._sample_s
-            if plan.spec:
-                self._run_spec_decode(plan.decode, plan.spec, finished)
-            else:
-                self._run_decode(plan.decode, finished)
-            phases["decode"] = (now_s() - t0) - (self._sample_s - s0)
-        if plan.prefill is None and not plan.decode and self.has_work():
+            td, s0 = now_s(), self._sample_s
+            try:
+                if plan.spec:
+                    tokens_done += self._run_spec_decode(
+                        plan.decode, plan.spec, finished)
+                else:
+                    self._run_decode(plan.decode, finished)
+                    tokens_done += len(plan.decode)
+            except Exception as e:
+                step_failed = True
+                self._on_phase_failure(plan.decode, "decode", e, finished)
+            finally:
+                phases["decode"] = (now_s() - td) - (self._sample_s - s0)
+        if (not step_failed and plan.prefill is None and not plan.decode
+                and self.has_work()):
             raise RuntimeError("scheduler made no progress with work "
                                "pending: pool/budget configuration bug")
         phases["sample"] = self._sample_s
         phases["other"] = max(0.0, (now_s() - t_step) - sum(
             phases[p] for p in ("schedule", "prefill", "decode", "sample")))
+        # the admission EWMA and the hung-step detector rate the compute
+        # part of the step, not the sweep and planning
+        compute_s = now_s() - t0
+        self._last_step_s = compute_s
+        self._admission.note_step(tokens_done, compute_s)
+        hung = check_hung_step(self, compute_s)
+        if not step_failed and not hung:
+            self.lifecycle.note_clean_step()
         # the pool counts hits and copies as they happen (add_request's
         # acquisitions too); the metrics take the delta once a step
         cur = (self.pool.prefix_hits, self.pool.prefix_hit_tokens,
@@ -263,6 +392,15 @@ class ServingEngine:
                                  zip(cur, self._prefix_seen)),
                                cached_blocks=self.pool.num_cached)
         self._prefix_seen = cur
+        tier = self.pool.host_tier
+        if tier is not None:
+            hcur = (self.pool.host_hits, self.pool.host_hit_tokens,
+                    tier.spills, tier.evictions,
+                    self.pool.host_restore_failures)
+            self.metrics.on_host_tier(
+                *(a - b for a, b in zip(hcur, self._host_seen)),
+                blocks=len(tier), nbytes=tier.bytes)
+            self._host_seen = hcur
         self.metrics.on_phases(phases)
         self.metrics.on_step(decode_slots=len(plan.decode),
                              total_slots=self.max_slots,
@@ -280,6 +418,147 @@ class ServingEngine:
             if max_steps is not None and steps >= max_steps:
                 break
         return done
+
+    # -- lifecycle ---------------------------------------------------------
+    def drain(self, deadline_s: float | None = None) -> dict[int, Sequence]:
+        """Graceful shutdown: stop admissions (new ``add_request`` calls
+        shed with cause ``draining``), run every in-flight request to
+        completion under a deadline (``FLAGS_serving_drain_timeout_s``
+        when None), finish stragglers still in flight at the deadline
+        with terminal reason ``cancelled``, and land in STOPPED. Returns
+        everything that finished during the drain, keyed by request id.
+        Draining a STOPPED engine returns {}."""
+        if self.lifecycle.state == STOPPED:
+            return {}
+        self.lifecycle.to(DRAINING)
+        if deadline_s is None:
+            deadline_s = float(flag_value("serving_drain_timeout_s"))
+        deadline = now_s() + float(deadline_s)
+        done: dict[int, Sequence] = {}
+        while self.has_work() and now_s() < deadline:
+            for seq in self.step():
+                done[seq.req_id] = seq
+        for seq in list(self.requests.values()):   # deadline stragglers
+            self._finish_terminal(seq, CANCELLED, [])
+            done[seq.req_id] = seq
+        self.lifecycle.to(STOPPED)
+        return done
+
+    def readiness_probe(self) -> bool:
+        """One scratch prefill and decode round trip through the model,
+        the gate before a respawned replica takes traffic. Every write
+        lands in the pool's scratch block 0 (all-zero tables), so no
+        scheduler or pool state moves. A third, timed decode dispatch
+        seeds a cold admission estimator. Returns False (and reports)
+        instead of raising."""
+        try:
+            ids = np.zeros((1, self._bucket(1)), np.int32)
+            last = self._dispatch(
+                ids, np.asarray([0], np.int32), np.asarray([1], np.int32),
+                np.zeros((1, self.max_blocks), np.int32))
+            if not np.all(np.isfinite(last)):
+                return False
+            zeros = np.zeros(self.max_slots, np.int32)
+            last = self._dispatch(
+                np.zeros((self.max_slots, 1), np.int32), zeros, zeros,
+                np.zeros((self.max_slots, self.max_blocks), np.int32))
+            if not np.all(np.isfinite(last)):
+                return False
+            # the dispatch returns host logits, so the device is done
+            t0 = now_s()
+            last = self._dispatch(
+                np.zeros((self.max_slots, 1), np.int32), zeros, zeros,
+                np.zeros((self.max_slots, self.max_blocks), np.int32))
+            probe_s = now_s() - t0
+            if probe_s > 0.0:
+                self._admission.seed(self.max_slots / probe_s)
+            return bool(np.all(np.isfinite(last)))
+        except Exception as e:
+            robustness._report_degraded("serving.readiness_probe", e)
+            return False
+
+    def health(self) -> dict:
+        """One self-describing snapshot of engine liveness, the serving
+        analog of a /healthz body."""
+        m = self.metrics
+        return {
+            "state": self.lifecycle.state,
+            "state_since_s": self.lifecycle.since_s,
+            "degraded_reason": self.lifecycle.degraded_reason,
+            "waiting": len(self.scheduler.waiting),
+            "active": len(self.scheduler.active),
+            "in_flight": len(self.requests),
+            "pool_utilization": round(self.pool.utilization, 4),
+            "steps": m.steps,
+            "last_step_s": self._last_step_s,
+            "estimated_queue_delay_s": round(
+                self._admission.estimated_delay_s(self.scheduler), 6),
+            "occupancy": len(self.scheduler.active) / max(self.max_slots, 1),
+            "resident_tokens": sum(s.ctx for s in self.requests.values()),
+            "terminal_reasons": dict(m.terminal),
+            "sheds": dict(m.sheds),
+            "step_failures": dict(m.step_failures),
+            "hung_steps": m.hung_steps,
+            "tokens_computed": m.tokens_computed,
+            "spec": {
+                "mode": self.spec_mode,
+                "proposer": (None if self._proposer is None
+                             else self._proposer.name),
+                "lookahead": (self._spec_k
+                              if self.spec_mode != "off" else 0),
+                "proposed": self._spec_proposed_life,
+                "accepted": self._spec_accepted_life,
+                "accept_rate": (
+                    None if self._spec_proposed_life <= 0
+                    else round(self._spec_accepted_life
+                               / self._spec_proposed_life, 4)),
+            },
+            # from the pool's own lifetime counters
+            "prefix_cache": {
+                "enabled": self.pool.prefix_cache,
+                "hits": self.pool.prefix_hits,
+                "hit_tokens": self.pool.prefix_hit_tokens,
+                "miss_tokens": self.pool.prefix_miss_tokens,
+                "cow_copies": self.pool.cow_copies,
+                "cached_blocks": self.pool.num_cached,
+            },
+            # host-tier residency and restore traffic (None: tier off)
+            "host_tier": (None if self.pool.host_tier is None else {
+                "hits": self.pool.host_hits,
+                "hit_tokens": self.pool.host_hit_tokens,
+                "restore_failures": self.pool.host_restore_failures,
+                **self.pool.host_tier.stats(),
+            }),
+        }
+
+    def _on_phase_failure(self, planned: list[Sequence], phase: str,
+                          exc: Exception, finished: list[Sequence]) -> None:
+        """Blame for a failing plan component. Host-side sampling
+        failures name their rows (SampleFailures), so only those
+        sequences are charged a retry; a dispatch failure cannot be
+        attributed and charges the whole component."""
+        if isinstance(exc, SampleFailures):
+            for seq, row_exc in exc.failures:
+                handle_step_failure(self, [seq], phase, row_exc, finished)
+        else:
+            handle_step_failure(self, planned, phase, exc, finished)
+
+    def _finish_terminal(self, seq: Sequence, reason: str,
+                         finished: list[Sequence]) -> None:
+        """Finish a sequence OUTSIDE the eos/length path (expired,
+        cancelled, failed): blocks freed from wherever it is, removed
+        from the in-flight map, the terminal reason recorded on the
+        Sequence and in the metrics."""
+        seq.finish_reason = reason
+        seq.outcome = reason
+        seq.finish_s = now_s()
+        self.scheduler.remove(seq)
+        self.requests.pop(seq.req_id, None)
+        self.metrics.on_terminal(reason)
+        self._spec_forget(seq)
+        note_event(seq, "terminal", outcome=reason,
+                   output_tokens=len(seq.output))
+        finished.append(seq)
 
     # -- device step -------------------------------------------------------
     def _dispatch(self, ids, positions, lengths, block_tables) -> np.ndarray:
@@ -328,6 +607,10 @@ class ServingEngine:
     # -- prefill / decode --------------------------------------------------
     def _run_prefill(self, seq: Sequence, start: int, n: int,
                      finished: list[Sequence]) -> None:
+        # fault point BEFORE the dispatch: the pool buffers stay
+        # untouched and the recompute replay is exact
+        fault_point("serving.prefill", step=self.metrics.steps,
+                    key=str(seq.req_id))
         # a chunk starting inside a SHARED acquired block copies it first
         # (the scheduler reserved the block when it planned the chunk)
         self._apply_cow(self.pool.prepare_write(seq.req_id, start, n))
@@ -338,15 +621,21 @@ class ServingEngine:
                               self._table_row(seq)[None, :])
         seq.ctx = start + n
         self.pool.register_prefix_blocks(seq.req_id, seq.tokens, seq.ctx)
+        # the chunk's K/V exists now: count it even if sampling fails
         self.metrics.on_tokens_computed(n)
         note_event(seq, "prefill_chunk", start=start, tokens=n)
         if seq.ctx >= seq.prefill_target:
             # the chunk that completes the context yields the next token
-            # (a fresh prompt and a preemption replay alike)
-            self._emit(seq, self._sample(last[0], seq), finished)
+            # (a fresh prompt and a replay alike)
+            try:
+                tok = self._sample(last[0], seq)
+            except Exception as e:
+                raise SampleFailures([(seq, e)]) from e
+            self._emit(seq, tok, finished)
 
     def _run_decode(self, seqs: list[Sequence],
                     finished: list[Sequence]) -> None:
+        fault_point("serving.decode", step=self.metrics.steps)
         s_slots = self.max_slots
         ids = np.zeros((s_slots, 1), np.int32)
         positions = np.zeros(s_slots, np.int32)
@@ -365,13 +654,24 @@ class ServingEngine:
             lengths[i] = 1
             tables[i] = self._table_row(seq)
         last = self._dispatch(ids, positions, lengths, tables)
-        self.metrics.on_tokens_computed(len(seqs))
+        row_failures = []
         for i, seq in enumerate(seqs):
             seq.ctx += 1
-            tok = self._sample(last[i], seq)
+            try:
+                tok = self._sample(last[i], seq)
+            except Exception as e:
+                # back to ctx == len(tokens) - 1 before recovery (the
+                # replay rewrites this row's K/V); the other rows'
+                # logits are valid, so they keep emitting
+                seq.ctx -= 1
+                row_failures.append((seq, e))
+                continue
+            self.metrics.on_tokens_computed(1)
             self.pool.register_prefix_blocks(seq.req_id, seq.tokens,
                                              seq.ctx)
             self._emit(seq, tok, finished)
+        if row_failures:
+            raise SampleFailures(row_failures)
 
     # -- speculative decoding ----------------------------------------------
     def _spec_plan_k(self, seq: Sequence) -> int:
@@ -394,20 +694,40 @@ class ServingEngine:
         if self._proposer is not None:
             self._proposer.forget(seq.req_id)
 
+    def _spec_degrade(self, seq: Sequence, site: str,
+                      exc: Exception) -> None:
+        """A proposer or verify failure is a SPEED fault, not a
+        correctness one: plain decode serves the sequence just as
+        correctly. Degrade exactly this sequence to plain decode for the
+        rest of its life: one report, no retry charged, no quarantine."""
+        robustness._report_degraded(site, exc)
+        seq.spec_off = True
+        note_event(seq, "spec_degraded", site=site)
+        self._spec_forget(seq)
+
     def _run_spec_decode(self, seqs: list[Sequence], plan_k: dict,
-                         finished: list[Sequence]) -> None:
+                         finished: list[Sequence]) -> int:
         """Decode with verify rows: every RUNNING sequence rides the
         ``[max_slots, W]`` full-logits batch, a drafting row with its
         last token + k drafts, a plain row with length 1. Acceptance
         keeps the longest draft prefix the target would have produced;
-        ``pool.trim`` rewinds the rejected positions."""
+        ``pool.trim`` rewinds the rejected positions. Returns the tokens
+        dispatched (the admission estimator's measure of work)."""
+        # propose BEFORE the decode fault point, so a propose fault
+        # degrades without using the decode site's times= budget
         drafts: dict[int, list[int]] = {}
         for seq in seqs:
             k = int(plan_k.get(seq.req_id, 0))
             if k <= 0 or seq.spec_off:
                 continue
-            d = [int(t) for t in
-                 self._proposer.propose(seq, k, self._table_row(seq))[:k]]
+            try:
+                fault_point("serving.spec.propose", step=self.metrics.steps,
+                            key=str(seq.req_id))
+                d = self._proposer.propose(seq, k, self._table_row(seq))
+            except Exception as e:
+                self._spec_degrade(seq, "serving.spec.propose", e)
+                continue
+            d = [int(t) for t in d[:k]]
             if d:
                 drafts[seq.req_id] = d
         if not drafts:
@@ -418,7 +738,8 @@ class ServingEngine:
             for seq in seqs:
                 self.pool.trim(seq.req_id, seq.ctx + 1)
             self._run_decode(seqs, finished)
-            return
+            return len(seqs)
+        fault_point("serving.decode", step=self.metrics.steps)
         s_slots, w = self.max_slots, self._spec_width
         ids = np.zeros((s_slots, w), np.int32)
         positions = np.zeros(s_slots, np.int32)
@@ -438,15 +759,46 @@ class ServingEngine:
             rows.append((i, seq, d, m))
         self._apply_cow(copies)
         full = self._dispatch_full(ids, positions, lengths, tables)
+        n_tokens = int(sum(m for _, _, _, m in rows))
         step_accepted = 0
+        row_failures = []
         for i, seq, d, m in rows:
             start = seq.ctx
-            t0 = now_s()
+            toks = None
+            accepted = 0
             if d:
-                toks, accepted = verify_draft(full[i, :m], d, seq)
-            else:
-                toks, accepted = [sample_token(full[i, 0], seq)], 0
-            self._sample_s += now_s() - t0
+                try:
+                    # the per-emission fault point keeps targeting a
+                    # request whose emissions ride verify rows; it fires
+                    # before any draw, so a replay samples from an
+                    # unconsumed stream
+                    fault_point("serving.sample", step=self.metrics.steps,
+                                key=str(seq.req_id))
+                except Exception as e:
+                    row_failures.append((seq, e))
+                    continue
+                t0 = now_s()
+                try:
+                    fault_point("serving.spec.verify",
+                                step=self.metrics.steps, key=str(seq.req_id))
+                    toks, accepted = verify_draft(full[i, :m], d, seq)
+                except Exception as e:
+                    # the row's first position is the plain decode's own
+                    # distribution: degrade and fall through to it. d is
+                    # cleared so a fault is never charged to the
+                    # proposer's acceptance; the dispatched drafts still
+                    # count as computed work
+                    self._spec_degrade(seq, "serving.spec.verify", e)
+                    toks, accepted, d = None, 0, []
+                finally:
+                    self._sample_s += now_s() - t0
+            if toks is None:
+                try:
+                    toks = [self._sample(full[i, 0], seq)]
+                except Exception as e:
+                    # the row emits nothing; the replay rewinds its K/V
+                    row_failures.append((seq, e))
+                    continue
             # tokens past eos or the length limit are dropped
             emitted, out_len = 0, len(seq.output)
             eos = seq.eos_token_id
@@ -473,11 +825,16 @@ class ServingEngine:
             self._note_token_gaps(seq, emitted, now_s(), prev)
             if d:
                 self.metrics.on_spec_verify(len(d), accepted)
+                self._spec_proposed_life += len(d)
+                self._spec_accepted_life += accepted
                 note_acceptance(seq, len(d), accepted)
                 step_accepted += max(0, emitted - 1)
                 if not seq.is_finished:
                     self._proposer.observe(seq, start, len(d))
         self.metrics.on_spec_step(step_accepted)
+        if row_failures:
+            raise SampleFailures(row_failures)
+        return n_tokens
 
     def _note_token_gaps(self, seq: Sequence, m: int, now: float,
                          prev: float | None) -> None:
@@ -496,8 +853,13 @@ class ServingEngine:
         seq.last_token_s = now
 
     def _sample(self, logits_row: np.ndarray, seq: Sequence) -> int:
+        # fault point per emission: a mid-batch failure leaves earlier
+        # rows emitted; the replay keeps emitted tokens verbatim (the
+        # request's generator advances only on real draws)
         t0 = now_s()
         try:
+            fault_point("serving.sample", step=self.metrics.steps,
+                        key=str(seq.req_id))
             return sample_token(logits_row, seq)
         finally:
             self._sample_s += now_s() - t0
@@ -531,7 +893,7 @@ class ServingEngine:
             note_event(seq, "terminal", t_s=now, outcome=OK,
                        reason=seq.finish_reason)
             self._spec_forget(seq)
-            self.scheduler.finish(seq)
+            self.scheduler.remove(seq)
             self.requests.pop(seq.req_id, None)   # the caller owns it now
             finished.append(seq)
 

@@ -32,24 +32,51 @@ idle decode slots write there, so the step needs no conditional write.
 Scratch contents are garbage by design and the attention mask
 guarantees they are never read by a real row.
 
+TIERED eviction (``FLAGS_serving_host_tier``, ``host_tier.py``): a
+block leaving the device cached set (cap eviction, allocator reclaim or
+a parent's cascade) SPILLS its contents under its full token path to a
+bounded LRU host-RAM store instead of vanishing, and
+:meth:`KVBlockPool.acquire_prefix` on a chain whose continuation is
+host-resident restores those blocks into fresh device blocks before it
+moves the request past them. A token path is resident in exactly ONE
+tier: a spill moves it host-ward, a restore (or a cold recompute that
+re-registers the path) moves it back, and ``check_invariants`` enforces
+it. Restores draw from the FREE list only and never evict device-cached
+chains to make room (two tiers trading the same blocks would thrash).
+
+Device layout: all layers' K and V live in ONE tensor
+``[2, num_layers, num_blocks, block_size, kv_heads, head_dim]``;
+``kbufs[l]`` and ``vbufs[l]`` are its contiguous per-layer views. So one
+block of every layer is one strided slice: a spill is one device-to-host
+copy into a pinned host block (after one gather into a contiguous
+temporary), a restore one host-to-device copy and one scatter, not
+``2 * num_layers`` copies each. On a CUDA pool both run with
+``non_blocking=True`` on the current stream, so they are ordered before
+the next write to the block and before the prefill that reads it; the
+pool keeps each copy's host tensors referenced until an event recorded
+after the copy has passed. Host code that reads a spilled entry's bytes
+synchronises first.
+
 Allocation is all-or-nothing: :meth:`KVBlockPool.ensure` either extends
 a table to cover the requested tokens (plus a copy-on-write
 reservation) or raises :class:`PoolOOM` with the pool untouched; the
-scheduler's preemption depends on that.
-
-Not ported yet: the host-RAM tier behind the cached set (``host_tier``
-raises) and ``export_seq``/``import_seq``.
+scheduler's preemption depends on that. Its ``serving.pool_alloc``
+fault point (``distributed/fault.py``) fires before any accounting, so
+an injected blip leaves the pool as a refused allocation would.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..flags import flag_value
 from ..framework.device import resolve_device
+from .host_tier import HostTier
+from .robustness import fault_point
 
 # sentinel parent id for the first block of a token path in the prefix
 # index (block ids are >= 1, so -1 can never collide)
@@ -94,11 +121,6 @@ class KVBlockPool:
     def __init__(self, *, num_layers, num_blocks, block_size, kv_heads,
                  head_dim, dtype=torch.float32, device=None,
                  prefix_cache=None, host_tier=None):
-        if host_tier:
-            # not ported: refuse rather than run without the tier
-            raise ValueError(
-                "host_tier=True: the host-RAM prefix tier is not ported "
-                "yet (ROADMAP queue 1, item 5)")
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is the reserved "
@@ -112,14 +134,14 @@ class KVBlockPool:
         self.head_dim = int(head_dim)
         self.dtype = dtype
         self.device = resolve_device(device)
-        shape = (self.num_blocks, self.block_size, self.kv_heads,
-                 self.head_dim)
         # zeros: scratch and never-written blocks hold finite values,
-        # which idle rows and masked columns may read
-        self.kbufs = [torch.zeros(shape, dtype=dtype, device=self.device)
-                      for _ in range(self.num_layers)]
-        self.vbufs = [torch.zeros(shape, dtype=dtype, device=self.device)
-                      for _ in range(self.num_layers)]
+        # which idle rows and masked columns may read. One tensor for
+        # every layer's K and V, so a block of all layers is one slice
+        self._kv = torch.zeros(
+            (2, self.num_layers, self.num_blocks, self.block_size,
+             self.kv_heads, self.head_dim), dtype=dtype, device=self.device)
+        self.kbufs = list(self._kv[0])
+        self.vbufs = list(self._kv[1])
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._free_set = set(self._free)
         self._tables: dict[int, list[int]] = {}
@@ -138,6 +160,16 @@ class KVBlockPool:
         self._registered: dict[int, int] = {}
         self.prefix_cache = (bool(flag_value("serving_prefix_cache"))
                              if prefix_cache is None else bool(prefix_cache))
+        # the host-RAM spill tier: built only when both the prefix cache
+        # and the flag (or argument) say so; None leaves every eviction
+        # and allocation path as it is without it
+        if host_tier is None:
+            host_tier = bool(flag_value("serving_host_tier"))
+        self.host_tier = (HostTier()
+                          if (self.prefix_cache and host_tier) else None)
+        # (event, host tensors) of asynchronous tier copies still in
+        # flight on the device, oldest first
+        self._inflight: deque = deque()
         self.allocs = 0
         self.frees = 0
         self.oom_events = 0
@@ -146,6 +178,10 @@ class KVBlockPool:
         self.prefix_miss_tokens = 0   # cacheable tokens with no match
         self.cow_copies = 0           # copy-on-write block duplications
         self.cached_evictions = 0     # cached blocks reclaimed/aged out
+        self.host_hits = 0            # acquires that restored host blocks
+        self.host_hit_tokens = 0      # tokens served from restored blocks
+        self.host_restore_failures = 0  # restore-path faults (fell cold)
+        self._last_restored = 0       # host tokens of the LAST acquire
 
     # -- capacity accounting ---------------------------------------------
     @property
@@ -184,16 +220,57 @@ class KVBlockPool:
         """Whether seq_id references any blocks."""
         return bool(self._tables.get(seq_id))
 
+    # -- host tier plumbing ------------------------------------------------
+    def _hold(self, tensors) -> None:
+        """Keep the host tensors of an asynchronous copy just enqueued
+        on the current stream alive until an event recorded after it has
+        passed, and let go of those whose copies have landed."""
+        if self.device.type != "cuda":
+            return
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._inflight.append((event, tensors))
+        while self._inflight and self._inflight[0][0].query():
+            self._inflight.popleft()
+
+    def _token_path(self, b: int) -> tuple:
+        """Block b's full token tuple from the chain root: the host
+        tier's self-anchoring key (the index's ``(parent, tokens)`` key
+        dies with the parent's block id). Only valid while b is
+        registered; every ancestor is then registered too
+        (deregistration cascades children out with their parent)."""
+        parts = []
+        while b != _ROOT:
+            key = self._block_key[b]
+            parts.append(key[1])
+            b = key[0]
+        return tuple(t for part in reversed(parts) for t in part)
+
+    def _spill_path(self, b: int, path: tuple) -> None:
+        """Copy block b of every layer to the host tier under its token
+        path: called just before b leaves the device cached set, while
+        its content still matches the path. On a CUDA pool the copy
+        lands in pinned memory asynchronously, ordered before any later
+        write to b on the same stream."""
+        blk = self._kv[:, :, b]               # [2, layers, bs, kv, d]
+        if self.device.type == "cuda":
+            host = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
+            host.copy_(blk, non_blocking=True)
+            self._hold(host)
+        else:
+            host = blk.clone()
+        self.host_tier.put(path, host)
+
     def _take_block(self) -> int:
-        """One block off the free list, or the LRU cached block
-        (deregistered) when the free list is empty. The caller
-        guarantees one is available."""
+        """One block off the free list, or the LRU cached block (spilled
+        to the host tier, then deregistered) when the free list is
+        empty. The caller guarantees one is available."""
         if self._free:
             b = self._free.pop()
             self._free_set.discard(b)
             return b
         b, _ = self._cached.popitem(last=False)
-        self._deregister(b)
+        self._deregister(b, spill=True)
         self.cached_evictions += 1
         return b
 
@@ -203,7 +280,9 @@ class KVBlockPool:
         that many more reclaimable blocks WITHOUT allocating them: the
         scheduler passes the pending copy-on-write count
         (:meth:`cow_need`), so a planned write never lacks its COW
-        block."""
+        block. The ``serving.pool_alloc`` fault point fires before any
+        accounting."""
+        fault_point("serving.pool_alloc", key=str(seq_id))
         tab = self._tables.setdefault(seq_id, [])
         need = self.blocks_for(n_tokens) - len(tab)
         if need <= 0 and reserve <= 0:
@@ -248,7 +327,7 @@ class KVBlockPool:
         if cap > 0:
             while len(self._cached) > cap:
                 b, _ = self._cached.popitem(last=False)
-                self._deregister(b)
+                self._deregister(b, spill=True)
                 self._free.append(b)
                 self._free_set.add(b)
                 self.cached_evictions += 1
@@ -300,30 +379,54 @@ class KVBlockPool:
             parent = b
         return chain
 
+    def _capped_hit_n(self, n_blocks: int, tokens) -> int:
+        """Tokens a matched run of ``n_blocks`` may serve, capped at
+        ``len(tokens) - 1`` (the last token is always recomputed, so the
+        forward pass yields the logits of the next one). Matches below
+        ``FLAGS_serving_prefix_min_blocks`` do not count."""
+        if n_blocks < max(1, int(flag_value("serving_prefix_min_blocks"))):
+            return 0
+        return min(n_blocks * self.block_size, len(tokens) - 1)
+
     def _capped_hit(self, chain, tokens) -> int:
-        """Tokens a matched chain may serve, capped at ``len(tokens) - 1``
-        (the last token is always recomputed, so the forward pass yields
-        the logits of the next one). Any whole block counts, as with the
-        JAX package's default ``serving_prefix_min_blocks`` of 1."""
-        return min(len(chain) * self.block_size, len(tokens) - 1)
+        return self._capped_hit_n(len(chain), tokens)
+
+    def _host_extension(self, tokens, chain) -> list[tuple]:
+        """Host-tier keys continuing the device chain, truncated to what
+        a restore could take from the FREE list right now: restores
+        never evict device-cached chains to make room."""
+        ext = self.host_tier.match_extension(tokens, len(chain),
+                                             self.block_size)
+        return ext[:len(self._free)]
 
     def peek_prefix_tiered(self, tokens) -> tuple:
         """``(device_tokens, host_tokens)`` a request with these tokens
-        would start past, acquiring nothing. Without the host tier the
-        second is always 0."""
+        would start past on a prefix hit, acquiring and restoring
+        nothing: the admission price's split (a host token costs a
+        host-to-device copy, not a recompute). The host share is bounded
+        by the current free list, as :meth:`acquire_prefix` would
+        restore."""
         if not self.prefix_cache or len(tokens) < 2:
             return (0, 0)
-        return (self._capped_hit(self._match_chain(tokens), tokens), 0)
+        chain = self._match_chain(tokens)
+        dev = self._capped_hit(chain, tokens)
+        if self.host_tier is None:
+            return (dev, 0)
+        ext = self._host_extension(tokens, chain)
+        total = self._capped_hit_n(len(chain) + len(ext), tokens)
+        return (dev, max(0, total - dev))
 
     def peek_prefix(self, tokens) -> int:
-        """Resident tokens a request with these tokens would start past
-        on a prefix hit, acquiring nothing."""
-        return sum(self.peek_prefix_tiered(tokens))
+        """Resident tokens across BOTH tiers a request with these tokens
+        would start past on a prefix hit, acquiring nothing."""
+        dev, host = self.peek_prefix_tiered(tokens)
+        return dev + host
 
     def acquire_prefix(self, seq_id: int, tokens,
                        defer_miss: bool = False) -> int:
         """Point seq_id's (empty) table at the longest resident
-        full-block prefix of ``tokens``, bumping refcounts; returns the
+        full-block prefix of ``tokens``, bumping refcounts and restoring
+        its host-resident continuation into fresh blocks; returns the
         number of cached tokens (the caller moves its context cursor
         there). Acquired blocks leave the cached set. ``defer_miss``
         (the add_request probe) skips miss accounting on a total miss:
@@ -334,8 +437,22 @@ class KVBlockPool:
         if self._tables.get(seq_id):
             raise RuntimeError(
                 f"acquire_prefix: seq {seq_id} already holds blocks")
+        self._last_restored = 0
         chain = self._match_chain(tokens) if len(tokens) >= 2 else []
-        c = self._capped_hit(chain, tokens)
+        ext: list[tuple] = []
+        if self.host_tier is not None and len(tokens) >= 2:
+            ext = self._host_extension(tokens, chain)
+        c = self._capped_hit_n(len(chain) + len(ext), tokens)
+        restored: list[int] = []
+        if c > 0 and ext:
+            n_host = max(0, -(-c // self.block_size) - len(chain))
+            if n_host:
+                restored = self._restore_chain(seq_id, chain,
+                                               ext[:n_host], tokens)
+                if not restored:
+                    # restore-path fault: fall back to the device-only
+                    # hit (the suffix prefills cold, to the same tokens)
+                    c = self._capped_hit(chain, tokens)
         if c <= 0:
             if not defer_miss:
                 self.prefix_miss_tokens += max(0, len(tokens) - 1)
@@ -347,13 +464,80 @@ class KVBlockPool:
                 del self._cached[b]
             self._ref[b] = self._ref.get(b, 0) + 1
             tab.append(b)
-        # the acquired blocks are in the index already: registration
-        # for this seq resumes after them
+        for b in restored:
+            self._ref[b] = 1
+            tab.append(b)
+        # the acquired blocks are in the index already (restored ones
+        # re-registered by _restore_chain): registration for this seq
+        # resumes after them
         self._registered[seq_id] = len(tab)
         self.prefix_hits += 1
         self.prefix_hit_tokens += c
         self.prefix_miss_tokens += max(0, len(tokens) - 1 - c)
+        if restored:
+            host_tok = c - (n_keep - len(restored)) * self.block_size
+            self.host_hits += 1
+            self.host_hit_tokens += host_tok
+            self._last_restored = host_tok
         return c
+
+    def _restore_chain(self, seq_id: int, chain, keys, tokens) -> list:
+        """Restore ``keys``' host entries into fresh device blocks and
+        re-register them in the prefix index, anchored on the device
+        chain's tail. All-or-nothing: returns the new block ids in chain
+        order, or [] when the restore path faulted. The staging pin is
+        released on EVERY path, and the ``serving.host_tier.restore``
+        fault point fires BEFORE any pool state moves, so a fault falls
+        back to a cold prefill with no leaked block and both tiers
+        intact. Only a ConnectionError (which ``FaultInjected`` is) is
+        such a fault; anything else propagates.
+
+        On a CUDA pool each block is one asynchronous host-to-device
+        copy from pinned memory plus one scatter into every layer, on
+        the current stream, so the prefill that reads these blocks is
+        ordered after it. The caller guarantees ``len(keys)`` free
+        blocks (:meth:`_host_extension` truncated to the free list)."""
+        staging = self.host_tier.stage_restore(tuple(keys))
+        ok = False
+        try:
+            fault_point("serving.host_tier.restore", key=str(seq_id))
+            blocks = []
+            for _ in keys:
+                b = self._free.pop()
+                self._free_set.discard(b)
+                blocks.append(b)
+            self.allocs += len(blocks)
+            cuda = self.device.type == "cuda"
+            for b, entry in zip(blocks, staging.entries):
+                self._kv[:, :, b].copy_(entry.block, non_blocking=cuda)
+            self._hold([e.block for e in staging.entries])
+            bs = self.block_size
+            parent = chain[-1] if chain else _ROOT
+            base = len(chain)
+            for j, b in enumerate(blocks):
+                key = (parent,
+                       tuple(tokens[(base + j) * bs:(base + j + 1) * bs]))
+                self._index[key] = b
+                self._block_key[b] = key
+                if parent != _ROOT:
+                    self._children.setdefault(parent, set()).add(b)
+                parent = b
+            ok = True
+            return blocks
+        except ConnectionError:
+            # an injected (or real) restore blip; anything else is a bug
+            # and propagates
+            self.host_restore_failures += 1
+            return []
+        finally:
+            self.host_tier.release_restore(staging, consumed=ok)
+
+    def take_last_restored(self) -> int:
+        """Tokens the LAST :meth:`acquire_prefix` served from restored
+        host blocks (0 when none); read-and-clear, for the caller's
+        ``host_restore`` event."""
+        n, self._last_restored = self._last_restored, 0
+        return n
 
     def register_prefix_blocks(self, seq_id: int, tokens, ctx: int) -> None:
         """Index every full block of seq_id's table whose content is now
@@ -391,17 +575,37 @@ class KVBlockPool:
                 self._block_key[b] = key
                 if parent != _ROOT:
                     self._children.setdefault(parent, set()).add(b)
+                if self.host_tier is not None:
+                    # a path recomputed cold while still host-resident
+                    # (after a faulted or partial restore) would live in
+                    # BOTH tiers: the fresh device registration wins
+                    self.host_tier.drop(tuple(tokens[:(done + 1) * bs]))
             done += 1
         self._registered[seq_id] = done
 
-    def _deregister(self, b: int) -> None:
+    def _deregister(self, b: int, spill: bool = False,
+                    _path: tuple | None = None) -> None:
         """Drop block b's index entry (it is reused or written in place)
         and CASCADE its registered descendants out: their keys name b as
         parent and would resolve a wrong token path once b holds new
         content. Cascaded blocks parked in the cached set are
-        unreachable capacity, returned to the free list at once."""
+        unreachable capacity, returned to the free list at once.
+
+        ``spill=True`` copies b to the host tier first (departures from
+        the cached set: cap eviction, allocator reclaim); only valid
+        while b's content still matches its path. Cascaded CACHED
+        children always spill when the tier is on: their content is
+        still right for their own paths. ``_path`` carries b's token
+        path down the recursion (a child's path cannot be walked once
+        its parent's key is gone)."""
         if b not in self._block_key:
             return
+        path = _path
+        if path is None and self.host_tier is not None and (
+                spill or self._children.get(b)):
+            path = self._token_path(b)
+        if spill and path is not None and self.host_tier is not None:
+            self._spill_path(b, path)
         key = self._block_key.pop(b)
         if self._index.get(key) == b:
             del self._index[key]
@@ -411,7 +615,11 @@ class KVBlockPool:
             if not self._children[parent]:
                 del self._children[parent]
         for child in list(self._children.get(b, ())):
-            self._deregister(child)
+            cpath = None
+            if path is not None and child in self._block_key:
+                cpath = path + self._block_key[child][1]
+            self._deregister(child, spill=(child in self._cached),
+                             _path=cpath)
             if child in self._cached:
                 del self._cached[child]
                 self._free.append(child)
@@ -471,6 +679,70 @@ class KVBlockPool:
                 self._registered[seq_id] = j
         return copies
 
+    # -- paged handoff -----------------------------------------------------
+    def export_seq(self, seq_id: int, n_tokens: int) -> dict:
+        """Serialize seq_id's first ``n_tokens`` context positions (the
+        blocks that hold them and their K/V contents) into a host-memory
+        manifest :meth:`import_seq` can install on another pool (the
+        disaggregated prefill-to-decode handoff). ``k`` and ``v`` are
+        per-layer CPU tensors ``[blocks, block_size, kv, d]`` in the
+        pool's dtype, gathered and copied in one call each. Read-only.
+
+        The JAX package's pool hands its buffers to the engine between
+        steps and takes them back as ``kbufs=``/``vbufs=`` arguments
+        (and ``attach_buffers``); this pool owns its buffers and writes
+        them in place, so it needs neither."""
+        tab = self._tables.get(seq_id)
+        if not tab:
+            raise KeyError(f"export_seq: seq {seq_id} holds no blocks")
+        n_tokens = int(n_tokens)
+        nb = self.blocks_for(n_tokens)
+        if n_tokens < 1 or nb > len(tab):
+            raise ValueError(
+                f"export_seq: seq {seq_id} holds {len(tab)} block(s), "
+                f"cannot export {n_tokens} tokens ({nb} blocks)")
+        idx = torch.tensor(tab[:nb], dtype=torch.long, device=self.device)
+        host = self._kv.index_select(2, idx).cpu()
+        k, v = list(host[0]), list(host[1])
+        nbytes = sum(t.numel() * t.element_size() for t in (*k, *v))
+        return {"n_tokens": n_tokens, "blocks": nb,
+                "block_size": self.block_size,
+                "num_layers": self.num_layers,
+                "k": k, "v": v, "nbytes": nbytes}
+
+    def import_seq(self, seq_id: int, manifest: dict):
+        """Install an :meth:`export_seq` manifest as ``seq_id``'s
+        context: allocates ``blocks_for(n_tokens)`` FRESH blocks through
+        the all-or-nothing :meth:`ensure` (PoolOOM on shortage with
+        nothing changed; the ``serving.pool_alloc`` fault point fires)
+        and writes the contents into every layer's buffers in place, in
+        one copy and one scatter. Returns ``(kbufs, vbufs)``, the same
+        (updated) per-layer views. The caller re-registers prefix blocks
+        (:meth:`register_prefix_blocks`) once it knows the token ids."""
+        if (int(manifest["block_size"]) != self.block_size
+                or int(manifest["num_layers"]) != self.num_layers):
+            raise ValueError(
+                f"import_seq: manifest geometry (block_size "
+                f"{manifest['block_size']}, layers "
+                f"{manifest['num_layers']}) does not match pool "
+                f"(block_size {self.block_size}, layers "
+                f"{self.num_layers})")
+        if self._tables.get(seq_id):
+            raise RuntimeError(
+                f"import_seq: seq {seq_id} already holds blocks")
+        self.ensure(seq_id, int(manifest["n_tokens"]))
+        # a manifest may carry host tensors or numpy arrays (the JAX
+        # package's)
+        data = torch.stack([
+            torch.stack([t if isinstance(t, torch.Tensor)
+                         else torch.from_numpy(np.array(t))
+                         for t in manifest[part]])
+            for part in ("k", "v")]).to(self.device, self.dtype)
+        idx = torch.tensor(self._tables[seq_id], dtype=torch.long,
+                           device=self.device)
+        self._kv.index_copy_(2, idx, data)
+        return self.kbufs, self.vbufs
+
     # -- invariants (tests + debugging) ----------------------------------
     def check_invariants(self) -> None:
         counts: dict[int, int] = {}
@@ -506,6 +778,18 @@ class KVBlockPool:
         for b, key in self._block_key.items():
             if self._index.get(key) != b:
                 raise RuntimeError("block-key / prefix index divergence")
+        if self.host_tier is not None:
+            self.host_tier.check_invariants()
+            dev_paths = {self._token_path(b) for b in self._block_key}
+            for key in self.host_tier.keys():
+                if not key or len(key) % self.block_size:
+                    raise RuntimeError(
+                        f"host-tier key of {len(key)} tokens is not a "
+                        f"full-block token path (bs={self.block_size})")
+                if key in dev_paths:
+                    raise RuntimeError(
+                        f"token path of {len(key)} tokens resident in "
+                        f"BOTH tiers: the one-tier rule is broken")
 
     def stats(self) -> dict:
         return {"num_blocks": self.num_blocks,
@@ -521,4 +805,9 @@ class KVBlockPool:
                 "prefix_hit_tokens": self.prefix_hit_tokens,
                 "prefix_miss_tokens": self.prefix_miss_tokens,
                 "cow_copies": self.cow_copies,
-                "cached_evictions": self.cached_evictions}
+                "cached_evictions": self.cached_evictions,
+                "host_hits": self.host_hits,
+                "host_hit_tokens": self.host_hit_tokens,
+                "host_restore_failures": self.host_restore_failures,
+                "host_tier": (None if self.host_tier is None
+                              else self.host_tier.stats())}

@@ -11,17 +11,29 @@ telemetry registry).
   cached-block count, synced from the pool once a step (``on_prefix``).
 - Speculative decoding: draft tokens proposed and accepted, and
   accepted tokens per engine step.
+- Robustness (``robustness.py``): one count per request outcome in
+  ``terminal`` (ok, expired, cancelled, shed, failed), sheds by cause in
+  ``sheds``, step failures by phase in ``step_failures`` (prefill,
+  decode, schedule) and hung-step trips in ``hung_steps``. A request's
+  replays are on its ``Sequence.retries``; degraded paths are reported
+  through ``robustness._report_degraded``.
+- Host tier: restore hits, restored tokens, spills, evictions and
+  restore failures, synced from the pool once a step
+  (``on_host_tier``), with the tier's current blocks and bytes.
 
 Timestamps are host wall-clock (``robustness.now_s``) taken around the
 step; a device phase's seconds include waiting for the device, since the
 step reads its logits back to the host. TTFT/TPOT samples live in
 fixed-size reservoirs, so a long run keeps flat memory while the counts
-stay exact. The telemetry families of the JAX package are not ported yet.
+stay exact. The telemetry families and the goodput ledger of the JAX
+package are not ported yet.
 """
 
 from __future__ import annotations
 
 import random
+
+from .robustness import OK, SHED
 
 STEP_PHASES = ("schedule", "prefill", "decode", "sample", "other")
 RESERVOIR_SIZE = 4096
@@ -65,6 +77,10 @@ class ServingMetrics:
         self.tokens_computed = 0
         self.preemptions = 0
         self.pool_oom_events = 0
+        self.terminal: dict[str, int] = {}
+        self.sheds: dict[str, int] = {}
+        self.step_failures: dict[str, int] = {}
+        self.hung_steps = 0
         self.steps = 0
         self.phase_seconds = dict.fromkeys(STEP_PHASES, 0.0)
         self.prefix_hits = 0
@@ -72,6 +88,13 @@ class ServingMetrics:
         self.prefix_miss_tokens = 0
         self.cow_copies = 0
         self.prefix_cached_blocks = 0
+        self.host_tier_hits = 0
+        self.host_tier_hit_tokens = 0
+        self.host_tier_spills = 0
+        self.host_tier_evictions = 0
+        self.host_tier_restore_failures = 0
+        self.host_tier_blocks = 0
+        self.host_tier_bytes = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_step_tokens = Reservoir(seed=3)
@@ -98,7 +121,28 @@ class ServingMetrics:
             self.tpot_s.add(gap_s)
 
     def on_finish(self):
+        """One request finished ok."""
         self.requests_finished += 1
+        self.on_terminal(OK)
+
+    def on_terminal(self, reason: str):
+        """One count per request outcome (``robustness.TERMINAL_REASONS``)."""
+        self.terminal[reason] = self.terminal.get(reason, 0) + 1
+
+    def on_shed(self, cause: str):
+        """A request refused at admission (it never became a Sequence);
+        ``cause``: queue_full, est_delay, max_context, pool_capacity or
+        draining."""
+        self.sheds[cause] = self.sheds.get(cause, 0) + 1
+        self.on_terminal(SHED)
+
+    def on_step_failure(self, phase: str):
+        """An exception escaped one plan component (prefill, decode) or
+        planning itself (schedule)."""
+        self.step_failures[phase] = self.step_failures.get(phase, 0) + 1
+
+    def on_hung_step(self):
+        self.hung_steps += 1
 
     def on_tokens_computed(self, n: int):
         """n context tokens had their K/V computed this step (prefill
@@ -128,6 +172,18 @@ class ServingMetrics:
         self.prefix_miss_tokens += int(miss_tokens)
         self.cow_copies += int(cow)
         self.prefix_cached_blocks = int(cached_blocks)
+
+    def on_host_tier(self, hits, hit_tokens, spills, evictions,
+                     restore_failures, *, blocks, nbytes):
+        """The pool's host-tier counters since the last step, and the
+        tier's current residency."""
+        self.host_tier_hits += int(hits)
+        self.host_tier_hit_tokens += int(hit_tokens)
+        self.host_tier_spills += int(spills)
+        self.host_tier_evictions += int(evictions)
+        self.host_tier_restore_failures += int(restore_failures)
+        self.host_tier_blocks = int(blocks)
+        self.host_tier_bytes = int(nbytes)
 
     @property
     def prefix_hit_rate(self) -> float | None:
@@ -171,6 +227,10 @@ class ServingMetrics:
             "tokens_computed": self.tokens_computed,
             "preemptions": self.preemptions,
             "pool_oom_events": self.pool_oom_events,
+            "terminal_reasons": dict(self.terminal),
+            "sheds": dict(self.sheds),
+            "step_failures": dict(self.step_failures),
+            "hung_steps": self.hung_steps,
             "steps": self.steps,
             "phase_seconds": dict(self.phase_seconds),
             "mean_batch_occupancy": self.mean_batch_occupancy,
@@ -187,6 +247,13 @@ class ServingMetrics:
             "prefix_hit_rate": self.prefix_hit_rate,
             "cow_copies": self.cow_copies,
             "prefix_cached_blocks": self.prefix_cached_blocks,
+            "host_tier_hits": self.host_tier_hits,
+            "host_tier_hit_tokens": self.host_tier_hit_tokens,
+            "host_tier_spills": self.host_tier_spills,
+            "host_tier_evictions": self.host_tier_evictions,
+            "host_tier_restore_failures": self.host_tier_restore_failures,
+            "host_tier_blocks": self.host_tier_blocks,
+            "host_tier_bytes": self.host_tier_bytes,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
             "spec_accept_rate": self.spec_accept_rate,

@@ -29,7 +29,14 @@ re-acquires the blocks its own rewind just cached). A chunk that starts
 inside a shared block reserves its copy-on-write block when planned.
 Under pool pressure, waiting sequences that pin prefix refs release them
 before any active sequence is preempted, which keeps the no-deadlock
-argument.
+argument. With the host tier on, the binding lookup may restore host
+blocks (``KVBlockPool.acquire_prefix``), noted as a ``host_restore``
+event.
+
+The engine's robustness paths (``robustness.py``) finish a sequence from
+wherever it is with :meth:`Scheduler.remove` (expiry, cancel,
+quarantine) and replay a failed one with :meth:`Scheduler.recompute`,
+the same rewind as a preemption, charged to ``Sequence.retries``.
 """
 
 from __future__ import annotations
@@ -63,12 +70,13 @@ class Sequence:
                  "state", "max_new_tokens", "temperature", "top_k",
                  "top_p", "eos_token_id", "rng", "arrival_s",
                  "first_token_s", "last_token_s", "finish_s",
-                 "finish_reason", "outcome", "preemptions", "events",
-                 "events_dropped", "spec_off", "spec_hist")
+                 "finish_reason", "outcome", "preemptions", "deadline_s",
+                 "retries", "events", "events_dropped", "spec_off",
+                 "spec_hist")
 
     def __init__(self, req_id, prompt, *, max_new_tokens, temperature=0.0,
                  top_k=0, top_p=1.0, eos_token_id=None, seed=0,
-                 arrival_s=None):
+                 arrival_s=None, deadline_s=None):
         self.req_id = int(req_id)
         self.tokens = [int(t) for t in prompt]
         self.prompt_len = len(self.tokens)
@@ -84,12 +92,19 @@ class Sequence:
         self.eos_token_id = eos_token_id
         self.rng = np.random.default_rng(seed)
         self.arrival_s = now_s() if arrival_s is None else float(arrival_s)
+        # absolute monotonic deadline; deadline_s is SECONDS FROM ARRIVAL
+        # (a back-dated arrival_s shortens what is left)
+        self.deadline_s = (None if deadline_s is None
+                           else self.arrival_s + float(deadline_s))
         self.first_token_s = None
         self.last_token_s = None
         self.finish_s = None
         self.finish_reason = None
+        # terminal reason (robustness.TERMINAL_REASONS) once finished,
+        # None in flight
         self.outcome = None
         self.preemptions = 0
+        self.retries = 0          # step-failure recompute attempts
         self.events: list[dict] = []
         self.events_dropped = 0
         # speculative decoding (speculation.py): spec_off keeps the
@@ -142,10 +157,16 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self.waiting or self.active)
 
-    def finish(self, seq: Sequence) -> None:
+    def remove(self, seq: Sequence) -> None:
+        """Terminal removal from WHEREVER the sequence is (waiting
+        queue, active set, or neither): a request's end (eos or length)
+        and the engine's expiry, cancel and quarantine paths. Its blocks
+        and prefix refs are always freed."""
         seq.state = FINISHED
         if seq in self.active:
             self.active.remove(seq)
+        elif seq in self.waiting:
+            self.waiting.remove(seq)
         self.pool.free_seq(seq.req_id)
 
     def schedule(self) -> StepPlan:
@@ -182,6 +203,10 @@ class Scheduler:
                     if c:
                         cand.ctx = c
                         note_event(cand, "prefix_hit", tokens=c)
+                        restored = self.pool.take_last_restored()
+                        if restored:
+                            note_event(cand, "host_restore",
+                                       tokens=restored)
                 n = min(self.prefill_chunk, budget,
                         cand.prefill_target - cand.ctx)
                 # a chunk starting inside a SHARED acquired block copies
@@ -271,13 +296,24 @@ class Scheduler:
 
     def _preempt(self, seq: Sequence, preempted: list[Sequence]) -> None:
         ctx_discarded = seq.ctx
+        self._rewind(seq)
+        seq.preemptions += 1
+        note_event(seq, "preempted", ctx=ctx_discarded,
+                   preemptions=seq.preemptions)
+        preempted.append(seq)
+
+    def recompute(self, seq: Sequence) -> None:
+        """Step-failure replay (``robustness.handle_step_failure``): the
+        SAME rewind as preemption by recompute (blocks freed, cursor back
+        to zero, front of the waiting queue, so the prompt + output
+        replay resumes decoding where it stopped), accounted on
+        ``seq.retries`` by the caller, not on ``seq.preemptions``."""
+        self._rewind(seq)
+
+    def _rewind(self, seq: Sequence) -> None:
         self.pool.free_seq(seq.req_id)
         seq.ctx = 0
         seq.state = WAITING
         if seq in self.active:
             self.active.remove(seq)
         self.waiting.appendleft(seq)   # resumes first once blocks free
-        seq.preemptions += 1
-        note_event(seq, "preempted", ctx=ctx_discarded,
-                   preemptions=seq.preemptions)
-        preempted.append(seq)

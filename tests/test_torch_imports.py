@@ -41,6 +41,14 @@ RESNET_MODULES = (
     "paddle_tpu_torch.vision.models.resnet")
 
 
+# the serving slice's modules, which both scans must reach
+SERVING_MODULES = (
+    "paddle_tpu_torch.distributed.fault", "paddle_tpu_torch.serving.engine",
+    "paddle_tpu_torch.serving.host_tier", "paddle_tpu_torch.serving.kv_pool",
+    "paddle_tpu_torch.serving.robustness",
+    "paddle_tpu_torch.serving.speculation")
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         paddle_tpu_torch.__path__, prefix="paddle_tpu_torch."))
@@ -57,8 +65,8 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     """With ``jax`` and ``paddle_tpu`` unimportable, every port module
     and chip_smoke import in a fresh interpreter."""
     mods = _port_modules() + ["chip_smoke"]
-    assert set(TRAINING_MODULES) | set(RESNET_MODULES) | {
-        "paddle_tpu_torch.serving.engine"} <= set(mods)
+    assert (set(TRAINING_MODULES) | set(RESNET_MODULES)
+            | set(SERVING_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"

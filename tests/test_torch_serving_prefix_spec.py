@@ -209,11 +209,16 @@ def test_pool_runs_reach_copy_on_write_and_refused_allocations(cached_cap):
 
 
 def test_pool_defaults_to_prefix_cache_and_refuses_host_tier():
+    """The prefix cache is on and the host tier off by default; the pool
+    refuses the tier (builds none) without the prefix cache, as the JAX
+    pool does."""
     geom = dict(num_layers=1, num_blocks=4, block_size=4, kv_heads=1,
                 head_dim=2, device="cpu")
-    assert KVBlockPool(**geom).prefix_cache is True
-    with pytest.raises(ValueError, match="queue 1, item 5"):
-        KVBlockPool(**geom, host_tier=True)
+    pool = KVBlockPool(**geom)
+    assert pool.prefix_cache is True and pool.host_tier is None
+    assert KVBlockPool(**geom, prefix_cache=False,
+                       host_tier=True).host_tier is None
+    assert KVBlockPool(**geom, host_tier=True).host_tier is not None
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +318,9 @@ def test_engine_defaults_to_prefix_cache_and_spec_off(models):
     _, tm = models
     eng = ServingEngine.from_model(tm, device="cpu", block_size=4)
     assert eng.pool.prefix_cache is True and eng.spec_mode == "off"
-    with pytest.raises(ValueError, match="queue 1, item 5"):
-        ServingEngine.from_model(tm, device="cpu", host_tier=True)
+    assert eng.pool.host_tier is None and eng.health()["host_tier"] is None
+    eng = ServingEngine.from_model(tm, device="cpu", host_tier=True)
+    assert eng.health()["host_tier"]["entries"] == 0
 
 
 @pytest.mark.parametrize("what", ["outputs", "counters", "dispatches",
