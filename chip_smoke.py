@@ -89,7 +89,12 @@ the run with a non-zero exit code and no result line:
    computes as many tokens as device and cold more; the host run again
    under ``serving.decode:times=1`` and under
    ``serving.host_tier.restore:times=1``: the fault-free tokens, every
-   outcome ok, the reference's retries, a clean pool.
+   outcome ok, the reference's retries, a clean pool. Then the default
+   engine with ``FLAGS_telemetry`` on: the telemetry-off tokens, a span a
+   step, a timeline a request; and the request handoff: one request moved
+   to a second engine after 4 decode tokens and one in mid-prefill (a
+   200-token prompt, two chunks), their tokens equal the unmoved run and
+   the imported blocks byte-equal the manifest.
 7. Serving at full Llama-2-7B (bf16, 32 layers; block 16, 8 slots,
    prefill chunk 128): 8 requests through the engine; throughput,
    TTFT/TPOT, peak memory, exact launch counts; then a short
@@ -123,7 +128,18 @@ the run with a non-zero exit code and no result line:
    restore failure, no retry, no leaked block), a deadline shorter than
    the decode (``expired`` with partial output), a cancel in flight,
    ``serving_max_queue=4`` with 8 arrivals (4 ``queue_full`` sheds) and
-   ``drain()`` to STOPPED.
+   ``drain()`` to STOPPED. (f) telemetry on phase 7's mix with
+   ``hbm_peak_gbs`` at the card's HBM peak, telemetry off, on, on, off:
+   the on tokens equal the off ones and the main run's, launches exact,
+   the counters agree with the engine (steps, 8 requests, 8 ok, the
+   ledger's kinds sum to the tokens computed, goodput ratio 1.0), a span a
+   step, the Chrome trace (a row a request) and the Prometheus text
+   parse; ``serving.decode:times=1`` writes exactly one flight dump that
+   names the failing step; one request handed off mid-decode to an engine
+   with its own pool finishes ok with byte-equal blocks. ``[serve:7f]``
+   lines give the wall time a dispatch and tok/s on and off, a span's
+   host µs off and on, the decode roofline, the attention-bytes share and
+   the handoff's bytes and ms, beside the card's name and power limit.
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
    the CPU (plain versions), then a 3-step TrainStep loss trajectory.
@@ -169,6 +185,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1081,13 +1098,16 @@ def phase_parity():
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (5, 17, 29, 40)]
+    check(prompts == phase6_prompts(cfg.vocab_size), "phase 6's prompts")
     engine = ServingEngine.from_model(model)
     check(engine.pool.prefix_cache, "the engine's default has no prefix "
           "cache")
-    _check_greedy(model, "default", prompts,
-                  _engine_outputs(engine, prompts, 8), 8)
+    default_out = _engine_outputs(engine, prompts, 8)
+    _check_greedy(model, "default", prompts, default_out, 8)
     log(f"[parity] llama2_7b width, 2 layers, f32: {len(prompts)} requests "
         f"equal (engine dispatches={engine.dispatches})")
+    del engine
+    phase_parity_telemetry(model, prompts, default_out)
     # four prompts on one 40-token prefix; the first (48 tokens, three
     # whole blocks) is resubmitted right after itself, so the copy's
     # capped hit (47 tokens) ends inside a block the original holds
@@ -1127,6 +1147,94 @@ def phase_parity():
     log(f"[parity] seconds={time.perf_counter() - t0}")
     del model
     release_device_memory()
+
+
+def phase6_prompts(vocab):
+    """Phase 6's default-engine prompts: 4 seeded prompts of 5-40
+    tokens (the first draws of phase 6's generator)."""
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, vocab, n).tolist() for n in (5, 17, 29, 40)]
+
+
+def _moved_blocks_equal(dst, rid, state):
+    """The destination pool's blocks of an imported request, exported
+    again, against the source's manifest: byte-equal, layer by layer."""
+    back = dst.pool.export_seq(rid, state["ctx"])
+    return all(torch.equal(a, b) for part in ("k", "v")
+               for a, b in zip(state["kv"][part], back[part]))
+
+
+def phase_parity_telemetry(model, prompts, off_outputs):
+    """Phase 6, telemetry and the request handoff (f32, 2 layers at
+    Llama-2-7B width). The default engine with ``FLAGS_telemetry`` on
+    gives the telemetry-off tokens (which equal dense greedy), one
+    ``serving/engine_step`` span a step and one timeline a request. Then
+    two requests move from one engine to a second on the same model: one
+    after 4 decode tokens, one in mid-prefill (a 200-token prompt, two
+    chunks of 128); their tokens equal the unmoved run, and the second
+    pool's imported blocks are byte-equal to the exported manifest."""
+    from paddle_tpu_torch import ServingEngine, telemetry
+
+    with port_flags(telemetry=True):
+        telemetry.reset_all()
+        engine = ServingEngine.from_model(model)
+        on = _engine_outputs(engine, prompts, 8)
+        steps = engine.metrics.steps
+        spans = sum(s["name"] == "serving/engine_step"
+                    for s in telemetry.snapshot_spans())
+        timelines = telemetry.snapshot_requests()
+        log(f"[parity] telemetry on: tokens equal off={on == off_outputs} "
+            f"steps={steps} engine_step_spans={spans} "
+            f"timelines={len(timelines)} ledger={engine.metrics.ledger}")
+        check(on == off_outputs, f"telemetry on: tokens differ from the "
+              f"telemetry-off run at {first_divergence(on, off_outputs)}")
+        check(spans == steps and len(timelines) == len(prompts),
+              "telemetry on: spans or timelines do not match the run")
+        del engine
+
+        long_prompt = np.random.default_rng(9).integers(
+            0, model.config.vocab_size, 200).tolist()
+        reqs = [prompts[1], long_prompt]
+        unmoved = _engine_outputs(ServingEngine.from_model(model), reqs, 8)
+        src = ServingEngine.from_model(model)
+        dst = ServingEngine.from_model(model)
+        rids = [src.add_request(p, max_new_tokens=8) for p in reqs]
+        moved, where = {}, {}
+
+        def move(rid, at):
+            state = src.export_request(rid)
+            new = dst.import_request(state)
+            check(_moved_blocks_equal(dst, new, state),
+                  f"handoff {at}: imported blocks differ from the manifest")
+            src.release_handoff(rid, dest=1)
+            moved[rid], where[rid] = new, (at, state["ctx"],
+                                           state["kv"]["nbytes"])
+
+        while len(moved) < 2:
+            check(src.has_work(), "handoff: the source ran out of work")
+            src.step()
+            if (rids[1] not in moved and rids[1] in src.migrate_ready()
+                    and src.requests[rids[1]].state == "prefill"):
+                move(rids[1], "mid-prefill")
+            if (rids[0] not in moved and rids[0] in src.handoff_ready()
+                    and len(src.requests[rids[0]].output) == 4):
+                move(rids[0], "mid-decode")
+        check(not src.has_work() and pool_clean(src),
+              "handoff: the source still holds work or blocks")
+        done = dst.run()
+        got = [done[moved[r]].output_ids for r in rids]
+        log(f"[parity] handoff (where, ctx, manifest bytes)="
+            f"{[where[r] for r in rids]} tokens equal unmoved="
+            f"{got == unmoved} source ledger={src.metrics.ledger} "
+            f"destination handoffs={dst.health()['handoffs']}")
+        check(got == unmoved, f"handoff: moved tokens differ from the "
+              f"unmoved run at {first_divergence(got, unmoved)}")
+        check(all(done[moved[r]].outcome == "ok" for r in rids),
+              "handoff: a moved request did not finish ok")
+        check(src.metrics.ledger == {"goodput": src.metrics.tokens_computed},
+              f"handoff: source ledger {src.metrics.ledger}")
+        check(pool_clean(dst), "handoff: the destination pool is not clean")
+        telemetry.reset_all()
 
 
 @contextlib.contextmanager
@@ -1374,12 +1482,14 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False):
     return r
 
 
-def phase_serving():
+def phase_serving(card):
     """Phase 7: full Llama-2-7B in bf16 through the engine (block 16, 8
     slots, prefill chunk 128): the main run and its profile window, then
     the shared-prefix mix with caching on and off (7a), the repeat-heavy
-    mix with n-gram speculation and without (7b), and a short run with a
-    TinyLlama-geometry draft model (7c). Returns each run's numbers."""
+    mix with n-gram speculation and without (7b), a short run with a
+    TinyLlama-geometry draft model (7c), the host tier (7d), the
+    robustness contract (7e) and telemetry with the handoff (7f).
+    Returns each run's numbers."""
     from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -1449,6 +1559,8 @@ def phase_serving():
     release_device_memory()
     runs.update(phase_hosttier(model, knobs))
     phase_guardrails(model, knobs)
+    runs.update(phase_telemetry_serving(model, knobs, card,
+                                        runs["main"]["outputs"]))
     del model
     release_device_memory()
     return runs
@@ -1465,14 +1577,14 @@ def warm_serving(model, knobs):
 
 
 def tier_only():
-    """``--tier``: the host tier and the robustness contract alone: build
-    K5 and K6, run phase 6's host-tier and fault checks (f32, 2 layers at
-    Llama-2-7B width), then phases 7d and 7e on full Llama-2-7B in bf16.
-    Prints no result line."""
-    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
+    """``--tier``: the host tier, the robustness contract and telemetry
+    alone: build K5 and K6, run phase 6's host-tier, fault, telemetry and
+    handoff checks (f32, 2 layers at Llama-2-7B width), then phases 7d,
+    7e and 7f on full Llama-2-7B in bf16. Prints no result line."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
     from paddle_tpu_torch.ops.hopper import paged_attention, rms_norm
 
-    phase_device()
+    _, _, card = phase_device()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         list(pool.map(lambda build: build(), (paged_attention.build,
@@ -1482,6 +1594,10 @@ def tier_only():
     model = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=2,
                                                    dtype="float32"), seed=0)
     phase_parity_tier(model)
+    prompts = phase6_prompts(model.config.vocab_size)
+    default_out = _engine_outputs(ServingEngine.from_model(model), prompts, 8)
+    _check_greedy(model, "default", prompts, default_out, 8)
+    phase_parity_telemetry(model, prompts, default_out)
     del model
     release_device_memory()
     model = LlamaForCausalLM(LlamaConfig.llama2_7b(dtype="bfloat16"), seed=0)
@@ -1489,6 +1605,7 @@ def tier_only():
     warm_serving(model, knobs)
     phase_hosttier(model, knobs)
     phase_guardrails(model, knobs)
+    phase_telemetry_serving(model, knobs, card)
     log(f"[tier] seconds={time.perf_counter() - t0}")
     return 0
 
@@ -1800,6 +1917,243 @@ def phase_guardrails(model, knobs):
     check(pool_clean(engine), "7e: the pool is not clean")
     del engine
     release_device_memory()
+
+
+# -- phase 7f: serving with telemetry on ---------------------------------------
+
+def _series(snap, name, **labels):
+    """The value of one counter or gauge series of a telemetry snapshot
+    (None when absent)."""
+    want = {k: str(v) for k, v in labels.items()}
+    for s in snap.get(name, {}).get("samples", []):
+        if s["labels"] == want:
+            return s["value"]
+    return None
+
+
+def parse_prometheus(text):
+    """The exposition text line by line: ``# TYPE name kind`` or
+    ``name{labels} value`` with a float value; raises on anything else.
+    Returns the number of samples."""
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            check(len(line.split()) == 4, f"prometheus: {line!r}")
+            continue
+        body, value = line.rsplit(" ", 1)
+        float(value)
+        name = body.split("{", 1)[0]
+        check(re.fullmatch(r"[a-z][a-z0-9_]*", name) is not None
+              and ("{" not in body or body.endswith("}")),
+              f"prometheus: {line!r}")
+        n += 1
+    return n
+
+
+def span_host_us(telemetry, rounds=5, calls=1000):
+    """Host microseconds of one ``telemetry.span`` enter and exit, the
+    least of ``rounds`` rounds of ``calls``."""
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with telemetry.span("smoke/span", cat="Smoke", step=1):
+                pass
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    return best
+
+
+def phase_telemetry_serving(model, knobs, card, main_outputs=None):
+    """Phase 7f, full Llama-2-7B in bf16, phase 7's 8-request mix and
+    knobs, with ``hbm_peak_gbs`` at the card's HBM peak: telemetry off,
+    on, on, off (fresh engines, launches exact in each). The telemetry-on
+    tokens equal the telemetry-off ones (and phase 7's main run, when
+    given); the counters agree with the engine (steps, 8 requests, 8
+    ``ok``, the ledger's kinds sum to the tokens computed, goodput ratio
+    1.0); one ``serving/engine_step`` span a step; ``chrome_trace()``
+    parses with one row a request and ``prometheus_text()`` line by line.
+    Then ``serving.decode:times=1`` once more, which writes exactly one
+    flight dump naming the failing step, and one request handed off
+    mid-decode to a second engine with its own pool: it finishes ok with
+    byte-equal imported blocks, its tokens logged against the unmoved
+    run's. Prints the on/off wall time a dispatch and tok/s, a span's
+    host µs off and on, the decode roofline, the attention-bytes share,
+    and the handoff's bytes and ms, each beside ``card``. Returns the
+    runs' numbers."""
+    from paddle_tpu_torch import ServingEngine, telemetry
+
+    t_start = time.perf_counter()
+    prompts = phase7_mix(model.config.vocab_size)
+    peak_gbs = HBM_BYTES_S / 1e9
+    root = os.path.join(HERE, "build", "telemetry-7f")
+    shutil.rmtree(root, ignore_errors=True)
+    span_us = {"off": span_host_us(telemetry)}
+    with port_flags(telemetry=True):
+        span_us["on"] = span_host_us(telemetry)
+        telemetry.reset_all()
+    runs = {}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        label = f"7f-{mode}-{i}"
+        flight_dir = os.path.join(root, label)
+        with port_flags(telemetry=mode == "on",
+                        telemetry_flight_dir=flight_dir):
+            telemetry.reset_all()
+            engine = ServingEngine.from_model(model, hbm_peak_gbs=peak_gbs,
+                                              **knobs)
+            gc0 = [g["collections"] for g in gc.get_stats()]
+            r = serve_run(engine, label, prompts, 64)
+            m, ms = engine.metrics, engine.metrics.snapshot()
+            r.update(decode_roofline_frac=ms["decode_roofline_frac"],
+                     attn_bytes_frac=ms["attn_bytes_frac"],
+                     ms_per_dispatch=r["wall_s"] / r["dispatches"] * 1e3,
+                     phase_seconds=ms["phase_seconds"],
+                     gc_collections=[g["collections"] - c for g, c in
+                                     zip(gc.get_stats(), gc0)])
+            log(f"[serve:{label}] phase_seconds={r['phase_seconds']} "
+                f"gc_collections_by_generation={r['gc_collections']}")
+            if mode == "on":
+                snap = telemetry.snapshot()
+                kinds = snap["serving_tokens_total"]["samples"]
+                spans = telemetry.snapshot_spans()
+                steps = sum(s["name"] == "serving/engine_step"
+                            for s in spans)
+                trace = json.loads(json.dumps(telemetry.chrome_trace()))
+                rows = [e for e in trace["traceEvents"]
+                        if e["ph"] == "M" and e["name"] == "thread_name"]
+                samples = parse_prometheus(telemetry.prometheus_text())
+                log(f"[serve:{label}] engine_steps_total="
+                    f"{_series(snap, 'serving_engine_steps_total')} "
+                    f"steps={m.steps} requests_total="
+                    f"{_series(snap, 'serving_requests_total')} ok="
+                    f"{_series(snap, 'serving_terminal_total', reason='ok')} "
+                    f"tokens_by_kind={[(s['labels'], s['value']) for s in kinds]}"
+                    f" tokens_computed={m.tokens_computed} goodput_ratio="
+                    f"{_series(snap, 'serving_goodput_ratio')} "
+                    f"engine_step_spans={steps} spans={len(spans)} "
+                    f"trace_events={len(trace['traceEvents'])} "
+                    f"request_rows={len(rows)} prometheus_samples={samples} "
+                    f"flight_digests={len(telemetry.flight().snapshot())}")
+                check(_series(snap, "serving_engine_steps_total") == m.steps,
+                      f"{label}: engine_steps_total against the engine")
+                check(_series(snap, "serving_requests_total") == 8
+                      and _series(snap, "serving_terminal_total",
+                                  reason="ok") == 8,
+                      f"{label}: requests or ok outcomes")
+                check(sum(s["value"] for s in kinds) == m.tokens_computed
+                      == sum(m.ledger.values()),
+                      f"{label}: the ledger's kinds against tokens computed")
+                check(_series(snap, "serving_goodput_ratio") == 1.0,
+                      f"{label}: goodput ratio")
+                check(steps == m.steps, f"{label}: engine_step spans")
+                check(len(rows) == len(prompts), f"{label}: request rows")
+                check(not os.path.exists(flight_dir),
+                      f"{label}: a flight dump in a clean run")
+            runs[label] = r
+            del engine
+            release_device_memory()
+    off, on = runs["7f-off-0"], runs["7f-on-1"]
+    for label in ("7f-on-1", "7f-on-2", "7f-off-3"):
+        div = first_divergence(runs[label]["outputs"], off["outputs"])
+        log(f"[serve:7f] {label} against 7f-off-0, first differing output "
+            f"token per request (-1: equal): {div}")
+        check(runs[label]["outputs"] == off["outputs"],
+              f"7f: {label} tokens differ from the telemetry-off run")
+    if main_outputs is not None:
+        div = first_divergence(off["outputs"], main_outputs)
+        log(f"[serve:7f] 7f-off-0 against phase 7's main run: {div}")
+        check(off["outputs"] == main_outputs,
+              "7f: tokens differ from phase 7's main run")
+    for mode, labels in (("off", ("7f-off-0", "7f-off-3")),
+                         ("on", ("7f-on-1", "7f-on-2"))):
+        log(f"[serve:7f] telemetry {mode}: ms_per_dispatch="
+            f"{[runs[k]['ms_per_dispatch'] for k in labels]} output_tok_s="
+            f"{[runs[k]['output_tok_s'] for k in labels]} ({card})")
+    log(f"[serve:7f] span host us (least of 5 x 1000): off={span_us['off']}"
+        f" on={span_us['on']} ({card})")
+    log(f"[serve:7f] decode_roofline_frac={on['decode_roofline_frac']} "
+        f"attn_bytes_frac={on['attn_bytes_frac']} (hbm_peak_gbs="
+        f"{peak_gbs}; {card})")
+    check(on["decode_roofline_frac"] is not None
+          and 0.0 < on["decode_roofline_frac"] < 1.0,
+          f"7f: decode roofline {on['decode_roofline_frac']}")
+
+    flight_dir = os.path.join(root, "fault")
+    with port_flags(telemetry=True, telemetry_flight_dir=flight_dir,
+                    fault_spec="serving.decode:times=1"):
+        telemetry.reset_all()
+        engine = ServingEngine.from_model(model, hbm_peak_gbs=peak_gbs,
+                                          **knobs)
+        failed = []
+        on_failure = engine._on_phase_failure
+
+        def record(planned, phase, exc, finished, _f=on_failure):
+            failed.append((engine.metrics.steps, [s.req_id for s in planned]))
+            _f(planned, phase, exc, finished)
+        engine._on_phase_failure = record
+        runs["7f-fault"] = serve_run(engine, "7f-fault", prompts, 16)
+        del engine._on_phase_failure
+        files = sorted(os.listdir(flight_dir))
+        check(len(files) == 1 and len(failed) == 1,
+              f"7f fault: dumps {files}, failures {failed}")
+        with open(os.path.join(flight_dir, files[0])) as f:
+            doc = json.load(f)
+        step, rids = failed[0]
+        retried = sorted(int(r) for r, tl in doc["requests"].items()
+                         if any(e["kind"] == "retry" for e in tl["events"]))
+        log(f"[serve:7f] fault dump {files[0]}: trigger={doc['trigger']} "
+            f"extra={doc['extra']} health.steps={doc['health']['steps']} "
+            f"last digest step={doc['digests'][-1]['step']} failing step="
+            f"{step} rids={rids} retried={retried}")
+        check(doc["trigger"] == "degraded" and doc["extra"]["phase"] == "decode"
+              and doc["health"]["steps"] == step
+              and doc["digests"][-1]["step"] == step - 1
+              and retried == sorted(rids),
+              "7f fault: the dump does not name the failing step")
+        del engine
+        release_device_memory()
+
+    with port_flags(telemetry=True):
+        telemetry.reset_all()
+        src = ServingEngine.from_model(model, pool_blocks=160, **knobs)
+        dst = ServingEngine.from_model(model, pool_blocks=160, **knobs)
+        rid = src.add_request(prompts[0], max_new_tokens=64)
+        while not (rid in src.handoff_ready()
+                   and len(src.requests[rid].output) >= 4):
+            src.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = src.export_request(rid)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        new = dst.import_request(state)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        equal = _moved_blocks_equal(dst, new, state)
+        src.release_handoff(rid, dest=1)
+        check(equal, "7f handoff: imported blocks differ from the manifest")
+        check(not src.has_work() and pool_clean(src),
+              "7f handoff: the source still holds work or blocks")
+        seq = dst.run()[new]
+        timeline = telemetry.request_timeline(new)
+        div = first_divergence([seq.output_ids], [off["outputs"][0]])
+        log(f"[serve:7f] handoff mid-decode: ctx={state['ctx']} "
+            f"manifest_bytes={state['kv']['nbytes']} export_ms={export_ms} "
+            f"import_ms={import_ms} blocks_equal={equal} outcome="
+            f"{seq.outcome} tokens={len(seq.output)} first differing token "
+            f"against the unmoved run (-1: equal): {div[0]} (bf16 in "
+            f"another dispatch shape may round apart; phase 6 holds the f32 "
+            f"tokens equal) ({card})")
+        check(seq.outcome == "ok" and len(seq.output) == 64
+              and timeline["events"][0]["kind"] == "handoff_in",
+              "7f handoff: the moved request did not finish ok")
+        check(pool_clean(dst), "7f handoff: the destination pool is not "
+              "clean")
+        telemetry.reset_all()
+        del src, dst
+        release_device_memory()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[serve:7f] seconds={time.perf_counter() - t_start}")
+    return runs
 
 
 # K5's family: its split kernels (paged_attend_kernel_cc, _tc) and merge
@@ -3270,7 +3624,7 @@ def main() -> int:
     if argv == ["--tier"]:
         return tier_only()
     t_start = time.perf_counter()
-    name, count, _ = phase_device()
+    name, count, card = phase_device()
     phase_build()
     k5 = phase_k5()
     k6 = phase_k6()
@@ -3280,7 +3634,7 @@ def main() -> int:
     time_k6(k6)
     flash_times = time_flash(flash)
     phase_parity()
-    runs = phase_serving()
+    runs = phase_serving(card)
     k5_launches = sum(r["k5"] for r in runs.values())
     k6_launches = sum(r["k6"] for r in runs.values())
     phase_train_parity()

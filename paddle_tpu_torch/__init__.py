@@ -17,14 +17,18 @@ single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
 (CUDA C++) and RMSNorm's gradient; single-device ResNet training
 (``vision.models``, ``nn`` layers, ``optimizer.Momentum``), with the fused
 conv+BatchNorm kernels K7 and K8 and the BatchNorm-statistics kernel K9
-(CUDA C++).
+(CUDA C++). Serving also has the host-RAM KV tier, the robustness
+contract, request handoff and fleet publishing, and the ``telemetry``
+package (metric families, spans, flight recorder, request timelines,
+exporters, cross-rank aggregation; off by default).
 """
 
-from . import flags, vision
+from . import flags, telemetry, vision
 from .convert import load_reference_state
 from .jit import TrainStep
 from .models import LlamaConfig, LlamaForCausalLM, llama_loss_fn
 from .serving import ServingEngine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "TrainStep",
-           "flags", "llama_loss_fn", "load_reference_state", "vision"]
+           "flags", "llama_loss_fn", "load_reference_state", "telemetry",
+           "vision"]

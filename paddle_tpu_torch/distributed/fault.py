@@ -39,7 +39,11 @@ Spec grammar (comma-separated rules)::
 Determinism: rules count *matching* calls under a lock; the same spec
 against the same call sequence fires at the same points run to run.
 With the flag unset the registry is empty and every instrumented site
-reduces to one module-level ``if not _RULES`` check.
+reduces to one module-level ``if not _RULES`` check. Every firing counts
+into ``fault_injected_total{site, action}`` (``telemetry``; a no-op while
+``FLAGS_telemetry`` is off). The JAX module's ``RetryPolicy`` and its
+``store_retry_total`` count have no counterpart yet: the port has no
+store.
 """
 
 from __future__ import annotations
@@ -177,7 +181,11 @@ def _fire(rule, site, rank, step, key):
         if rule.times is not None and rule.fired >= rule.times:
             return None
         rule.fired += 1
-        return rule.action
+        action = rule.action
+    from .. import telemetry
+    telemetry.counter("fault_injected_total",
+                      labels={"site": site, "action": action}).inc()
+    return action
 
 
 def _raise_injected(site, rule):

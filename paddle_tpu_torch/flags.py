@@ -4,8 +4,8 @@ One registry, three surfaces: :func:`define_flag` at import time,
 ``FLAGS_*`` environment variables read when a flag is defined, and
 :func:`set_flags` / :func:`get_flags` at run time. Only the flags the
 serving slice (with its prefix cache, speculative decoding, host-RAM
-tier and robustness contract) and the ResNet model read are defined
-here; ``fault_spec`` is defined beside its registry in
+tier, robustness contract and fleet publishing), the telemetry package
+and the ResNet model read are defined here; ``fault_spec`` is defined beside its registry in
 ``distributed/fault.py``, which re-arms the rules whenever it changes
 (``on_change``). The attention,
 RMSNorm and BN-statistics kernels are not chosen by flags: the tensor's
@@ -200,6 +200,74 @@ define_flag("serving_drain_timeout_s", 30.0,
             "admissions stop; stragglers still running at the "
             "deadline are finished with terminal reason 'cancelled'",
             type=float)
+
+# -- telemetry (telemetry/*; serving's metric families, spans, flight
+# recorder and request timelines) and the serving SLO targets ------------
+define_flag("telemetry", False,
+            "master switch for paddle_tpu.telemetry (unified metrics + "
+            "span tracing). Off (default): every counter/gauge/"
+            "histogram/span helper is a guarded no-op — one registry "
+            "lookup, no samples retained, no exporter thread started. "
+            "On: serving, watchdog, fault, checkpoint and resilient "
+            "paths publish into the process-wide registry")
+define_flag("telemetry_reservoir", 512,
+            "per-histogram reservoir size (Vitter Algorithm R): "
+            "percentiles are estimated from a fixed-size uniform "
+            "sample while counts/sums stay exact, so a server running "
+            "for days keeps flat memory. Also bounds ServingMetrics' "
+            "TTFT/TPOT sample buffers")
+define_flag("telemetry_spans_max", 4096,
+            "span ring capacity for telemetry.tracer — the newest N "
+            "host spans are kept, older ones dropped (the drop count "
+            "is reported in the tracer); bounds trace memory on "
+            "long-wedged jobs exactly like the watchdog TIMEOUT_RING")
+define_flag("telemetry_export_interval", 0.0,
+            "seconds between periodic background snapshot exports "
+            "(telemetry.maybe_start_exporter); 0 (default) disables "
+            "the exporter thread entirely", type=float)
+define_flag("telemetry_export_path", "",
+            "periodic exporter target file (atomically replaced each "
+            "tick); empty = one JSON line per tick on stdout",
+            type=str)
+define_flag("telemetry_requests_max", 256,
+            "per-request lifecycle timelines retained in the process "
+            "request log (telemetry/requests.py); oldest-started "
+            "evicted first, so a long-running server keeps a sliding "
+            "window of recent requests")
+define_flag("telemetry_request_events_max", 64,
+            "events per request timeline (arrival/admitted/prefill "
+            "chunks/first token/retries/terminal); the first events "
+            "are kept and the final slot is reserved for the terminal "
+            "outcome, overflow is counted as dropped")
+define_flag("telemetry_flight_steps", 256,
+            "flight-recorder ring capacity (telemetry/flight.py): the "
+            "newest N per-step digests are retained and frozen into "
+            "the auto-dump document on DEGRADED entry / quarantine / "
+            "hung step / drain / resilient recovery")
+define_flag("telemetry_flight_dir", "",
+            "directory for flight-recorder auto-dumps "
+            "(flight-NNN-<trigger>.json, written atomically); empty "
+            "(default) keeps dumps in memory only "
+            "(telemetry.flight().last_dump / .dump_for(trigger))",
+            type=str)
+define_flag("serving_ttft_slo_s", 0.0,
+            "TTFT SLO target in seconds: first tokens slower than "
+            "this count into serving_slo_miss_total{slo=ttft} and the "
+            "bench serve summary's SLO attainment; 0 (default) "
+            "disables the comparison", type=float)
+define_flag("serving_tpot_slo_s", 0.0,
+            "TPOT SLO target in seconds (mean inter-token gap after "
+            "the first token, per finished request): slower requests "
+            "count into serving_slo_miss_total{slo=tpot}; 0 (default) "
+            "disables the comparison", type=float)
+define_flag("serving_fleet_publish_every", 8,
+            "engine steps between health-snapshot publications once "
+            "ServingEngine.enable_fleet_publish(store, rank) is "
+            "armed: each publication pushes health() (lifecycle "
+            "state, estimated queue delay, prefix-cache occupancy) "
+            "plus the telemetry snapshot under /telemetry/rank<N> — "
+            "the keys the fleet router and telemetry.collect_fleet "
+            "read; <= 0 disables publishing")
 
 # -- vision (vision/models/resnet.py, nn/functional/norm.py) ----------------
 define_flag("use_fused_resnet_unit", False,

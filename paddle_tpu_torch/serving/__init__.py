@@ -13,17 +13,27 @@
                       lookahead, terminal removal and failure replay
 - engine.py           ServingEngine.add_request()/step()/cancel()/
                       drain()/health() with host-side per-request
-                      sampling
+                      sampling; request handoff (export_request/
+                      import_request/release_handoff), fleet publishing
+                      and routing signals; spans and flight digests
 - metrics.py          TTFT / TPOT / occupancy / pool utilisation /
                       terminal-reason, shed, failure and host-tier
-                      counters
+                      counters, the goodput and attention-bytes ledgers,
+                      the decode roofline, and their telemetry families
 - robustness.py       SLO guardrails: deadlines, bounded admission with
                       shedding, step-failure quarantine, hung-step
                       detection, the SERVING -> DEGRADED -> DRAINING ->
-                      STOPPED lifecycle, fault points
+                      STOPPED lifecycle, fault points; request timelines
+                      and the failure paths' flight dumps
 - speculation.py      speculative decoding: lossless verification,
                       n-gram and draft-model proposers, and the shared
                       temperature/top-k/top-p math
+
+Telemetry (``paddle_tpu_torch/telemetry``) is wired through all of it and
+off by default (``FLAGS_telemetry``). Not ported yet: the fleet that
+consumes the handoff and publishing hooks (the JAX package's
+``serving/fleet/*``: router, replicas, autoscaler, disaggregation,
+migration).
 """
 
 from .engine import ServingEngine, sample_token

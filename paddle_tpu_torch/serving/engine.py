@@ -56,10 +56,32 @@ degrades exactly that sequence to plain decode. Every request leaves
 with one terminal outcome (ok, expired, cancelled, shed, failed) on
 ``Sequence.outcome``.
 
-Not ported yet: telemetry (spans, flight dumps, gauges, the goodput
-ledger), the fleet hooks (publishing, routing signals, request
-handoff and migration: ``export_request``/``import_request``), and CUDA
-graphs for the decode signature.
+Telemetry (``telemetry/``, ``FLAGS_telemetry``, off by default): every
+step is a ``serving/engine_step`` span with ``serving/prefill``,
+``serving/decode`` and ``serving/sample`` spans inside it, appends one
+flight-recorder digest, and publishes the ``serving_*`` metric families
+(``metrics.py``: the goodput ledger, the attention-bytes ledger, the
+decode roofline against ``hbm_peak_gbs``); every request gets a timeline
+(``robustness.note_event``); a drain, a quarantine, a first DEGRADED
+entry and a hung step freeze a flight dump. ``paged_kernel`` names the
+attend the device picks (``"cuda"``: K5; ``"plain"``: its PyTorch
+version on the CPU), the port's counterpart of the JAX engine's
+``kernel_plan`` stamp. With the flag off all of it is a no-op and the
+serving path is unchanged.
+
+Request handoff (a disaggregated prefill-to-decode move or a live
+migration): ``export_request`` snapshots an in-flight request (its
+parameters, output, clocks, numpy sampler state and the pool's
+``export_seq`` manifest of its computed context), ``import_request``
+admits it mid-stream on another engine, and ``release_handoff`` lets it
+go on the source, booking its tokens through the goodput ledger. The
+snapshot is the JAX package's, so a request moves between the two
+packages in either direction. ``enable_fleet_publish`` pushes
+``health()`` with the telemetry snapshot to a store every few steps, and
+``routing_signals`` gives a router its per-request inputs.
+
+Not ported yet: the fleet modules that consume these hooks
+(``serving/fleet/*``), and CUDA graphs for the decode signature.
 """
 
 from __future__ import annotations
@@ -67,18 +89,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..flags import flag_value
 from ..framework.device import resolve_device
 from . import robustness
 from .kv_pool import KVBlockPool, PoolOOM
-from .metrics import STEP_PHASES, ServingMetrics
+from .metrics import GOODPUT, STEP_PHASES, ServingMetrics
 from .paged_attention import gather_copy_blocks, paged_forward
-from .robustness import (CANCELLED, DRAINING, OK, STOPPED,
+from .robustness import (BOTH_ROLE, CANCELLED, DRAINING, OK, STOPPED,
                          AdmissionController, Lifecycle, RequestRejected,
-                         SampleFailures, check_hung_step, fault_point,
-                         handle_schedule_failure, handle_step_failure,
-                         note_event, now_s, sweep_deadlines)
-from .scheduler import RUNNING, Scheduler, Sequence
+                         SampleFailures, check_hung_step, dump_step_failure,
+                         fault_point, handle_schedule_failure,
+                         handle_step_failure, note_event, now_s,
+                         sweep_deadlines)
+from .scheduler import PREFILL, RUNNING, Scheduler, Sequence
 from .speculation import (SPEC_MODES, adaptive_k, build_proposer,
                           note_acceptance, processed_probs, verify_draft)
 
@@ -99,14 +123,16 @@ class ServingEngine:
     ``forward(ids, kv_caches=..., position_offset=..., logits_rows=...)
     -> (logits, caches)``. ``prefix_cache``, ``spec`` and ``host_tier``
     default to their flags; ``spec="draft"`` needs ``draft_model``, a
-    smaller model of the same vocabulary on the same device."""
+    smaller model of the same vocabulary on the same device.
+    ``hbm_peak_gbs`` (the card's HBM peak in GB/s) arms the decode
+    roofline; None disables it."""
 
     def __init__(self, model, *, num_layers, kv_heads, head_dim,
                  max_context, eos_token_id=None, block_size=None,
                  max_slots=None, prefill_chunk=None, pool_blocks=None,
-                 token_budget=None, dtype=None, device=None,
-                 prefix_cache=None, spec=None, draft_model=None,
-                 host_tier=None):
+                 token_budget=None, dtype=None, hbm_peak_gbs=None,
+                 device=None, prefix_cache=None, spec=None,
+                 draft_model=None, host_tier=None):
         want = resolve_device(device)
         self.device = next(model.parameters()).device
         if self.device.type != want.type or want.index not in (
@@ -137,6 +163,12 @@ class ServingEngine:
                            else flag_value("serving_token_budget"))
         if token_budget <= 0:
             token_budget = self.prefill_chunk + self.max_slots
+        # decode roofline (metrics.on_decode_roofline): a decode step
+        # streams every weight once, so its bytes are the parameters'
+        self.hbm_peak_gbs = (None if hbm_peak_gbs is None
+                             else float(hbm_peak_gbs))
+        self.model_bytes = int(sum(p.numel() * p.element_size()
+                                   for p in model.parameters()))
         if dtype is None:
             # the first FLOATING parameter sets the KV dtype
             dtype = next((p.dtype for p in model.parameters()
@@ -149,6 +181,14 @@ class ServingEngine:
                                 device=self.device,
                                 prefix_cache=prefix_cache,
                                 host_tier=host_tier)
+        # which attend this engine's dispatches run, stamped into flight
+        # digests and health(): the device picks (K5 on a CUDA pool)
+        self.paged_kernel = "cuda" if self.device.type == "cuda" else "plain"
+        # per-token K/V bytes for the attention-bytes ledger: K + V rows
+        # across every layer
+        self._kv_token_bytes = (2 * self.num_layers * self.kv_heads
+                                * self.head_dim
+                                * torch.empty((), dtype=dtype).element_size())
         # speculation binds at construction: the flag when spec is None
         self.spec_mode = str(flag_value("serving_spec")
                              if spec is None else spec)
@@ -181,6 +221,8 @@ class ServingEngine:
         self._last_step_s = None
         self._sample_s = 0.0
         self._step_t0 = now_s()
+        # accepted draft tokens of the current step (flight digest)
+        self._spec_step_accepted = 0
         # lifetime proposal/acceptance totals for health()
         self._spec_proposed_life = 0
         self._spec_accepted_life = 0
@@ -195,6 +237,17 @@ class ServingEngine:
             self._spec_width = min(w, max(2, self.max_context))
             self._proposer = build_proposer(self.spec_mode, engine=self,
                                             draft_model=draft_model)
+        # fleet publishing (enable_fleet_publish): (store, rank, every)
+        # once armed
+        self._fleet_publish = None
+        # the role in a role-split fleet (both = monolithic) and the
+        # lifetime handoff counts, in health()
+        self.fleet_role = BOTH_ROLE
+        self._handoffs_out = 0
+        self._handoffs_in = 0
+        # the periodic snapshot thread: a no-op unless FLAGS_telemetry
+        # and FLAGS_telemetry_export_interval are set
+        telemetry.maybe_start_exporter()
 
     @classmethod
     def from_model(cls, model, device=None, **kw):
@@ -279,22 +332,29 @@ class ServingEngine:
                        eos_token_id=(self.eos_token_id if eos_token_id is None
                                      else eos_token_id),
                        seed=seed, arrival_s=arrival_s, deadline_s=deadline_s)
-        note_event(seq, "arrival", t_s=seq.arrival_s,
-                   prompt_len=seq.prompt_len)
         if self.pool.prefix_cache:
             # pin the resident prefix now so it cannot be evicted while
             # the request queues; a total miss leaves its hit/miss
             # accounting to the binding lookup at admission
             seq.ctx = self.pool.acquire_prefix(rid, seq.tokens,
                                                defer_miss=True)
+        self.requests[rid] = seq
+        self.scheduler.add(seq)
+        self.metrics.on_arrival()
+        if telemetry.enabled():
+            # the request's timeline: arrival at the (possibly
+            # back-dated) TTFT clock origin, admission now
+            telemetry.begin_request(rid)
+            note_event(seq, "arrival", t_s=seq.arrival_s,
+                       prompt_len=seq.prompt_len,
+                       max_new_tokens=seq.max_new_tokens)
+            note_event(seq, "admitted", queue_depth=len(
+                self.scheduler.waiting))
             if seq.ctx:
                 note_event(seq, "prefix_hit", tokens=seq.ctx)
                 restored = self.pool.take_last_restored()
                 if restored:
                     note_event(seq, "host_restore", tokens=restored)
-        self.requests[rid] = seq
-        self.scheduler.add(seq)
-        self.metrics.on_arrival()
         return rid
 
     def cancel(self, req_id: int) -> Sequence | None:
@@ -310,15 +370,169 @@ class ServingEngine:
         self._finish_terminal(seq, CANCELLED, [])
         return seq
 
+    # -- request handoff ---------------------------------------------------
+    # A request moves to another engine in three calls: export_request
+    # (a read-only snapshot of its state and its computed K/V blocks),
+    # import_request on the destination (which admits it mid-stream),
+    # and release_handoff on the source once the import succeeded. The
+    # source keeps serving the request untouched until the release, so a
+    # failure anywhere before it loses no token.
+
+    def handoff_ready(self) -> list[int]:
+        """Request ids that can hand off to a decode engine: RUNNING (so
+        ``ctx == len(tokens) - 1`` and the newest token's K/V is not yet
+        computed), with at least one output token and blocks resident."""
+        return [rid for rid, seq in self.requests.items()
+                if seq.state == RUNNING and seq.output
+                and seq.ctx == len(seq.tokens) - 1
+                and self.pool.holds(rid)]
+
+    def migrate_ready(self) -> list[int]:
+        """Request ids a live migration can move: computing (PREFILL mid
+        chunked prefill, or RUNNING) with at least one context token's
+        K/V resident. Between steps each sits at a chunk boundary, so its
+        ``ctx`` tokens are exactly what :meth:`export_request`
+        snapshots. Preempted sequences (WAITING, blocks freed) are left
+        out: they re-prefill wherever they land."""
+        return [rid for rid, seq in self.requests.items()
+                if seq.state in (PREFILL, RUNNING) and seq.ctx >= 1
+                and self.pool.holds(rid)]
+
+    def export_request(self, req_id: int) -> dict:
+        """Read-only snapshot of an in-flight request: its generation
+        parameters, emitted output, clocks, the exact numpy sampler state
+        (``bit_generator.state``, so seeded stochastic sampling continues
+        bit for bit) and the pool's ``export_seq`` manifest of its
+        ``ctx`` computed tokens. Mid-prefill (no output yet) and
+        mid-decode (``ctx == len(tokens) - 1``) alike; the request keeps
+        running here until :meth:`release_handoff`."""
+        seq = self.requests.get(req_id)
+        if seq is None:
+            raise KeyError(f"unknown request {req_id}")
+        if (seq.state not in (PREFILL, RUNNING) or seq.ctx < 1
+                or not self.pool.holds(req_id)
+                or (seq.state == RUNNING
+                    and seq.ctx != len(seq.tokens) - 1)):
+            raise ValueError(
+                f"request {req_id} is not export-ready "
+                f"(state={seq.state}, ctx={seq.ctx}/{len(seq.tokens)})")
+        return {
+            "prompt": list(seq.tokens[:seq.prompt_len]),
+            "output": list(seq.output),
+            "ctx": seq.ctx,
+            "max_new_tokens": seq.max_new_tokens,
+            "temperature": seq.temperature,
+            "top_k": seq.top_k,
+            "top_p": seq.top_p,
+            "eos_token_id": seq.eos_token_id,
+            "arrival_s": seq.arrival_s,
+            # seq.deadline_s is ABSOLUTE (arrival + budget): carried as
+            # is, the importer adds no arrival offset
+            "deadline_abs": seq.deadline_s,
+            "first_token_s": seq.first_token_s,
+            "last_token_s": seq.last_token_s,
+            "preemptions": seq.preemptions,
+            "retries": seq.retries,
+            # speculation: the acceptance window steers adaptive
+            # lookahead, and a degrade to plain decode sticks
+            "spec_off": seq.spec_off,
+            "spec_hist": [tuple(h) for h in seq.spec_hist],
+            "rng_state": seq.rng.bit_generator.state,
+            "kv": self.pool.export_seq(req_id, seq.ctx),
+        }
+
+    def release_handoff(self, req_id: int, *, dest=None,
+                        kind: str | None = None) -> None:
+        """Let go of a request whose import on the destination succeeded:
+        book the tokens this engine computed in its goodput ledger (the
+        destination books only its own), drop draft state, free the
+        blocks and remove the sequence, with no terminal outcome (the
+        request goes on elsewhere). ``kind`` overrides the ledger kind of
+        the first-pass tokens (a live migration passes ``migrated``)."""
+        seq = self.requests.pop(req_id, None)
+        if seq is None:
+            raise KeyError(f"unknown request {req_id}")
+        self._handoffs_out += 1
+        self.metrics.resolve_handoff(seq, fresh_kind=kind or GOODPUT)
+        self._spec_forget(seq)
+        note_event(seq, "handoff_out", dest=dest, tokens=len(seq.output))
+        self.scheduler.remove(seq)
+
+    def import_request(self, state: dict) -> int:
+        """Admit a handed-off request MID-STREAM: rebuild the sequence
+        past its emitted output, restore the sampler state and clocks,
+        install the K/V manifest in this pool and register its full
+        prefix blocks, then queue it. A mid-decode import enters as
+        PREFILL with ``ctx == len(tokens) - 1``: one 1-token chunk
+        computes the newest token's K/V, as the decode step on the source
+        would have; a mid-prefill import continues chunked prefill from
+        its boundary. Counts no arrival (the source did). A draining
+        engine refuses with ``RequestRejected("draining")``, and a pool
+        too small raises PoolOOM without a shed count."""
+        if self.lifecycle.state in (DRAINING, STOPPED):
+            raise RequestRejected(
+                "draining", f"engine is {self.lifecycle.state}; "
+                f"not accepting handoffs")
+        prompt = [int(t) for t in state["prompt"]]
+        total = len(prompt) + int(state["max_new_tokens"])
+        if self.pool.blocks_for(total - 1) > self.pool.num_usable:
+            raise PoolOOM(
+                f"handoff needs {self.pool.blocks_for(total - 1)} "
+                f"blocks; the whole pool has {self.pool.num_usable}")
+        rid = self._next_id
+        self._next_id += 1
+        seq = Sequence(rid, prompt,
+                       max_new_tokens=state["max_new_tokens"],
+                       temperature=state["temperature"],
+                       top_k=state["top_k"], top_p=state["top_p"],
+                       eos_token_id=state["eos_token_id"],
+                       arrival_s=state["arrival_s"], deadline_s=None)
+        seq.deadline_s = state["deadline_abs"]
+        seq.output = [int(t) for t in state["output"]]
+        seq.tokens.extend(seq.output)
+        seq.ctx = int(state["ctx"])
+        # a replay that rewinds below this high water is replay work, as
+        # if this engine had computed the context
+        seq.computed_hw = seq.ctx
+        seq.first_token_s = state["first_token_s"]
+        seq.last_token_s = state["last_token_s"]
+        seq.preemptions = int(state.get("preemptions", 0))
+        seq.retries = int(state.get("retries", 0))
+        seq.spec_off = bool(state.get("spec_off", False))
+        seq.spec_hist = [tuple(h) for h in state.get("spec_hist", ())]
+        seq.rng.bit_generator.state = state["rng_state"]
+        self.pool.import_seq(rid, state["kv"])
+        if self.pool.prefix_cache:
+            # first writer wins: the imported context joins the prefix
+            # index as if this engine had prefilled it
+            self.pool.register_prefix_blocks(rid, seq.tokens, seq.ctx)
+        self.requests[rid] = seq
+        self.scheduler.add(seq)
+        self._handoffs_in += 1
+        if telemetry.enabled():
+            telemetry.begin_request(rid)
+            note_event(seq, "handoff_in", ctx=seq.ctx,
+                       tokens=len(seq.output),
+                       kv_bytes=state["kv"]["nbytes"])
+        return rid
+
     def has_work(self) -> bool:
         return self.scheduler.has_work()
 
     def step(self) -> list[Sequence]:
         """One engine iteration: sweep deadlines, plan, prefill one
         chunk, decode the batch. Returns the sequences that FINISHED this
-        step (every terminal outcome)."""
+        step (every terminal outcome). The step is one
+        ``serving/engine_step`` span."""
+        with telemetry.span("serving/engine_step", cat="Serving",
+                            step=self.metrics.steps):
+            return self._step_inner()
+
+    def _step_inner(self) -> list[Sequence]:
         finished: list[Sequence] = []
+        step_idx = self.metrics.steps
         self._sample_s = 0.0
+        self._spec_step_accepted = 0
         t_step = self._step_t0 = now_s()
         sweep_deadlines(self, t_step, finished)
         t0 = now_s()
@@ -343,39 +557,60 @@ class ServingEngine:
         self._oom_seen = self.pool.oom_events
         t0 = now_s()
         step_failed = False
+        failed_phases: list[str] = []
         tokens_done = 0
+        prefill_rids: list[int] = []
+        decode_rids = [s.req_id for s in plan.decode]
         if plan.prefill is not None:
             seq, start, n = plan.prefill
-            tp, s0 = now_s(), self._sample_s
+            prefill_rids = [seq.req_id]
+            s0, tp = self._sample_s, now_s()
             try:
-                self._run_prefill(seq, start, n, finished)
+                with telemetry.span("serving/prefill", cat="Serving",
+                                    tokens=n, step=step_idx,
+                                    rids=prefill_rids):
+                    self._run_prefill(seq, start, n, finished)
                 tokens_done += n
             except Exception as e:
                 step_failed = True
+                failed_phases.append("prefill")
                 self._on_phase_failure([seq], "prefill", e, finished)
             finally:
                 phases["prefill"] = (now_s() - tp) - (self._sample_s - s0)
         if plan.decode:
-            td, s0 = now_s(), self._sample_s
+            s0, td = self._sample_s, now_s()
             try:
-                if plan.spec:
-                    tokens_done += self._run_spec_decode(
-                        plan.decode, plan.spec, finished)
-                else:
-                    self._run_decode(plan.decode, finished)
-                    tokens_done += len(plan.decode)
+                with telemetry.span("serving/decode", cat="Serving",
+                                    slots=len(plan.decode), step=step_idx,
+                                    rids=decode_rids):
+                    if plan.spec:
+                        tokens_done += self._run_spec_decode(
+                            plan.decode, plan.spec, finished)
+                    else:
+                        self._run_decode(plan.decode, finished)
+                        tokens_done += len(plan.decode)
             except Exception as e:
                 step_failed = True
+                failed_phases.append("decode")
                 self._on_phase_failure(plan.decode, "decode", e, finished)
             finally:
-                phases["decode"] = (now_s() - td) - (self._sample_s - s0)
+                decode_s = (now_s() - td) - (self._sample_s - s0)
+                phases["decode"] = decode_s
+                if (self.hbm_peak_gbs and decode_s > 0.0
+                        and "decode" not in failed_phases):
+                    # the weights' bytes over the decode phase's seconds,
+                    # as a share of the card's HBM peak
+                    gbs = self.model_bytes / decode_s / 1e9
+                    self.metrics.on_decode_roofline(gbs / self.hbm_peak_gbs)
         if (not step_failed and plan.prefill is None and not plan.decode
                 and self.has_work()):
             raise RuntimeError("scheduler made no progress with work "
                                "pending: pool/budget configuration bug")
+        dur = now_s() - t_step
         phases["sample"] = self._sample_s
-        phases["other"] = max(0.0, (now_s() - t_step) - sum(
-            phases[p] for p in ("schedule", "prefill", "decode", "sample")))
+        phases["other"] = max(0.0, dur - phases["schedule"]
+                              - phases["prefill"] - phases["decode"]
+                              - phases["sample"])
         # the admission EWMA and the hung-step detector rate the compute
         # part of the step, not the sweep and planning
         compute_s = now_s() - t0
@@ -388,23 +623,45 @@ class ServingEngine:
         # acquisitions too); the metrics take the delta once a step
         cur = (self.pool.prefix_hits, self.pool.prefix_hit_tokens,
                self.pool.prefix_miss_tokens, self.pool.cow_copies)
-        self.metrics.on_prefix(*(a - b for a, b in
-                                 zip(cur, self._prefix_seen)),
-                               cached_blocks=self.pool.num_cached)
+        dhits, dhit_tok, dmiss_tok, dcow = (
+            a - b for a, b in zip(cur, self._prefix_seen))
         self._prefix_seen = cur
+        self.metrics.on_prefix(dhits, dhit_tok, dmiss_tok, dcow,
+                               cached_blocks=self.pool.num_cached)
+        host_extra = {}
         tier = self.pool.host_tier
         if tier is not None:
             hcur = (self.pool.host_hits, self.pool.host_hit_tokens,
                     tier.spills, tier.evictions,
                     self.pool.host_restore_failures)
-            self.metrics.on_host_tier(
-                *(a - b for a, b in zip(hcur, self._host_seen)),
-                blocks=len(tier), nbytes=tier.bytes)
+            dh, dh_tok, dspill, devict, dfail = (
+                a - b for a, b in zip(hcur, self._host_seen))
             self._host_seen = hcur
+            self.metrics.on_host_tier(dh, dh_tok, dspill, devict, dfail,
+                                      blocks=len(tier), nbytes=tier.bytes)
+            # the digest has the tier's keys only when the tier exists
+            host_extra = {"host_restored_tokens": dh_tok,
+                          "host_blocks": len(tier),
+                          "host_bytes": tier.bytes}
         self.metrics.on_phases(phases)
         self.metrics.on_step(decode_slots=len(plan.decode),
                              total_slots=self.max_slots,
+                             queue_depth=len(self.scheduler.waiting),
                              pool_utilization=self.pool.utilization)
+        telemetry.record_flight_step(
+            step=step_idx,
+            prefill=(0 if plan.prefill is None else int(plan.prefill[2])),
+            decode=len(plan.decode), preempted=len(plan.preempted),
+            queue_depth=len(self.scheduler.waiting),
+            occupancy=len(plan.decode) / max(self.max_slots, 1),
+            pool_util=round(self.pool.utilization, 4),
+            dur_s=dur, failures=failed_phases,
+            prefill_rids=prefill_rids, decode_rids=decode_rids,
+            prefix_hit_tokens=dhit_tok, cow=dcow,
+            cached_blocks=self.pool.num_cached,
+            kernel=self.paged_kernel, spec=self.spec_mode,
+            spec_accepted=self._spec_step_accepted, **host_extra)
+        self._maybe_publish_fleet()
         return finished
 
     def run(self, max_steps: int | None = None) -> dict[int, Sequence]:
@@ -442,7 +699,48 @@ class ServingEngine:
             self._finish_terminal(seq, CANCELLED, [])
             done[seq.req_id] = seq
         self.lifecycle.to(STOPPED)
+        # the end-of-life postmortem: the last steps, the final health
+        # and the resolved goodput ledger in one document
+        telemetry.dump_flight("drain", health=self.health(),
+                              extra={"drained": len(done)})
+        if self._fleet_publish is not None:
+            # the fleet view must see STOPPED
+            self._publish_fleet_snapshot()
         return done
+
+    def enable_fleet_publish(self, store, rank: int,
+                             every_steps: int | None = None) -> None:
+        """Publish health to a store: every ``every_steps`` engine steps
+        (``FLAGS_serving_fleet_publish_every`` when None; <= 0 disables)
+        the engine pushes its telemetry snapshot with :meth:`health` as
+        its ``serving`` section under ``/telemetry/rank<N>``
+        (``telemetry.push_snapshot``), the keys a fleet router and
+        ``telemetry.collect_fleet`` read. ``store`` is any object with
+        ``set(key, bytes)`` and ``get(key, default=)``. One snapshot is
+        pushed at once, so a router sees the replica before its first
+        step."""
+        every = int(flag_value("serving_fleet_publish_every")
+                    if every_steps is None else every_steps)
+        if every <= 0:
+            self._fleet_publish = None
+            return
+        self._fleet_publish = (store, int(rank), every)
+        self._publish_fleet_snapshot()
+
+    def _maybe_publish_fleet(self) -> None:
+        if self._fleet_publish is None:
+            return
+        if self.metrics.steps % self._fleet_publish[2] == 0:
+            self._publish_fleet_snapshot()
+
+    def _publish_fleet_snapshot(self) -> None:
+        store, rank, _ = self._fleet_publish
+        try:
+            telemetry.push_snapshot(store, rank, serving=self.health())
+        except (ConnectionError, OSError) as e:
+            # publishing is observability, not the data path: a store
+            # blip never takes the serving loop down
+            robustness._report_degraded("serving.fleet.publish", e)
 
     def readiness_probe(self) -> bool:
         """One scratch prefill and decode round trip through the model,
@@ -477,14 +775,30 @@ class ServingEngine:
             robustness._report_degraded("serving.readiness_probe", e)
             return False
 
+    def routing_signals(self) -> tuple[str, float, int, float, int]:
+        """(lifecycle state, estimated queue delay seconds, waiting depth,
+        slot occupancy, resident in-flight tokens): the per-request
+        routing inputs a fleet router reads, equal to the same fields of
+        :meth:`health` without building the whole document."""
+        return (self.lifecycle.state,
+                self._admission.estimated_delay_s(self.scheduler),
+                len(self.scheduler.waiting),
+                len(self.scheduler.active) / max(self.max_slots, 1),
+                sum(s.ctx for s in self.requests.values()))
+
     def health(self) -> dict:
         """One self-describing snapshot of engine liveness, the serving
-        analog of a /healthz body."""
+        analog of a /healthz body. The lifecycle state is also exported
+        as one-hot ``serving_health_state`` telemetry gauges."""
         m = self.metrics
         return {
             "state": self.lifecycle.state,
             "state_since_s": self.lifecycle.since_s,
             "degraded_reason": self.lifecycle.degraded_reason,
+            # the role in a role-split fleet and the lifetime handoffs
+            "role": self.fleet_role,
+            "handoffs": {"out": self._handoffs_out,
+                         "in": self._handoffs_in},
             "waiting": len(self.scheduler.waiting),
             "active": len(self.scheduler.active),
             "in_flight": len(self.requests),
@@ -500,6 +814,10 @@ class ServingEngine:
             "step_failures": dict(m.step_failures),
             "hung_steps": m.hung_steps,
             "tokens_computed": m.tokens_computed,
+            "token_ledger": dict(m.ledger),
+            "goodput_ratio": round(m.goodput_ratio, 4),
+            # which attend the dispatches run (the device picks)
+            "paged_kernel": self.paged_kernel,
             "spec": {
                 "mode": self.spec_mode,
                 "proposer": (None if self._proposer is None
@@ -538,8 +856,15 @@ class ServingEngine:
         sequences are charged a retry; a dispatch failure cannot be
         attributed and charges the whole component."""
         if isinstance(exc, SampleFailures):
+            # row-precise charges, one flight dump naming every row the
+            # loop quarantined
+            entered, quarantined = False, []
             for seq, row_exc in exc.failures:
-                handle_step_failure(self, [seq], phase, row_exc, finished)
+                ent, q = handle_step_failure(self, [seq], phase, row_exc,
+                                             finished, dump=False)
+                entered = entered or ent
+                quarantined.extend(q)
+            dump_step_failure(self, phase, repr(exc), quarantined, entered)
         else:
             handle_step_failure(self, planned, phase, exc, finished)
 
@@ -555,6 +880,7 @@ class ServingEngine:
         self.scheduler.remove(seq)
         self.requests.pop(seq.req_id, None)
         self.metrics.on_terminal(reason)
+        self.metrics.resolve_ledger(seq)
         self._spec_forget(seq)
         note_event(seq, "terminal", outcome=reason,
                    output_tokens=len(seq.output))
@@ -589,6 +915,23 @@ class ServingEngine:
         if copies and self._proposer is not None:
             self._proposer.on_cow(copies)
 
+    def _note_attn_bytes(self, rows) -> None:
+        """The attention-bytes ledger for one dispatch; ``rows`` is
+        ``[(position, chunk_len, seq)]``. Touched: the UNIQUE context K/V
+        bytes the dispatch addresses through the block tables, each row's
+        blocks up to its causal horizon (the volume any implementation
+        must stream; K5's own reads of idle rows and repeated blocks are
+        not counted). Dense: what a static-buffer decode would read for
+        the same rows, each row's full final-length buffer (prompt +
+        max_new_tokens)."""
+        touched = dense = 0
+        for pos, n, seq in rows:
+            nb = min((pos + n - 1) // self.block_size + 1, self.max_blocks)
+            touched += nb * self.block_size
+            dense += seq.prompt_len + seq.max_new_tokens
+        self.metrics.on_attn_bytes(touched * self._kv_token_bytes,
+                                   dense * self._kv_token_bytes)
+
     def _bucket(self, n: int) -> int:
         if n > self.prefill_chunk:
             raise ValueError(f"prefill chunk {n} exceeds "
@@ -620,10 +963,13 @@ class ServingEngine:
                               np.asarray([n], np.int32),
                               self._table_row(seq)[None, :])
         seq.ctx = start + n
+        self._note_attn_bytes([(start, n, seq)])
         self.pool.register_prefix_blocks(seq.req_id, seq.tokens, seq.ctx)
         # the chunk's K/V exists now: count it even if sampling fails
-        self.metrics.on_tokens_computed(n)
-        note_event(seq, "prefill_chunk", start=start, tokens=n)
+        # (a replay counts it again, as replay work)
+        self.metrics.on_tokens_computed(seq, start, n)
+        note_event(seq, "prefill_chunk", start=start, tokens=n,
+                   step=self.metrics.steps)
         if seq.ctx >= seq.prefill_target:
             # the chunk that completes the context yields the next token
             # (a fresh prompt and a replay alike)
@@ -654,22 +1000,28 @@ class ServingEngine:
             lengths[i] = 1
             tables[i] = self._table_row(seq)
         last = self._dispatch(ids, positions, lengths, tables)
+        self._note_attn_bytes([(s.ctx, 1, s) for s in seqs])
         row_failures = []
-        for i, seq in enumerate(seqs):
-            seq.ctx += 1
-            try:
-                tok = self._sample(last[i], seq)
-            except Exception as e:
-                # back to ctx == len(tokens) - 1 before recovery (the
-                # replay rewrites this row's K/V); the other rows'
-                # logits are valid, so they keep emitting
-                seq.ctx -= 1
-                row_failures.append((seq, e))
-                continue
-            self.metrics.on_tokens_computed(1)
-            self.pool.register_prefix_blocks(seq.req_id, seq.tokens,
-                                             seq.ctx)
-            self._emit(seq, tok, finished)
+        with telemetry.span("serving/sample", cat="Serving",
+                            step=self.metrics.steps,
+                            rids=[s.req_id for s in seqs]):
+            for i, seq in enumerate(seqs):
+                seq.ctx += 1
+                try:
+                    tok = self._sample(last[i], seq)
+                except Exception as e:
+                    # back to ctx == len(tokens) - 1 before recovery (the
+                    # replay rewrites this row's K/V); the other rows'
+                    # logits are valid, so they keep emitting
+                    seq.ctx -= 1
+                    row_failures.append((seq, e))
+                    continue
+                # the row's K/V (position ctx - 1) counts only when its
+                # row sampled cleanly; a failed row's replay recomputes it
+                self.metrics.on_tokens_computed(seq, seq.ctx - 1, 1)
+                self.pool.register_prefix_blocks(seq.req_id, seq.tokens,
+                                                 seq.ctx)
+                self._emit(seq, tok, finished)
         if row_failures:
             raise SampleFailures(row_failures)
 
@@ -759,79 +1111,90 @@ class ServingEngine:
             rows.append((i, seq, d, m))
         self._apply_cow(copies)
         full = self._dispatch_full(ids, positions, lengths, tables)
+        self._note_attn_bytes([(seq.ctx, m, seq) for _, seq, _, m in rows])
         n_tokens = int(sum(m for _, _, _, m in rows))
-        step_accepted = 0
         row_failures = []
-        for i, seq, d, m in rows:
-            start = seq.ctx
-            toks = None
-            accepted = 0
-            if d:
-                try:
-                    # the per-emission fault point keeps targeting a
-                    # request whose emissions ride verify rows; it fires
-                    # before any draw, so a replay samples from an
-                    # unconsumed stream
-                    fault_point("serving.sample", step=self.metrics.steps,
-                                key=str(seq.req_id))
-                except Exception as e:
-                    row_failures.append((seq, e))
-                    continue
-                t0 = now_s()
-                try:
-                    fault_point("serving.spec.verify",
-                                step=self.metrics.steps, key=str(seq.req_id))
-                    toks, accepted = verify_draft(full[i, :m], d, seq)
-                except Exception as e:
-                    # the row's first position is the plain decode's own
-                    # distribution: degrade and fall through to it. d is
-                    # cleared so a fault is never charged to the
-                    # proposer's acceptance; the dispatched drafts still
-                    # count as computed work
-                    self._spec_degrade(seq, "serving.spec.verify", e)
-                    toks, accepted, d = None, 0, []
-                finally:
-                    self._sample_s += now_s() - t0
-            if toks is None:
-                try:
-                    toks = [self._sample(full[i, 0], seq)]
-                except Exception as e:
-                    # the row emits nothing; the replay rewinds its K/V
-                    row_failures.append((seq, e))
-                    continue
-            # tokens past eos or the length limit are dropped
-            emitted, out_len = 0, len(seq.output)
-            eos = seq.eos_token_id
-            for tok in toks:
-                emitted += 1
-                if ((eos is not None and tok == int(eos))
-                        or out_len + emitted >= seq.max_new_tokens):
-                    break
-            new_ctx = start + emitted
-            self.metrics.on_spec_tokens(emitted, m - emitted)
-            # rewind and register BEFORE emission, as the plain path
-            # does: a burst that finishes the request frees its blocks
-            # in _emit, and only registered blocks park in the cached
-            # set. The kept K/V was computed from seq.tokens plus all but
-            # the last emitted token; trim keeps one more position so
-            # the next decode write's block survives
-            self.pool.trim(seq.req_id, new_ctx + 1)
-            self.pool.register_prefix_blocks(
-                seq.req_id, seq.tokens + toks[:emitted - 1], new_ctx)
-            prev = seq.last_token_s
-            for tok in toks[:emitted]:
-                self._emit(seq, tok, finished, note_gap=False)
-            seq.ctx = new_ctx
-            self._note_token_gaps(seq, emitted, now_s(), prev)
-            if d:
-                self.metrics.on_spec_verify(len(d), accepted)
-                self._spec_proposed_life += len(d)
-                self._spec_accepted_life += accepted
-                note_acceptance(seq, len(d), accepted)
-                step_accepted += max(0, emitted - 1)
-                if not seq.is_finished:
-                    self._proposer.observe(seq, start, len(d))
-        self.metrics.on_spec_step(step_accepted)
+        with telemetry.span("serving/sample", cat="Serving",
+                            step=self.metrics.steps,
+                            rids=[s.req_id for s in seqs]):
+            for i, seq, d, m in rows:
+                start = seq.ctx
+                toks = None
+                accepted = 0
+                if d:
+                    try:
+                        # the per-emission fault point keeps targeting a
+                        # request whose emissions ride verify rows; it
+                        # fires before any draw, so a replay samples from
+                        # an unconsumed stream
+                        fault_point("serving.sample",
+                                    step=self.metrics.steps,
+                                    key=str(seq.req_id))
+                    except Exception as e:
+                        row_failures.append((seq, e))
+                        continue
+                    t0 = now_s()
+                    try:
+                        fault_point("serving.spec.verify",
+                                    step=self.metrics.steps,
+                                    key=str(seq.req_id))
+                        toks, accepted = verify_draft(full[i, :m], d, seq)
+                    except Exception as e:
+                        # the row's first position is the plain decode's
+                        # own distribution: degrade and fall through to
+                        # it. d is cleared so a fault is never charged to
+                        # the proposer's acceptance; the dispatched drafts
+                        # still count as spec_rejected work
+                        self._spec_degrade(seq, "serving.spec.verify", e)
+                        toks, accepted, d = None, 0, []
+                    finally:
+                        self._sample_s += now_s() - t0
+                if toks is None:
+                    try:
+                        toks = [self._sample(full[i, 0], seq)]
+                    except Exception as e:
+                        # the row emits nothing; the replay rewinds its K/V
+                        row_failures.append((seq, e))
+                        continue
+                # tokens past eos or the length limit are dropped; the
+                # row's compute is booked before the emission that may
+                # finish the request (and resolve its ledger)
+                emitted, out_len = 0, len(seq.output)
+                eos = seq.eos_token_id
+                for tok in toks:
+                    emitted += 1
+                    if ((eos is not None and tok == int(eos))
+                            or out_len + emitted >= seq.max_new_tokens):
+                        break
+                new_ctx = start + emitted
+                # kept span [start, new_ctx); rejected = dispatched
+                # positions whose K/V is discarded
+                self.metrics.on_spec_tokens(seq, start, emitted,
+                                            m - emitted)
+                # rewind and register BEFORE emission, as the plain path
+                # does: a burst that finishes the request frees its blocks
+                # in _emit, and only registered blocks park in the cached
+                # set. The kept K/V was computed from seq.tokens plus all
+                # but the last emitted token; trim keeps one more position
+                # so the next decode write's block survives
+                self.pool.trim(seq.req_id, new_ctx + 1)
+                self.pool.register_prefix_blocks(
+                    seq.req_id, seq.tokens + toks[:emitted - 1], new_ctx)
+                prev = seq.last_token_s
+                for tok in toks[:emitted]:
+                    self._emit(seq, tok, finished, note_gap=False)
+                seq.ctx = new_ctx
+                self._note_token_gaps(seq, emitted, now_s(), prev)
+                if d:
+                    self.metrics.on_spec_verify(self._proposer.name,
+                                                len(d), accepted)
+                    self._spec_proposed_life += len(d)
+                    self._spec_accepted_life += accepted
+                    note_acceptance(seq, len(d), accepted)
+                    self._spec_step_accepted += max(0, emitted - 1)
+                    if not seq.is_finished:
+                        self._proposer.observe(seq, start, len(d))
+        self.metrics.on_spec_step(self._spec_step_accepted)
         if row_failures:
             raise SampleFailures(row_failures)
         return n_tokens
@@ -873,7 +1236,8 @@ class ServingEngine:
         if seq.first_token_s is None:
             seq.first_token_s = now
             self.metrics.on_first_token(now - seq.arrival_s)
-            note_event(seq, "first_token", t_s=now)
+            note_event(seq, "first_token", t_s=now,
+                       ttft_s=round(now - seq.arrival_s, 6))
         if note_gap:
             # a multi-token burst passes note_gap=False and records its
             # gaps once (_note_token_gaps)
@@ -889,13 +1253,21 @@ class ServingEngine:
         if seq.finish_reason is not None:
             seq.outcome = OK
             seq.finish_s = now
-            self.metrics.on_finish()
-            note_event(seq, "terminal", t_s=now, outcome=OK,
-                       reason=seq.finish_reason)
+            tpot = None
+            if len(seq.output) > 1:
+                # the request's mean gap, for the TPOT SLO check only
+                # (the percentile stream is fed per token)
+                tpot = ((seq.finish_s - seq.first_token_s)
+                        / (len(seq.output) - 1))
+            self.metrics.on_finish(tpot)
+            self.metrics.resolve_ledger(seq)
             self._spec_forget(seq)
+            note_event(seq, "terminal", t_s=now, outcome=OK,
+                       reason=seq.finish_reason,
+                       output_tokens=len(seq.output))
             self.scheduler.remove(seq)
             self.requests.pop(seq.req_id, None)   # the caller owns it now
             finished.append(seq)
 
 
-__all__ = ["ServingEngine", "sample_token"]
+__all__ = ["ServingEngine", "sample_token", "PREFILL", "RUNNING"]

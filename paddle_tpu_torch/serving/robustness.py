@@ -29,6 +29,17 @@ isolation and the engine lifecycle state machine.
   DEGRADED, and ``RECOVERY_CLEAN_STEPS`` clean steps bring it back;
   ``engine.drain()`` goes through DRAINING (no admissions, in-flight
   work runs out under a deadline, stragglers ``cancelled``) to STOPPED.
+  The current state is exported as one-hot ``serving_health_state``
+  telemetry gauges.
+- **Observability**: every lifecycle event of a request goes onto its
+  bounded timeline and the process request log (:func:`note_event`), a
+  quarantine, a first DEGRADED entry and a hung step each freeze one
+  flight-recorder postmortem (:func:`dump_step_failure`,
+  ``telemetry.dump_flight``), and every recoverable failure is reported
+  through ``distributed/watchdog.report_degraded`` (logged once per site
+  and exception type, counted each time in
+  ``watchdog_degraded_total{site}``). All of it is a guarded no-op while
+  ``FLAGS_telemetry`` is off, except the log line.
 
 :func:`now_s` is the one wall-clock read of serving code.
 
@@ -41,18 +52,15 @@ reference's exception types at the reference's places. A real CUDA error
 inside a step is sticky: the replay fails again, the retry budget turns
 that into quarantine, and the engine must be drained and rebuilt; the
 port does not pretend to recover from one.
-
-Not ported yet: the flight-recorder dumps and telemetry gauges the JAX
-package writes on these paths (they are inert there with
-``FLAGS_telemetry`` off, its default).
 """
 
 from __future__ import annotations
 
-import logging
 import time
 
+from .. import telemetry
 from ..distributed.fault import fault_point
+from ..distributed.watchdog import report_degraded
 from ..flags import flag_value
 
 __all__ = [
@@ -61,12 +69,10 @@ __all__ = [
     "JOINING", "REPLICA_STATES",
     "PREFILL_ROLE", "DECODE_ROLE", "BOTH_ROLE", "ROLES",
     "RECOVERY_CLEAN_STEPS", "AdmissionController", "Lifecycle",
-    "RequestRejected", "SampleFailures", "check_hung_step", "fault_point",
-    "handle_schedule_failure", "handle_step_failure", "note_event",
-    "now_s", "sweep_deadlines",
+    "RequestRejected", "SampleFailures", "check_hung_step",
+    "dump_step_failure", "fault_point", "handle_schedule_failure",
+    "handle_step_failure", "note_event", "now_s", "sweep_deadlines",
 ]
-
-logger = logging.getLogger(__name__)
 
 # -- terminal reasons ---------------------------------------------------------
 # every request leaves the engine with exactly one of these on
@@ -107,9 +113,6 @@ _ALLOWED_TRANSITIONS = {
 # DEGRADED engine reports SERVING again
 RECOVERY_CLEAN_STEPS = 8
 
-# events kept per request; the terminal event always finds room
-REQUEST_EVENTS_MAX = 64
-
 
 def now_s() -> float:
     """The one sanctioned wall-clock read for serving code
@@ -119,15 +122,26 @@ def now_s() -> float:
 
 
 def note_event(seq, kind: str, **attrs) -> None:
-    """Append one lifecycle event (arrival, prefill_chunk, first_token,
-    preempted, retry, quarantined, terminal, ...) to ``seq.events``. The
-    first ``REQUEST_EVENTS_MAX - 1`` events and the terminal one are
-    kept; events in between are counted in ``seq.events_dropped``."""
-    if kind == "terminal" or len(seq.events) < REQUEST_EVENTS_MAX - 1:
-        seq.events.append({"t_s": attrs.pop("t_s", now_s()), "kind": kind,
-                           **attrs})
-    else:
+    """Record one lifecycle event (arrival, admitted, prefill_chunk,
+    first_token, preempted, retry, quarantined, terminal, handoff_in,
+    handoff_out, ...) on the Sequence's bounded timeline AND the process
+    request log (``telemetry/requests.py``), so the timeline survives
+    the Sequence leaving the engine. Both keep the first
+    ``FLAGS_telemetry_request_events_max - 1`` events and the terminal
+    one; ``seq.events_dropped`` counts the rest.
+
+    A guarded no-op while ``FLAGS_telemetry`` is off: no clock read,
+    nothing retained. ``t_s`` defaults to ``now_s()``; pass it to
+    back-date (the arrival event uses the request's ``arrival_s``)."""
+    if not telemetry.enabled():
+        return
+    ev = {"t_s": now_s(), "kind": kind}
+    ev.update(attrs)
+    cap = int(flag_value("telemetry_request_events_max"))
+    final = kind == "terminal"
+    if not telemetry.bounded_event_append(seq.events, ev, cap, final):
         seq.events_dropped += 1
+    telemetry.record_request_event(seq.req_id, ev, final)
 
 
 class SampleFailures(Exception):
@@ -143,19 +157,12 @@ class SampleFailures(Exception):
         self.failures = list(failures)
 
 
-_degraded_seen: set = set()
-
-
 def _report_degraded(site: str, exc: Exception) -> None:
-    """The one place a recoverable serving failure is reported: logged
-    once per (site, exception type), so a path that fails 10k times does
-    not bury the log. Tests patch this function to count reports."""
-    key = (site, type(exc).__name__)
-    if key in _degraded_seen:
-        return
-    _degraded_seen.add(key)
-    logger.warning("serving degraded path at %s: %s: %s (continuing)",
-                   site, type(exc).__name__, exc)
+    """The serving paths' report of a recoverable failure, through
+    ``distributed/watchdog.report_degraded``: logged once per (site,
+    exception type), counted every time. Tests patch this function to
+    count reports."""
+    report_degraded(site, exc)
 
 
 class RequestRejected(ValueError):
@@ -174,7 +181,8 @@ class RequestRejected(ValueError):
 
 
 class Lifecycle:
-    """SERVING -> DEGRADED -> DRAINING -> STOPPED.
+    """SERVING -> DEGRADED -> DRAINING -> STOPPED, exported as one-hot
+    ``serving_health_state`` gauges on every transition.
 
     DEGRADED is the only reversible state: step failures and hung steps
     enter it, ``RECOVERY_CLEAN_STEPS`` consecutive clean steps leave it.
@@ -188,6 +196,7 @@ class Lifecycle:
         self.since_s = now_s()
         self.degraded_reason: str | None = None
         self._clean_steps = 0
+        self._export()
 
     def to(self, new_state: str) -> None:
         """Transition, enforcing the state machine. Same-state is a
@@ -200,6 +209,7 @@ class Lifecycle:
                 f"{self.state} -> {new_state}")
         self.state = new_state
         self.since_s = now_s()
+        self._export()
 
     def mark_degraded(self, reason: str) -> bool:
         """A failure or hung step was observed: reset the clean-step run
@@ -220,6 +230,14 @@ class Lifecycle:
         if self._clean_steps >= RECOVERY_CLEAN_STEPS:
             self.degraded_reason = None
             self.to(SERVING)
+
+    def _export(self) -> None:
+        # one-hot gauges over REPLICA_STATES, so {state="joining"}
+        # always exists (0 for an engine)
+        for s in REPLICA_STATES:
+            telemetry.gauge("serving_health_state",
+                            labels={"state": s}).set(
+                                1.0 if s == self.state else 0.0)
 
 
 class AdmissionController:
@@ -323,8 +341,26 @@ def sweep_deadlines(engine, now: float, finished: list) -> None:
         engine._finish_terminal(seq, EXPIRED, finished)
 
 
+def dump_step_failure(engine, phase: str, error_repr: str,
+                      quarantined: list, entered: bool) -> None:
+    """One postmortem per failing plan component: a QUARANTINE (some
+    sequence used up its retries) freezes a flight dump naming ALL the
+    quarantined request ids; otherwise the first entry into DEGRADED
+    freezes one for the degradation itself. Inert while telemetry is
+    off."""
+    if quarantined:
+        telemetry.dump_flight(
+            "quarantine", health=engine.health(),
+            extra={"phase": phase, "quarantined": quarantined,
+                   "error": error_repr})
+    elif entered:
+        telemetry.dump_flight(
+            "degraded", health=engine.health(),
+            extra={"phase": phase, "error": error_repr})
+
+
 def handle_step_failure(engine, seqs, phase: str, exc: Exception,
-                        finished: list) -> list[int]:
+                        finished: list, dump: bool = True):
     """Quarantine-or-replay for the sequences of a failing plan
     component (``phase`` is ``prefill`` or ``decode``; ``sample``
     failures surface through whichever phase was emitting).
@@ -333,11 +369,15 @@ def handle_step_failure(engine, seqs, phase: str, exc: Exception,
     over its lifetime: within budget it re-enters the waiting queue
     through the scheduler's recompute replay, beyond it it finishes with
     terminal reason ``failed``. Sequences that already finished during
-    the partial step keep their valid tokens. Returns the quarantined
-    request ids."""
+    the partial step keep their valid tokens.
+
+    A caller that splits one component into per-row calls (the engine's
+    ``SampleFailures`` path) passes ``dump=False`` and dumps once itself
+    with the rows' request ids together. Returns ``(entered_degraded,
+    quarantined_rids)`` for that."""
     _report_degraded(f"serving.step.{phase}", exc)
     engine.metrics.on_step_failure(phase)
-    engine.lifecycle.mark_degraded(f"step_failure:{phase}")
+    entered = engine.lifecycle.mark_degraded(f"step_failure:{phase}")
     allowed = int(flag_value("serving_step_retries"))
     quarantined: list[int] = []
     for seq in seqs:
@@ -354,7 +394,9 @@ def handle_step_failure(engine, seqs, phase: str, exc: Exception,
             # the rewind freed (and may reallocate) the sequence's
             # blocks: any draft-model K/V high-water for them is stale
             engine._spec_forget(seq)
-    return quarantined
+    if dump:
+        dump_step_failure(engine, phase, repr(exc), quarantined, entered)
+    return entered, quarantined
 
 
 def handle_schedule_failure(engine, exc: Exception) -> None:
@@ -364,7 +406,10 @@ def handle_schedule_failure(engine, exc: Exception) -> None:
     Victims preempted while planning are back in the waiting queue."""
     _report_degraded("serving.schedule", exc)
     engine.metrics.on_step_failure("schedule")
-    engine.lifecycle.mark_degraded("schedule_failure")
+    if engine.lifecycle.mark_degraded("schedule_failure"):
+        telemetry.dump_flight(
+            "degraded", health=engine.health(),
+            extra={"phase": "schedule", "error": repr(exc)})
 
 
 def check_hung_step(engine, dur_s: float) -> bool:
@@ -380,5 +425,11 @@ def check_hung_step(engine, dur_s: float) -> bool:
         "serving.hung_step",
         RuntimeError(f"engine step took {dur_s:.4f}s (threshold "
                      f"{thr}s): device wedged or host starved"))
-    engine.lifecycle.mark_degraded("hung_step")
+    # one dump per DEGRADED entry: a chronically slow engine trips the
+    # detector every step, and a postmortem per step would add files and
+    # host work to an engine already struggling
+    if engine.lifecycle.mark_degraded("hung_step"):
+        telemetry.dump_flight(
+            "hung_step", health=engine.health(),
+            extra={"dur_s": dur_s, "threshold_s": thr})
     return True

@@ -19,7 +19,10 @@ cursor rewinds to zero, and it re-enters the waiting queue at the
 FRONT. On re-admission its prompt AND already sampled tokens are
 re-prefilled, so decoding continues where it stopped. The oldest
 active sequence is never preempted, so it can always take the whole
-pool: no deadlock.
+pool: no deadlock. Each exhaustion is reported through
+``distributed/watchdog.report_degraded``
+(``serving.scheduler.pool_exhausted``), and a rewind records its cause
+on the Sequence for the goodput ledger.
 
 Prefix caching (``kv_pool.py``): admission makes the BINDING prefix
 lookup. A sequence about to prefill with no blocks acquires the longest
@@ -71,8 +74,10 @@ class Sequence:
                  "top_p", "eos_token_id", "rng", "arrival_s",
                  "first_token_s", "last_token_s", "finish_s",
                  "finish_reason", "outcome", "preemptions", "deadline_s",
-                 "retries", "events", "events_dropped", "spec_off",
-                 "spec_hist")
+                 "retries", "events", "events_dropped", "computed_hw",
+                 "rewind_cause", "tok_fresh", "tok_replay_preempt",
+                 "tok_replay_retry", "spec_off", "spec_hist",
+                 "tok_spec_accepted", "tok_spec_rejected")
 
     def __init__(self, req_id, prompt, *, max_new_tokens, temperature=0.0,
                  top_k=0, top_p=1.0, eos_token_id=None, seed=0,
@@ -105,14 +110,28 @@ class Sequence:
         self.outcome = None
         self.preemptions = 0
         self.retries = 0          # step-failure recompute attempts
+        # bounded lifecycle timeline (robustness.note_event): empty
+        # while FLAGS_telemetry is off
         self.events: list[dict] = []
         self.events_dropped = 0
+        # goodput ledger (metrics.py): the computed-context high water,
+        # the cause of the latest rewind, and per-kind token counts
+        # classified into serving_tokens_total{kind=} at the end
+        self.computed_hw = 0
+        self.rewind_cause = None       # None | "preempt" | "retry"
+        self.tok_fresh = 0             # computed for the first time
+        self.tok_replay_preempt = 0    # recomputed after a preemption
+        self.tok_replay_retry = 0      # recomputed after a step failure
         # speculative decoding (speculation.py): spec_off keeps the
         # sequence on plain decode for the rest of its life; spec_hist
         # is the rolling (proposed, accepted) window adaptive lookahead
         # reads
         self.spec_off = False
         self.spec_hist: list[tuple[int, int]] = []
+        # accepted and rejected draft positions, the ledger's
+        # spec_accepted and spec_rejected kinds
+        self.tok_spec_accepted = 0
+        self.tok_spec_rejected = 0
 
     @property
     def output_ids(self) -> list[int]:
@@ -266,7 +285,9 @@ class Scheduler:
             try:
                 self.pool.ensure(needy.req_id, n_tokens, reserve=reserve)
                 return True
-            except PoolOOM:
+            except PoolOOM as e:
+                from ..distributed.watchdog import report_degraded
+                report_degraded("serving.scheduler.pool_exhausted", e)
                 holders = [s for s in self.waiting
                            if self.pool.holds(s.req_id)]
                 if holders:
@@ -298,6 +319,7 @@ class Scheduler:
         ctx_discarded = seq.ctx
         self._rewind(seq)
         seq.preemptions += 1
+        seq.rewind_cause = "preempt"
         note_event(seq, "preempted", ctx=ctx_discarded,
                    preemptions=seq.preemptions)
         preempted.append(seq)
@@ -307,8 +329,11 @@ class Scheduler:
         SAME rewind as preemption by recompute (blocks freed, cursor back
         to zero, front of the waiting queue, so the prompt + output
         replay resumes decoding where it stopped), accounted on
-        ``seq.retries`` by the caller, not on ``seq.preemptions``."""
+        ``seq.retries`` by the caller, not on ``seq.preemptions``. The
+        replayed tokens are charged to the goodput ledger's
+        ``recompute_replay`` kind."""
         self._rewind(seq)
+        seq.rewind_cause = "retry"
 
     def _rewind(self, seq: Sequence) -> None:
         self.pool.free_seq(seq.req_id)

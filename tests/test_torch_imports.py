@@ -47,6 +47,16 @@ SERVING_MODULES = (
     "paddle_tpu_torch.serving.host_tier", "paddle_tpu_torch.serving.kv_pool",
     "paddle_tpu_torch.serving.robustness",
     "paddle_tpu_torch.serving.speculation")
+# the telemetry package and the degraded-path report, which both scans
+# must reach
+TELEMETRY_MODULES = (
+    "paddle_tpu_torch.distributed.watchdog", "paddle_tpu_torch.telemetry",
+    "paddle_tpu_torch.telemetry.aggregate",
+    "paddle_tpu_torch.telemetry.exporters",
+    "paddle_tpu_torch.telemetry.flight",
+    "paddle_tpu_torch.telemetry.registry",
+    "paddle_tpu_torch.telemetry.requests",
+    "paddle_tpu_torch.telemetry.tracer")
 
 
 def _port_modules():
@@ -66,7 +76,7 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     and chip_smoke import in a fresh interpreter."""
     mods = _port_modules() + ["chip_smoke"]
     assert (set(TRAINING_MODULES) | set(RESNET_MODULES)
-            | set(SERVING_MODULES)) <= set(mods)
+            | set(SERVING_MODULES) | set(TELEMETRY_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -80,12 +90,47 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     assert "imported" in proc.stdout
 
 
+def test_telemetry_off_by_default_starts_no_thread():
+    """In a fresh interpreter with the JAX package poisoned, importing the
+    telemetry package and building and stepping an engine with
+    ``FLAGS_telemetry`` at its default (off) starts no thread and
+    retains nothing."""
+    code = ("import sys, threading\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "before = {t.name for t in threading.enumerate()}\n"
+            "import paddle_tpu_torch.telemetry as tel\n"
+            "from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM\n"
+            "from paddle_tpu_torch import ServingEngine, flags\n"
+            "assert flags.flag_value('telemetry') is False\n"
+            "flags.set_flags({'telemetry_export_interval': 0.05})\n"
+            "m = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),\n"
+            "                     device='cpu')\n"
+            "e = ServingEngine.from_model(m, device='cpu', block_size=4,\n"
+            "                             max_slots=2, prefill_chunk=8)\n"
+            "rid = e.add_request([1, 2, 3], max_new_tokens=2)\n"
+            "assert e.run()[rid].events == []\n"
+            "e.drain()\n"
+            "assert tel.maybe_start_exporter() is None\n"
+            "assert {t.name for t in threading.enumerate()} == before\n"
+            "assert tel.snapshot() == {} and tel.snapshot_spans() == []\n"
+            "assert tel.flight().snapshot() == [] and tel.flight().dumps == 0\n"
+            "assert tel.snapshot_requests() == {}\n"
+            "print('inert')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FLAGS_telemetry")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "inert" in proc.stdout
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_import_in_source(path):
     """AST scan: no absolute import names jax or the JAX package. The
-    scan covers every source of the package (the training and ResNet
-    slices' modules among them) and chip_smoke.py."""
+    scan covers every source of the package (the training, ResNet and
+    telemetry modules among them) and chip_smoke.py."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     for node in ast.walk(tree):
