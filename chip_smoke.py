@@ -45,6 +45,8 @@ call.
 ``python3 chip_smoke.py --tier`` runs the host tier and the robustness
 contract alone: K5 and K6 built, phase 6's host-tier and fault checks,
 then phases 7d and 7e.
+``python3 chip_smoke.py --fleet`` runs the serving fleet alone: K5 and
+K6 built, phase 6's fleet checks, then phase 7g.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -94,7 +96,15 @@ the run with a non-zero exit code and no result line:
    step, a timeline a request; and the request handoff: one request moved
    to a second engine after 4 decode tokens and one in mid-prefill (a
    200-token prompt, two chunks), their tokens equal the unmoved run and
-   the imported blocks byte-equal the manifest.
+   the imported blocks byte-equal the manifest. Then the fleet: 2
+   replicas give the single engine's tokens on phase 6's prompts and a
+   seeded stochastic request; replica 1 killed once at its third step
+   loses nothing and respawns through JOINING; a 1:1 prefill/decode
+   fleet hands every request off once and gives the monolithic tokens
+   with speculation off and n-gram; ``migrate_one`` moves one request
+   mid-decode and one mid-prefill and their tokens equal the unmoved
+   run; launches exact. After the phase the card holds no more than it
+   did before it (no cycle collection).
 7. Serving at full Llama-2-7B (bf16, 32 layers; block 16, 8 slots,
    prefill chunk 128): 8 requests through the engine; throughput,
    TTFT/TPOT, peak memory, exact launch counts; then a short
@@ -140,6 +150,28 @@ the run with a non-zero exit code and no result line:
    lines give the wall time a dispatch and tok/s on and off, a span's
    host µs off and on, the decode roofline, the attention-bytes share and
    the handoff's bytes and ms, beside the card's name and power limit.
+   (g) the serving fleet, every replica over the one model with a pool
+   of 512 blocks (4 GiB): (i) 2 monolithic replicas on bench.py fleet's
+   on-chip mix (32 requests, 4 system prompts of 192 tokens, 64 new,
+   Poisson arrivals at 8/s on the wall clock) against one engine; (ii)
+   the same with the seed wave in one burst (so that both replicas
+   serve) and replica 1 killed at its ninth step and healed through
+   JOINING (card memory back within a block of its level before the
+   death, without the cycle collector; the death dump names the in-flight
+   rids); (iii) a 1:1 prefill/decode fleet on the first 16 requests (every
+   request handed off once); (iv) bench.py fleet ramp's on-chip profile
+   (128-token prompts, 32 new, 2/s, 16/s, 2/s over 8 + 6 + 8 s) with the
+   autoscaler and migration on, one busy replica retired mid-burst with
+   no drain budget (scale-ups, scale-downs, migrations); (v) a replica
+   hung for 8 s under a 5 s step budget while both step on threads of
+   their own; (vi) the first 16 requests in one burst (32 new) on two
+   replicas stepped inline and on threads, in the order inline,
+   threaded, threaded, inline. Zero loss and exact launches in every
+   run; ``[serve:7g-*]`` lines give tok/s, TTFT and TPOT (per replica in
+   (i)), the routed split, the respawn's seconds, the handoff's bytes
+   and ms, the scale events and migrations, and the fleet step's wall ms
+   inline against threaded on the same steps, prefill and decode steps
+   apart, beside the card's name and power limit.
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
    the CPU (plain versions), then a 3-step TrainStep loss trajectory.
@@ -188,7 +220,9 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -269,12 +303,24 @@ def log(*parts):
 
 
 def release_device_memory():
-    """Free what dropped objects held on the card. A serving engine with
-    speculation is a reference cycle (its scheduler holds the engine's
-    lookahead method), so its pool (~17 GB at Llama-2-7B) waits for the
-    cycle collector."""
-    gc.collect()
+    """Hand the cached blocks of what dropped objects held back to the
+    card. No cycle collection is needed: an engine (speculating or not), a
+    replica the fleet let go of and a dropped fleet are freed by reference
+    counting as their last reference goes (phase 7g (ii) and the checks
+    after phases 6 and 7 hold it)."""
     torch.cuda.empty_cache()
+
+
+def check_released(label, base, slack=1 << 30):
+    """After a phase dropped its models and engines: the card holds at
+    most ``slack`` bytes more than ``base``, without the cycle
+    collector."""
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    log(f"[memory] after {label}: {left} bytes above its start")
+    check(left <= slack, f"{label}: {left} bytes are still allocated on the "
+          f"card after every object of the phase was dropped (a reference "
+          f"cycle?)")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -755,6 +801,7 @@ def time_k6(results):
     bound: back to back (``ms``) and by CUDA-graph replay (``graph_ms``,
     K6 and the library call alike), which leaves out the host's launch
     cost, and the wrapper's host microseconds per call."""
+    from paddle_tpu_torch.ops.hopper._build import count_launch
     from paddle_tpu_torch.ops.hopper.rms_norm import (rms_norm_cuda,
                                                       rms_norm_reference)
 
@@ -781,13 +828,18 @@ def time_k6(results):
             lambda: lib(x, (h,), w, 1e-5), iters=100))
         us_min, us_med, us = host_us(lambda: rms_norm_cuda(x, w, 1e-5))
         r["host_us"] = us_min
+        # the launch count's own share of that: one lock a launch
+        before = rms_norm_cuda.launches
+        count_us = host_us(lambda: count_launch(rms_norm_cuda))[0]
+        rms_norm_cuda.launches = before
         log(f"[time] k6 {name} ms={r['ms']} graph_ms={r['graph_ms']} "
             f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
             f"library_graph_ms={r['library_graph_ms']} bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}) bound_share="
             f"{r['bound_ms'] / r['graph_ms']}")
         log(f"[k6-host] {name} host_us_per_call min={us_min} "
-            f"median={us_med} rounds={us}")
+            f"median={us_med} rounds={us} launch count (lock) "
+            f"us_per_call min={count_us}")
 
 
 def phase_k6_grad():
@@ -1086,12 +1138,15 @@ def phase_parity():
     """Phase 6: engine greedy tokens equal dense ``generate`` at
     Llama-2-7B width, 2 layers, f32: the default engine (prefix cache
     on); a shared-prefix set with caching on and off; a repeat-heavy set
-    under n-gram and draft-model speculation."""
+    under n-gram and draft-model speculation; the host tier and the
+    fault points; telemetry and the handoff; the fleet."""
     from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 
     # f32 products run in full f32, not TF32, on both paths
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
     model = LlamaForCausalLM(cfg, seed=0)
@@ -1144,9 +1199,11 @@ def phase_parity():
     del engine, draft
     release_device_memory()
     phase_parity_tier(model)
+    phase_parity_fleet(model, prompts)
     log(f"[parity] seconds={time.perf_counter() - t0}")
     del model
     release_device_memory()
+    check_released("phase 6", base)
 
 
 def phase6_prompts(vocab):
@@ -1360,10 +1417,11 @@ def phase_parity_tier(model):
 # -- phase 7: full Llama-2-7B serving -----------------------------------------
 
 def zipf_prompts(rng, vocab, n_req, n_prefixes, prefix_len, suffix_max,
-                 alpha=1.2):
+                 alpha=1.2, with_prefixes=False):
     """bench.py's shared-prefix mix (``_zipf_prompts``), draw for draw:
     ``n_prefixes`` system prompts, each request picks one by Zipf(alpha)
-    popularity and appends a unique suffix of 1..suffix_max tokens."""
+    popularity and appends a unique suffix of 1..suffix_max tokens. With
+    ``with_prefixes``, returns (prompts, system prompts)."""
     prefixes = [rng.randint(0, vocab, (prefix_len,)).tolist()
                 for _ in range(n_prefixes)]
     probs = np.arange(1, n_prefixes + 1, dtype=np.float64) ** -float(alpha)
@@ -1373,7 +1431,7 @@ def zipf_prompts(rng, vocab, n_req, n_prefixes, prefix_len, suffix_max,
         k = int(rng.choice(n_prefixes, p=probs))
         n_suf = int(rng.randint(1, suffix_max + 1))
         prompts.append(prefixes[k] + rng.randint(0, vocab, (n_suf,)).tolist())
-    return prompts
+    return (prompts, prefixes) if with_prefixes else prompts
 
 
 def shared_prefix_mix(vocab):
@@ -1493,6 +1551,8 @@ def phase_serving(card):
     from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
     check(cfg.num_hidden_layers == LLAMA_LAYERS, "expected 32 layers")
     t0 = time.perf_counter()
@@ -1561,8 +1621,10 @@ def phase_serving(card):
     phase_guardrails(model, knobs)
     runs.update(phase_telemetry_serving(model, knobs, card,
                                         runs["main"]["outputs"]))
+    runs.update(phase_fleet_serving(model, knobs, card))
     del model
     release_device_memory()
+    check_released("phase 7", base)
     return runs
 
 
@@ -1607,6 +1669,41 @@ def tier_only():
     phase_guardrails(model, knobs)
     phase_telemetry_serving(model, knobs, card)
     log(f"[tier] seconds={time.perf_counter() - t0}")
+    return 0
+
+
+def fleet_only():
+    """``--fleet``: the fleet alone: build K5 and K6, run phase 6's fleet
+    checks (f32, 2 layers at Llama-2-7B width), then phase 7g on full
+    Llama-2-7B in bf16. Prints no result line."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import paged_attention, rms_norm
+
+    _, _, card = phase_device()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(lambda build: build(), (paged_attention.build,
+                                              rms_norm.build)))
+    log(f"[build] seconds={time.perf_counter() - t0}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=2,
+                                                   dtype="float32"), seed=0)
+    phase_parity_fleet(model, phase6_prompts(model.config.vocab_size))
+    del model
+    release_device_memory()
+    check_released("phase 6's fleet", base)
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(dtype="bfloat16"), seed=0)
+    knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
+    warm_serving(model, knobs)
+    runs = phase_fleet_serving(model, knobs, card)
+    log(f"[fleet] launches by run: "
+        f"{ {k: (r['k5'], r['k6']) for k, r in runs.items()} }")
+    del model
+    release_device_memory()
+    check_released("phase 7g", base)
+    log(f"[fleet] seconds={time.perf_counter() - t0}")
     return 0
 
 
@@ -2284,6 +2381,826 @@ def profile_dispatch_kinds(engine, captured, reps=3):
             f"positions {args[1].tolist()}): device_busy_ms="
             f"{sum(device_ms.values())} by_family={json.dumps(device_ms)} "
             f"k5_by_kernel={json.dumps(k5)}")
+
+
+# -- phase 6 (fleet) and 7g: the serving fleet --------------------------------
+
+# the fleet's healing knobs in phases 6 and 7g: bench.py fleet ramp's
+# (bench.py:1787-1789): a respawn waits 0.05 s and is probed after 2 clean
+# steps
+FLEET_HEAL = dict(serving_fleet_respawn_backoff_s=0.05,
+                  serving_fleet_respawn_backoff_max_s=0.5,
+                  serving_fleet_join_steps=2)
+# phase 7g's pools: 512 blocks of 16 tokens (8 MiB a block at Llama-2-7B in
+# bf16, 4 GiB a replica) hold every request of its mixes at once
+FLEET_POOL_BLOCKS = 512
+# phase 7g (iv): bench.py fleet ramp's on-chip profile (bench.py:1776-1786)
+RAMP_SEGMENTS = ((2.0, 8.0), (16.0, 6.0), (2.0, 8.0))
+RAMP_PROMPT, RAMP_NEW = 128, 32
+RAMP_FLAGS = dict(serving_fleet_min_replicas=1, serving_fleet_max_replicas=4,
+                  serving_fleet_scale_cooldown_s=2.0,
+                  serving_fleet_scale_window_steps=8,
+                  serving_fleet_scale_up_occupancy=0.85,
+                  serving_fleet_scale_down_occupancy=0.30,
+                  serving_fleet_migrate=True, **FLEET_HEAL)
+
+
+class DispatchTally:
+    """Counts the target dispatches of every engine it watches: every
+    replica a fleet ever built, its respawns, scale-ups and readiness
+    probes included, and a hung step's late return. A lock keeps the count
+    exact while replicas step on threads of their own; every dispatch's
+    logits are held finite. The engines are held weakly, so a replica the
+    router lets go of is freed as before."""
+
+    def __init__(self):
+        self.n = 0
+        self.finite = True
+        self._lock = threading.Lock()
+        self.built = []     # a weak reference to every engine watched
+
+    def watch(self, engine):
+        ref = weakref.ref(engine)
+        self.built.append(ref)
+        for name in ("_dispatch", "_dispatch_full"):
+            def counted(*args, _fn=getattr(type(engine), name)):
+                out = _fn(ref(), *args)
+                with self._lock:
+                    self.n += 1
+                    self.finite = self.finite and bool(np.isfinite(out).all())
+                return out
+            setattr(engine, name, counted)
+        return engine
+
+    def factory(self, model, **kw):
+        from paddle_tpu_torch import ServingEngine
+
+        def build():
+            return self.watch(ServingEngine.from_model(model, **kw))
+        return build
+
+    def alive(self):
+        """What still holds each watched engine that was not freed: the
+        types of its referrers, two levels up (a leak's postmortem)."""
+        out = []
+        for i, ref in enumerate(self.built):
+            engine = ref()
+            if engine is None:
+                continue
+            chain = []
+            for r in gc.get_referrers(engine):
+                if r is self.built:
+                    continue
+                chain.append((type(r).__name__, sorted(
+                    {type(r2).__name__ for r2 in gc.get_referrers(r)})))
+            out.append((i, chain))
+            del engine
+        return out
+
+    def zero(self):
+        """Zero this tally and the K5 and K6 launch counts together."""
+        from paddle_tpu_torch.ops.hopper.paged_attention import (
+            paged_attend_cuda)
+        from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
+
+        paged_attend_cuda.launches = rms_norm_cuda.launches = 0
+        self.n, self.finite = 0, True
+
+    def check(self, label, layers):
+        """K5 = layers x dispatches, K6 = (2 x layers + 1) x dispatches,
+        every logit finite; returns (K5, K6)."""
+        from paddle_tpu_torch.ops.hopper.paged_attention import (
+            paged_attend_cuda)
+        from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
+
+        k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
+        check(self.finite, f"{label}: non-finite logits")
+        check(k5 == layers * self.n and k6 == (2 * layers + 1) * self.n,
+              f"{label}: launches K5={k5} K6={k6} against {self.n} "
+              f"dispatches of {layers} layers")
+        return k5, k6
+
+
+def drive_fleet(fleet, done=None, max_steps=100000):
+    """Step ``fleet`` until it has no work; returns the finished Sequences
+    by fleet rid."""
+    done = {} if done is None else done
+    for _ in range(max_steps):
+        if not fleet.has_work():
+            return done
+        done.update(fleet.step())
+    raise SmokeFailure(f"the fleet still has work after {max_steps} steps")
+
+
+def heal_fleet(fleet, seconds=60.0):
+    """Step an idle fleet until every slot is live and none is JOINING."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        h = fleet.health()
+        if h["live"] == len(fleet.replicas) and not h["joining"]:
+            return
+        fleet.step()
+        time.sleep(0.002)
+    raise SmokeFailure(f"the fleet did not heal: {fleet.health()}")
+
+
+def fleet_outputs(fleet, requests, heal=False):
+    """Submit ``requests`` ((prompt, kwargs) pairs) in one burst, run the
+    fleet dry (with ``heal``, on until every slot is SERVING again) and
+    drain it; every request must finish ok. Returns the output ids in
+    submission order."""
+    frids = [fleet.submit(p, **kw) for p, kw in requests]
+    done = drive_fleet(fleet)
+    if heal:
+        heal_fleet(fleet)
+    done.update(fleet.drain())
+    check(sorted(done) == sorted(frids), "fleet: a request was lost")
+    check(all(done[f].outcome == "ok" for f in frids),
+          f"fleet: outcomes {[done[f].outcome for f in frids]}")
+    return [done[f].output_ids for f in frids]
+
+
+def fleet_pools_clean(fleet, label):
+    for rep in fleet.replicas.values():
+        if not rep.dead:
+            check(pool_clean(rep.engine), f"{label}: replica "
+                  f"{rep.replica_id}'s pool is not clean")
+
+
+def phase_parity_fleet(model, prompts):
+    """Phase 6, the fleet (f32, 2 layers at Llama-2-7B width), on phase
+    6's prompts and a seeded stochastic request: a 2-replica monolithic
+    fleet gives the single engine's tokens; the same fleet with replica 1
+    killed once at its third step and an ``engine_factory`` loses nothing,
+    respawns the slot through JOINING and gives the same tokens; a 1:1
+    prefill/decode fleet hands every request off exactly once and gives
+    the monolithic tokens with speculation off and n-gram; one request
+    moved mid-decode and one mid-prefill by ``migrate_one`` give the
+    unmoved tokens. Launches are exact in every fleet."""
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.serving.fleet import EngineReplica, FleetRouter
+
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    requests = [(p, dict(max_new_tokens=8)) for p in prompts]
+    requests.append((prompts[1], dict(max_new_tokens=8, temperature=0.9,
+                                      top_k=16, seed=23)))
+    single = ServingEngine.from_model(model)
+    rids = [single.add_request(p, **kw) for p, kw in requests]
+    done = single.run()
+    want = [done[r].output_ids for r in rids]
+    del single, done
+    _check_greedy(model, "fleet reference", prompts, want[:len(prompts)], 8)
+    tally = DispatchTally()
+
+    def fleet_of(factory, roles=("both", "both")):
+        return FleetRouter([EngineReplica(i, factory(), role=r)
+                            for i, r in enumerate(roles)],
+                           engine_factory=factory)
+
+    tally.zero()
+    fleet = fleet_of(tally.factory(model))
+    mono = fleet_outputs(fleet, requests)
+    tally.check("fleet monolithic", layers)
+    log(f"[parity] fleet monolithic: routed={fleet.routed} tokens equal "
+        f"single engine={mono == want} dispatches={tally.n}")
+    check(mono == want, f"fleet monolithic: tokens differ from the single "
+          f"engine at {first_divergence(mono, want)}")
+    fleet_pools_clean(fleet, "fleet monolithic")
+    del fleet
+
+    with port_flags(fault_spec="serving.fleet.replica:key=1:after=2:times=1",
+                    **FLEET_HEAL):
+        tally.zero()
+        fleet = fleet_of(tally.factory(model))
+        got = fleet_outputs(fleet, requests, heal=True)
+        h = fleet.health()
+        tally.check("fleet death", layers)
+    log(f"[parity] fleet death: deaths={fleet.deaths} respawns="
+        f"{fleet.respawns} routed={fleet.routed} live={h['live']} joining="
+        f"{h['joining']} tokens equal fault-free={got == mono}")
+    check(fleet.deaths == [1] and fleet.respawns == 1
+          and fleet.routed["reroute"] >= 1,
+          f"fleet death: deaths {fleet.deaths}, respawns {fleet.respawns}")
+    check(got == mono, f"fleet death: tokens differ from the fault-free "
+          f"fleet at {first_divergence(got, mono)}")
+    del fleet
+
+    for spec in ("off", "ngram"):
+        factory = tally.factory(model, spec=spec)
+        ref = mono
+        if spec != "off":
+            ref = fleet_outputs(fleet_of(factory), requests)
+        tally.zero()
+        fleet = fleet_of(factory, roles=("prefill", "decode"))
+        got = fleet_outputs(fleet, requests)
+        tally.check(f"fleet split spec={spec}", layers)
+        h = fleet.health()
+        pre = fleet.replicas[0].engine.health()["handoffs"]
+        log(f"[parity] fleet 1:1 spec={spec}: ledger={h['handoffs']} "
+            f"prefill handoffs={pre} tokens equal monolithic={got == ref}")
+        check(h["handoffs"] == {"pending": 0, "begun": len(requests),
+                                "committed": len(requests), "aborted": 0}
+              and pre["out"] == len(requests),
+              f"fleet split spec={spec}: not every request handed off once")
+        check(got == ref, f"fleet split spec={spec}: tokens differ from "
+              f"the monolithic fleet at {first_divergence(got, ref)}")
+        fleet_pools_clean(fleet, f"fleet split spec={spec}")
+        del fleet
+
+    long_prompt = np.random.default_rng(9).integers(
+        0, model.config.vocab_size, 200).tolist()
+    reqs = [(prompts[1], dict(max_new_tokens=8)),
+            (long_prompt, dict(max_new_tokens=8))]
+    unmoved = fleet_outputs(fleet_of(tally.factory(model)), reqs)
+    tally.zero()
+    fleet = fleet_of(tally.factory(model))
+    frids = [fleet.submit(p, **kw) for p, kw in reqs]
+    done, where = {}, {}
+    while len(where) < 2:
+        check(fleet.has_work(), "fleet migration: the fleet ran out of work")
+        done.update(fleet.step())
+        for frid, at in zip(frids, ("mid-decode", "mid-prefill")):
+            rr = fleet.requests[frid]
+            if frid in where or rr.replica_id is None:
+                continue
+            src = fleet.replicas[rr.replica_id]
+            seq = src.engine.requests.get(rr.local_rid)
+            ready = (seq is not None
+                     and rr.local_rid in src.engine.migrate_ready()
+                     and (len(seq.output) == 4 if at == "mid-decode"
+                          else seq.state == "prefill"))
+            if ready:
+                ctx = seq.ctx
+                check(fleet._migrate.migrate_one(src, rr.local_rid,
+                                                 reason="phase 6"),
+                      f"fleet migration {at}: migrate_one refused")
+                where[frid] = (at, ctx, src.replica_id, rr.replica_id)
+    drive_fleet(fleet, done)
+    done.update(fleet.drain())
+    got = [done[f].output_ids for f in frids]
+    tally.check("fleet migration", layers)
+    counts = fleet._migrate.ledger.counts()
+    log(f"[parity] fleet migration (where, ctx, from, to)="
+        f"{[where[f] for f in frids]} ledger={counts} tokens equal "
+        f"unmoved={got == unmoved}")
+    check(counts["committed"] == 2 and counts["pending"] == 0,
+          f"fleet migration: ledger {counts}")
+    check(got == unmoved, f"fleet migration: tokens differ from the "
+          f"unmoved run at {first_divergence(got, unmoved)}")
+    check(all(done[f].outcome == "ok" for f in frids),
+          "fleet migration: a moved request did not finish ok")
+    fleet_pools_clean(fleet, "fleet migration")
+    del fleet
+    log(f"[parity] fleet seconds={time.perf_counter() - t0}")
+
+
+def fleet_mix(vocab):
+    """Phase 7g's mix: bench.py fleet's on-chip workload
+    (bench.py:1525-1527), draw for draw from RandomState(0): 32 requests
+    on 4 system prompts of 192 tokens (Zipf 1.2, suffixes of 1-32), the
+    seed-wave rewrite (one request per prefix first, bench.py:1554-1555),
+    bench.py's warm-up draws for its 2 replicas at its prefill chunk of
+    256 (bench.py:583-597; the port warms on its own), then Poisson
+    arrivals at 8/s. Returns (prompts, arrivals in seconds from the
+    start)."""
+    rng = np.random.RandomState(0)
+    prompts, prefixes = zipf_prompts(rng, vocab, 32, 4, 192, 32,
+                                     with_prefixes=True)
+    for i, pfx in enumerate(prefixes):
+        prompts[i] = pfx + prompts[i][192:]
+    for _ in range(2):
+        b = 1
+        while b <= 256:
+            rng.randint(0, vocab, (b,))
+            b *= 2
+    arrivals, t = [], 0.0
+    for _ in range(32):
+        arrivals.append(t)
+        t += rng.exponential(1.0 / 8.0)
+    return prompts, arrivals
+
+
+def warm_replica(engine, seed):
+    """bench.py's ``_warm_serving_engine`` (bench.py:583-607): one request
+    of 2 new tokens for each prefill bucket, then the metrics reset; the
+    engine's admission estimator keeps its throughput reading, as the
+    replicas of bench.py fleet do."""
+    rng = np.random.RandomState(seed)
+    b = 1
+    while b <= engine.prefill_chunk:
+        engine.add_request(rng.randint(0, engine.model.config.vocab_size,
+                                       (b,)).tolist(), max_new_tokens=2)
+        b *= 2
+    engine.run()
+    engine.metrics.reset()
+    return engine
+
+
+def ramp_mix(vocab):
+    """Phase 7g (iv)'s mix: bench.py fleet ramp's arrivals (a Poisson
+    schedule at 2/s for 8 s, 16/s for 6 s, 2/s for 8 s) and prompts of
+    128 tokens, draw for draw from RandomState(0) (bench.py:1812-1830)."""
+    rng = np.random.RandomState(0)
+    arrivals, t_end, t = [], 0.0, 0.0
+    for rate, dur in RAMP_SEGMENTS:
+        t_end += dur
+        t = max(t, t_end - dur)
+        while True:
+            t += rng.exponential(1.0 / rate)
+            if t >= t_end:
+                t = t_end
+                break
+            arrivals.append(t)
+    prompts = [rng.randint(0, vocab, (RAMP_PROMPT,)).tolist()
+               for _ in arrivals]
+    return prompts, arrivals
+
+
+def replay(submit, step, has_work, arrivals, always_step=False):
+    """bench.py's open-loop replay (``_drive_poisson``, bench.py:610) on
+    the wall clock: request i is submitted once its arrival has passed,
+    with ``arrival_s`` back-dated to it (TTFT includes the queueing), and
+    the fleet steps while it has work; ``always_step`` keeps an armed
+    autoscaler sampling between arrivals. Returns the start (now_s)."""
+    from paddle_tpu_torch.serving.robustness import now_s
+
+    t0 = now_s()
+    submitted, n = 0, len(arrivals)
+    while submitted < n or has_work():
+        now = now_s() - t0
+        while submitted < n and arrivals[submitted] <= now:
+            submit(submitted, t0 + arrivals[submitted])
+            submitted += 1
+        busy = has_work()
+        if busy or always_step:
+            step()
+        if not busy and submitted < n:
+            time.sleep(max(0.0, min(arrivals[submitted] - now,
+                                    0.01 if always_step else 0.05)))
+    return t0
+
+
+def run_fields(record):
+    """A run record's numbers as ``key=value`` fields for a log line."""
+    return " ".join(f"{k}={v}" for k, v in record.items()
+                    if k not in ("label", "outputs"))
+
+
+def latency(seqs):
+    """TTFT and TPOT percentiles over finished Sequences (seconds)."""
+    ttft = [s.first_token_s - s.arrival_s for s in seqs]
+    tpot = [(s.last_token_s - s.first_token_s) / (len(s.output) - 1)
+            for s in seqs if len(s.output) > 1]
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if xs else None
+    return dict(ttft_p50_s=pct(ttft, 50), ttft_p95_s=pct(ttft, 95),
+                tpot_p50_s=pct(tpot, 50), tpot_p95_s=pct(tpot, 95))
+
+
+def probe_on_worker(replica):
+    """One readiness probe through the replica's worker thread (started
+    by it under a step budget)."""
+    replica.dispatch(replica.engine.readiness_probe)
+    return replica.collect(60.0) is True
+
+
+class TimedHandoffs:
+    """The router's handoff coordinator, its ``service`` passes timed
+    (CUDA-synchronized wall seconds, summed)."""
+
+    def __init__(self, inner):
+        self.inner, self.ledger, self.seconds = inner, inner.ledger, 0.0
+
+    def on_replica_death(self, replica_id):
+        return self.inner.on_replica_death(replica_id)
+
+    def service(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = self.inner.service()
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t
+        return n
+
+
+class FleetRun:
+    """One open-loop fleet run of phase 7g: launches zeroed just before
+    and read just after (after joining any abandoned worker thread), the
+    wall time of every fleet step with the live count at its start and
+    its kind ("prefill" when a replica ran a prefill chunk in it, else
+    "decode"), and the run's record for the ``kernels`` line."""
+
+    def __init__(self, fleet, tally, label):
+        self.fleet, self.tally, self.label = fleet, tally, label
+        self.done, self.frids, self.steps = {}, [], []
+        self.hooks = []
+
+    def submit(self, prompt, at, max_new):
+        self.frids.append(self.fleet.submit(prompt, max_new_tokens=max_new,
+                                            arrival_s=at))
+
+    def _prefill_s(self):
+        return {rid: (r.engine, r.engine.metrics.phase_seconds["prefill"])
+                for rid, r in self.fleet.replicas.items()}
+
+    def step(self):
+        live = len(self.fleet._live())
+        before = self._prefill_s()
+        t = time.perf_counter()
+        self.done.update(self.fleet.step())
+        ms = (time.perf_counter() - t) * 1e3
+        after = self._prefill_s()
+        prefill = any(rid in after and after[rid][0] is eng
+                      and after[rid][1] > s for rid, (eng, s)
+                      in before.items())
+        del before, after
+        self.steps.append((ms, live, "prefill" if prefill else "decode"))
+        for hook in self.hooks:
+            hook()
+
+    def run(self, prompts, arrivals, max_new, always_step=False):
+        torch.cuda.synchronize()
+        self.tally.zero()
+        t = time.perf_counter()
+        self.t0 = replay(lambda i, at: self.submit(prompts[i], at, max_new),
+                         self.step, self.fleet.has_work, arrivals,
+                         always_step)
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - t
+        return self
+
+    def finish(self, max_new, workers=()):
+        """Drain, join abandoned workers, hold launches and outcomes."""
+        self.done.update(self.fleet.drain(60.0))
+        for w in workers:
+            w.join(30.0)
+            check(not w.is_alive(), f"{self.label}: an abandoned step "
+                  f"never returned")
+        torch.cuda.synchronize()
+        k5, k6 = self.tally.check(self.label, LLAMA_LAYERS)
+        seqs = [self.done.get(f) for f in self.frids]
+        check(all(s is not None for s in seqs),
+              f"{self.label}: a request was lost")
+        check(all(s.outcome == "ok" and len(s.output) == max_new
+                  for s in seqs),
+              f"{self.label}: outcomes "
+              f"{sorted(set(s.outcome for s in seqs))}")
+        out_tokens = sum(len(s.output) for s in seqs)
+        self.record = dict(label=self.label, k5=k5, k6=k6,
+                           dispatches=self.tally.n, wall_s=self.wall,
+                           output_tok_s=out_tokens / self.wall,
+                           outputs=[s.output_ids for s in seqs],
+                           **latency(seqs))
+        return self.record
+
+    def per_replica(self):
+        """Requests, tok/s and latency of each replica id, by where each
+        request finished."""
+        per = {}
+        for rid in sorted(self.fleet.replicas):
+            mine = [self.done[f] for f in self.frids
+                    if self.fleet.requests[f].replica_id == rid]
+            per[rid] = dict(requests=len(mine),
+                            tok_s=sum(len(s.output) for s in mine)
+                            / self.wall, **latency(mine))
+        return per
+
+    def step_ms(self, live, kind=None):
+        return step_stats([m for m, n, k in self.steps
+                           if n == live and kind in (None, k)])
+
+
+def step_stats(ms):
+    """Median, mean and count of fleet-step wall times (ms)."""
+    return dict(median=float(np.median(ms)) if ms else None,
+                mean=float(np.mean(ms)) if ms else None, steps=len(ms))
+
+
+def phase_fleet_serving(model, knobs, card):
+    """Phase 7g, the fleet at full Llama-2-7B in bf16 (block 16, 8 slots,
+    prefill chunk 128), every replica over the one model with a pool of
+    its own (512 blocks, 4 GiB): (i) a monolithic 2-replica fleet on
+    bench.py fleet's on-chip mix against one engine; (ii) the same with
+    the seed wave in one burst and replica 1 killed at its ninth step and
+    healed (card memory back within a block of its level before the
+    death, no cycle collector);
+    (iii) a 1:1 prefill/decode fleet on the first 16 requests; (iv)
+    bench.py fleet ramp's on-chip profile with the autoscaler and
+    migration on, one busy replica retired mid-burst with no drain
+    budget; (v) a replica hung past a 5 s step budget while both step on
+    threads of their own (the first 16 requests, the seed wave a burst);
+    (vi) two replicas stepped inline and on threads on the same 16
+    requests, fleet steps timed by kind.
+    Zero loss and exact launches in every run.
+    Returns the runs' records."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.serving.fleet import EngineReplica, FleetRouter
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    vocab = model.config.vocab_size
+    tally = DispatchTally()
+    kw = dict(knobs, pool_blocks=FLEET_POOL_BLOCKS)
+    factory = tally.factory(model, **kw)
+    block_bytes = (2 * LLAMA_LAYERS * knobs["block_size"]
+                   * model.config.num_key_value_heads
+                   * (model.config.hidden_size
+                      // model.config.num_attention_heads) * 2)
+    pool_bytes = FLEET_POOL_BLOCKS * block_bytes
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve:7g] bytes: weights={base} + pools of {pool_bytes} "
+        f"({FLEET_POOL_BLOCKS} blocks of {block_bytes}) a replica, at most "
+        f"4 live (iv) = {base + 4 * pool_bytes}; mem_get_info free={free} "
+        f"total={total} ({card})")
+    check(4 * pool_bytes < free, "7g: four pools do not fit the card")
+    prompts, arrivals = fleet_mix(vocab)
+    # bench.py's burst-mode seed wave (bench.py:1581-1586): the four seed
+    # requests arrive together, so the least-delay ties spread them (and
+    # their prefixes) over both replicas. Under the Poisson arrivals each
+    # seed is scheduled before the next arrives, every tie goes to
+    # replica 0, and affinity then keeps every later request there: (i)
+    # shows it; (ii) and (v) need replica 1 to serve
+    seeded = [0.0] * 4 + arrivals[4:]
+    runs = {}
+
+    # (i) monolithic, 2 replicas, against one engine; the replicas a run
+    # starts with are warmed as bench.py warms them
+    def warmed(i):
+        return warm_replica(factory(), 100 + i)
+
+    fleet = FleetRouter([EngineReplica(i, warmed(i)) for i in range(2)],
+                        engine_factory=factory)
+    r = FleetRun(fleet, tally, "7g-fleet").run(prompts, arrivals, 64)
+    runs["7g-fleet"] = r.finish(64)
+    per = r.per_replica()
+    inline_ms = r.step_ms(2)
+    log(f"[serve:7g-fleet] requests=32 {run_fields(runs['7g-fleet'])} "
+        f"routed={fleet.routed} per_replica={per} inline fleet step ms="
+        f"{inline_ms} ({card})")
+    check(sum(p["requests"] for p in per.values()) == 32
+          and fleet.routed["affinity"] > 0 and not fleet.deaths,
+          f"7g (i): per-replica {per}, routed {fleet.routed}")
+    fleet_pools_clean(fleet, "7g (i)")
+    del fleet, r
+
+    engine = warmed(0)
+    tally.zero()
+    single = {"done": {}, "rids": []}
+
+    def submit_one(i, at):
+        single["rids"].append(engine.add_request(prompts[i],
+                                                 max_new_tokens=64,
+                                                 arrival_s=at))
+
+    def step_one():
+        single["done"].update({s.req_id: s for s in engine.step()})
+
+    t = time.perf_counter()
+    replay(submit_one, step_one, engine.has_work, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k5, k6 = tally.check("7g-single", LLAMA_LAYERS)
+    seqs = [single["done"][i] for i in single["rids"]]
+    check(all(s.outcome == "ok" for s in seqs), "7g single: an outcome "
+          "other than ok")
+    runs["7g-single"] = dict(label="7g-single", k5=k5, k6=k6,
+                             dispatches=tally.n, wall_s=wall,
+                             output_tok_s=32 * 64 / wall,
+                             outputs=[s.output_ids for s in seqs],
+                             **latency(seqs))
+    div = first_divergence(runs["7g-fleet"]["outputs"],
+                           runs["7g-single"]["outputs"])
+    log(f"[serve:7g-single] requests=32 {run_fields(runs['7g-single'])} "
+        f"first differing token, fleet against one engine (-1: equal): "
+        f"{div} ({card})")
+    del engine, single, seqs
+
+    # (ii) death and heal
+    with port_flags(fault_spec="serving.fleet.replica:key=1:after=8:times=1",
+                    telemetry=True, **FLEET_HEAL):
+        telemetry.reset_all()
+        fleet = FleetRouter([EngineReplica(i, warmed(i)) for i in range(2)],
+                            engine_factory=factory)
+        r = FleetRun(fleet, tally, "7g-heal")
+        heal = {}
+
+        def watch():
+            from paddle_tpu_torch.serving.robustness import now_s
+            if fleet.deaths and "death_s" not in heal:
+                heal["death_s"], heal["mem_before"] = now_s(), heal["pre"]
+            rep = fleet.replicas.get(1)
+            if ("death_s" in heal and "promoted_s" not in heal
+                    and fleet.respawns and rep is not None
+                    and not rep.dead and not rep.joining):
+                torch.cuda.synchronize()
+                heal["promoted_s"] = now_s()
+                heal["mem_after"] = torch.cuda.memory_allocated()
+            heal["pre"] = torch.cuda.memory_allocated()
+
+        heal["pre"] = torch.cuda.memory_allocated()
+        r.hooks.append(watch)
+        r.run(prompts, seeded, 64)
+        t = time.perf_counter()
+        while "promoted_s" not in heal and time.perf_counter() - t < 60.0:
+            r.step()
+        dump = telemetry.flight().dump_for("replica_death")
+        runs["7g-heal"] = r.finish(64)
+        telemetry.reset_all()
+    check(fleet.deaths == [1] and fleet.respawns == 1
+          and "promoted_s" in heal,
+          f"7g (ii): deaths {fleet.deaths}, respawns {fleet.respawns}, "
+          f"heal {heal}")
+    extra = dump["extra"] if dump else {}
+    mem_delta = heal["mem_after"] - heal["mem_before"]
+    div = first_divergence(runs["7g-heal"]["outputs"],
+                           runs["7g-fleet"]["outputs"])
+    log(f"[serve:7g-heal] deaths={fleet.deaths} respawns={fleet.respawns} "
+        f"routed={fleet.routed} per_replica={r.per_replica()} respawn_s "
+        f"(death to promotion)={heal['promoted_s'] - heal['death_s']} "
+        f"memory_allocated before the death={heal['mem_before']} after the "
+        f"promotion={heal['mem_after']} delta={mem_delta} (one block="
+        f"{block_bytes}) dump in_flight_rids={extra.get('in_flight_rids')} "
+        f"fleet_rids={extra.get('fleet_rids')} {run_fields(runs['7g-heal'])}"
+        f" first differing token against (i) (-1: equal): {div} ({card})")
+    check(extra.get("replica") == 1 and extra.get("in_flight_rids"),
+          "7g (ii): the death dump names no in-flight request")
+    check(abs(mem_delta) <= block_bytes, f"7g (ii): card memory moved by "
+          f"{mem_delta} bytes across the death and the respawn")
+    del fleet, r
+
+    # (iii) 1:1 prefill/decode on the first 16 requests
+    with port_flags(telemetry=True):
+        telemetry.reset_all()
+        fleet = FleetRouter([EngineReplica(i, warmed(i), role=role)
+                             for i, role in enumerate(("prefill",
+                                                       "decode"))],
+                            engine_factory=factory)
+        fleet._disagg = timed = TimedHandoffs(fleet._disagg)
+        r = FleetRun(fleet, tally, "7g-split").run(prompts[:16],
+                                                   arrivals[:16], 64)
+        runs["7g-split"] = r.finish(64)
+        snap = telemetry.snapshot()
+        ho_bytes = sum(s["value"] for s in snap.get(
+            "serving_handoff_bytes_total", {}).get("samples", []))
+        telemetry.reset_all()
+    ledger = fleet._disagg.ledger.counts()
+    dec = fleet.replicas[1].engine.metrics.snapshot()
+    div = first_divergence(runs["7g-split"]["outputs"],
+                           runs["7g-fleet"]["outputs"][:16])
+    log(f"[serve:7g-split] ledger={ledger} handoff bytes={ho_bytes} "
+        f"({ho_bytes / 16} a request) ms a handoff="
+        f"{timed.seconds * 1e3 / max(1, ledger['committed'])} decode-role "
+        f"tpot_p50_s={dec['tpot_p50_s']} tpot_p95_s={dec['tpot_p95_s']} "
+        f"fleet {run_fields(runs['7g-split'])} first differing token "
+        f"against (i) (-1: equal; bf16 in another dispatch shape may round "
+        f"apart, phase 6 holds the f32 tokens equal): {div} ({card})")
+    check(ledger == {"pending": 0, "begun": 16, "committed": 16,
+                     "aborted": 0}
+          and fleet.replicas[0].engine.health()["handoffs"]["out"] == 16,
+          f"7g (iii): ledger {ledger}")
+    del fleet, r, timed
+
+    # (iv) autoscale with migration
+    ramp_prompts, ramp_arrivals = ramp_mix(vocab)
+    with port_flags(telemetry=True, serving_drain_timeout_s=0.0,
+                    **RAMP_FLAGS):
+        telemetry.reset_all()
+        fleet = FleetRouter([EngineReplica(0, warmed(0))],
+                            engine_factory=factory)
+        fleet.enable_autoscale()
+        r = FleetRun(fleet, tally, "7g-ramp")
+        forced = {}
+
+        def force_retire():
+            # bench.py fleet ramp --migrate (bench.py:1895-1916): retire
+            # the busiest replica once, with stragglers to move, as soon
+            # as it has a SERVING peer
+            if forced or len(fleet._live()) < 2:
+                return
+            cands = [x for x in fleet.replicas.values()
+                     if not x.dead and not x.joining and not x.retiring]
+
+            def busy(x):
+                return sum(1 for s in x.engine.requests.values()
+                           if s.ctx >= 1)
+            victim = max(cands, key=busy, default=None)
+            peers = [x for x in cands if x is not victim
+                     and x.engine.lifecycle.state == "serving"]
+            if victim is not None and busy(victim) >= 2 and peers:
+                forced["replica"] = victim.replica_id
+                forced["ok"] = fleet.scale_down(victim.replica_id,
+                                                reason="forced")
+
+        r.hooks.append(force_retire)
+        r.run(ramp_prompts, ramp_arrivals, RAMP_NEW, always_step=True)
+        # the idle tail: the fleet scales back to its floor
+        t = time.perf_counter()
+        while ((len(fleet._live()) > 1 or fleet.health()["retiring"])
+               and time.perf_counter() - t < 30.0):
+            r.step()
+            time.sleep(0.005)
+        snap = telemetry.snapshot()
+        runs["7g-ramp"] = r.finish(RAMP_NEW)
+        telemetry.reset_all()
+
+    def counter(name):
+        return sum(s["value"] for s in snap.get(name, {}).get("samples", []))
+    dirs = [e["direction"] for e in fleet.scale_events]
+    events = [(e["direction"], e["replica"], round(e["t_s"] - r.t0, 3),
+               e["reason"]) for e in fleet.scale_events]
+    log(f"[serve:7g-ramp] requests={len(ramp_prompts)} scale events "
+        f"(direction, replica, t_s, reason)={events} forced={forced} "
+        f"migrations={counter('serving_fleet_migrations_total')} migrated "
+        f"bytes={counter('serving_migrate_bytes_total')} ledger="
+        f"{fleet._migrate.ledger.counts()} respawns={fleet.respawns} "
+        f"final live={len(fleet._live())} {run_fields(runs['7g-ramp'])} "
+        f"({card})")
+    check("up" in dirs and "down" in dirs, f"7g (iv): scale events {dirs}")
+    check(counter("serving_fleet_migrations_total") > 0,
+          "7g (iv): no request migrated")
+    del fleet, r
+
+    # (v) a hung replica under a 5 s budget: both replicas step on threads
+    # of their own
+    with port_flags(fault_spec="serving.fleet.replica_hang:key=1:after=4:"
+                    "sleep=8:times=1", serving_fleet_step_timeout_s=5.0):
+        fleet = FleetRouter([EngineReplica(i, warmed(i)) for i in range(2)])
+        # each replica's worker thread starts on a readiness probe, so the
+        # timed steps leave out its first calls (cuBLAS's set-up on a new
+        # thread)
+        for rid in sorted(fleet.replicas):
+            check(probe_on_worker(fleet.replicas[rid]),
+                  "7g (v): a readiness probe failed")
+        workers = [fleet.replicas[1]._worker]
+        r = FleetRun(fleet, tally, "7g-hang")
+        r.run(prompts[:16], seeded[:16], 64)
+        runs["7g-hang"] = r.finish(64, workers)
+    threaded_ms = r.step_ms(2)
+    slow = [m for m, _, _ in r.steps if m > 4000.0]
+    log(f"[serve:7g-hang] deaths={fleet.deaths} hangs={fleet.hangs} "
+        f"death_reason={fleet.replicas[1].death_reason!r} steps over the "
+        f"budget (ms)={slow} threaded fleet step ms (2 live)={threaded_ms} "
+        f"(1 live)={r.step_ms(1)} against inline in (i)={inline_ms} "
+        f"{run_fields(runs['7g-hang'])} ({card})")
+    check(fleet.hangs == 1 and fleet.deaths == [1],
+          f"7g (v): hangs {fleet.hangs}, deaths {fleet.deaths}")
+    del fleet, r, workers
+
+    # (vi) inline against threaded on the same steps: the first 16
+    # requests in one burst, 32 new tokens, two warmed replicas stepped
+    # inline (no budget) or each on its worker thread (a budget no step
+    # reaches), in the order inline, threaded, threaded, inline; fleet
+    # steps split by kind, both replicas live throughout
+    by_mode = {"inline": [], "threaded": []}
+    for i, mode in enumerate(("inline", "threaded", "threaded", "inline")):
+        budget = 30.0 if mode == "threaded" else 0.0
+        label = f"7g-{mode}-{'ab'[i // 2]}"
+        with port_flags(serving_fleet_step_timeout_s=budget):
+            fleet = FleetRouter([EngineReplica(j, warmed(j))
+                                 for j in range(2)])
+            if mode == "threaded":
+                for rid in sorted(fleet.replicas):
+                    check(probe_on_worker(fleet.replicas[rid]),
+                          f"{label}: a readiness probe failed")
+            r = FleetRun(fleet, tally, label).run(prompts[:16], [0.0] * 16,
+                                                  32)
+            runs[label] = r.finish(32)
+        check(not fleet.deaths and not fleet.hangs,
+              f"{label}: deaths {fleet.deaths}, hangs {fleet.hangs}")
+        by_mode[mode].extend(r.steps)
+        log(f"[serve:7g-{mode}] run={label} per_replica={r.per_replica()} "
+            f"step ms (2 live) prefill={r.step_ms(2, 'prefill')} decode="
+            f"{r.step_ms(2, 'decode')} {run_fields(runs[label])} ({card})")
+        del fleet, r
+    split = {mode: {kind: step_stats([m for m, n, k in steps
+                                      if n == 2 and k == kind])
+                    for kind in ("prefill", "decode")}
+             for mode, steps in by_mode.items()}
+    ratio = {kind: (split["threaded"][kind]["median"]
+                    / split["inline"][kind]["median"]
+                    if split["threaded"][kind]["steps"]
+                    and split["inline"][kind]["steps"] else None)
+             for kind in ("prefill", "decode")}
+    log(f"[serve:7g-steps] fleet step wall ms, 2 live, both runs of each "
+        f"mode on the same 16-request burst: {split} median threaded/inline"
+        f"={ratio} ({card})")
+    check(all(split[m]["decode"]["steps"] for m in split),
+          f"7g (vi): no decode step with both replicas live: {split}")
+    del by_mode
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    log(f"[serve:7g] seconds={time.perf_counter() - t_start} "
+        f"memory_allocated above the weights after the fleets={left} "
+        f"engines built={len(tally.built)} still alive (index, referrers)="
+        f"{tally.alive()}")
+    check(left < pool_bytes // 2, f"7g: {left} bytes still allocated after "
+          f"every fleet was dropped")
+    for rec in runs.values():
+        rec.pop("outputs")
+    return runs
 
 
 # -- phase 8: training parity at full width -----------------------------------
@@ -3623,6 +4540,8 @@ def main() -> int:
         return norms_only()
     if argv == ["--tier"]:
         return tier_only()
+    if argv == ["--fleet"]:
+        return fleet_only()
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()

@@ -18,7 +18,9 @@ single-device Llama training (``models``, ``optimizer``, ``nn.clip``,
 (``vision.models``, ``nn`` layers, ``optimizer.Momentum``), with the fused
 conv+BatchNorm kernels K7 and K8 and the BatchNorm-statistics kernel K9
 (CUDA C++). Serving also has the host-RAM KV tier, the robustness
-contract, request handoff and fleet publishing, and the ``telemetry``
+contract, request handoff and fleet publishing, the fleet
+(``serving.fleet``: router with self-healing replicas, autoscaler,
+disaggregated prefill/decode, live migration), and the ``telemetry``
 package (metric families, spans, flight recorder, request timelines,
 exporters, cross-rank aggregation; off by default).
 """

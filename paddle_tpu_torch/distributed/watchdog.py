@@ -39,5 +39,8 @@ def report_degraded(site: str, exc: Exception) -> None:
     if key in _degraded_seen:
         return
     _degraded_seen.add(key)
+    # the record gets the message, never the exception: a handler that
+    # keeps records (a test's log capture) would keep its traceback, and
+    # with it every frame's locals, a failed engine step's pool included
     logger.warning("degraded path at %s: %s: %s (continuing)", site,
-                   type(exc).__name__, exc)
+                   type(exc).__name__, str(exc))

@@ -4,12 +4,13 @@ One registry, three surfaces: :func:`define_flag` at import time,
 ``FLAGS_*`` environment variables read when a flag is defined, and
 :func:`set_flags` / :func:`get_flags` at run time. Only the flags the
 serving slice (with its prefix cache, speculative decoding, host-RAM
-tier, robustness contract and fleet publishing), the telemetry package
-and the ResNet model read are defined here; ``fault_spec`` is defined beside its registry in
-``distributed/fault.py``, which re-arms the rules whenever it changes
-(``on_change``). The attention,
-RMSNorm and BN-statistics kernels are not chosen by flags: the tensor's
-device picks between a kernel and its plain version. The two ResNet
+tier, robustness contract, fleet publishing and the fleet: router,
+self-healing, autoscaler, disaggregation, migration), the telemetry
+package and the ResNet model read are defined here; ``fault_spec`` is
+defined beside its registry in ``distributed/fault.py``, which re-arms
+the rules whenever it changes (``on_change``). The attention, RMSNorm
+and BN-statistics kernels are not chosen by flags: the tensor's device
+picks between a kernel and its plain version. The two ResNet
 flags below choose something else, a different composition of the
 training step (see their help).
 """
@@ -268,6 +269,108 @@ define_flag("serving_fleet_publish_every", 8,
             "plus the telemetry snapshot under /telemetry/rank<N> — "
             "the keys the fleet router and telemetry.collect_fleet "
             "read; <= 0 disables publishing")
+
+define_flag("serving_fleet_affinity_min_tokens", 1,
+            "minimum prompt-prefix tokens resident on a replica "
+            "before cache-affinity routing prefers it over the "
+            "least-estimated-delay replica (serving/fleet/router."
+            "choose_replica); below the threshold the router falls "
+            "back to least-delay")
+define_flag("serving_fleet_respawn_backoff_s", 0.5,
+            "initial delay (seconds) before the fleet router respawns "
+            "a dead replica through its engine_factory; attempt i "
+            "waits backoff * 2**i, capped at "
+            "FLAGS_serving_fleet_respawn_backoff_max_s — the attempt "
+            "counter resets once a respawned replica completes "
+            "JOINING probation and rejoins SERVING", type=float)
+define_flag("serving_fleet_respawn_backoff_max_s", 8.0,
+            "upper bound (seconds) on one replica-respawn backoff "
+            "delay", type=float)
+define_flag("serving_fleet_respawn_max", 0,
+            "respawn attempts per replica slot between heals before "
+            "the router gives the slot up for dead (a run with a "
+            "backlog and no heal left then raises instead of waiting "
+            "forever); 0 (default) retries without limit")
+define_flag("serving_fleet_join_steps", 4,
+            "clean engine steps a respawned replica must complete in "
+            "the JOINING probation state — stepped by the router but "
+            "receiving no routed traffic — before its readiness probe "
+            "(one scratch prefill+decode round-trip) runs and, on "
+            "success, the replica flips to SERVING and rejoins "
+            "choose_replica eligibility")
+define_flag("serving_fleet_step_timeout_s", 0.0,
+            "wall-clock budget (seconds) for one replica step in the "
+            "fleet router: a step still running past it is abandoned "
+            "in its worker thread and the replica is marked dead with "
+            "cause=hang (serving_fleet_hangs_total; the death dump "
+            "carries the cause) while survivors keep stepping; 0 "
+            "(default) derives 8 * FLAGS_serving_hung_step_s, and "
+            "with both unset the router steps replicas inline with "
+            "no budget", type=float)
+define_flag("serving_fleet_min_replicas", 1,
+            "autoscaler floor (serving/fleet/autoscaler.decide): the "
+            "policy never proposes a scale-down that would leave "
+            "fewer SERVING replicas than this, and the router refuses "
+            "to retire the last SERVING replica even when asked "
+            "directly — a fleet that can take traffic must keep "
+            "taking it")
+define_flag("serving_fleet_max_replicas", 4,
+            "autoscaler ceiling: scale-up decisions stop once live + "
+            "JOINING + pending-respawn replicas reach this count — "
+            "the burst absorber is bounded capacity, not unbounded "
+            "spawn")
+define_flag("serving_fleet_scale_cooldown_s", 10.0,
+            "minimum seconds between autoscaler actions: after any "
+            "scale-up or scale-down the policy holds until the "
+            "cooldown passes AND the decision window refills with "
+            "fresh post-scale evidence, so one burst cannot flap the "
+            "fleet up and down", type=float)
+define_flag("serving_fleet_scale_window_steps", 8,
+            "router steps of fleet-wide load evidence (shed deltas, "
+            "queued-token backlog, mean occupancy) one autoscaler "
+            "decision sees: scale-up needs pressure inside the "
+            "window, scale-down needs the WHOLE window idle — the "
+            "hysteresis that keeps a single idle tick from retiring "
+            "a replica")
+define_flag("serving_fleet_scale_up_occupancy", 0.85,
+            "mean SERVING-replica slot occupancy (busy decode slots "
+            "/ max_slots) over a full decision window at or above "
+            "which the autoscaler scales UP (sheds and router "
+            "backlog scale up immediately, without waiting for the "
+            "window)", type=float)
+define_flag("serving_fleet_scale_down_occupancy", 0.30,
+            "mean occupancy at or below which — with a full window "
+            "of zero sheds and zero backlog, nothing JOINING and no "
+            "respawn pending — the autoscaler retires the "
+            "least-loaded replica; keep it well under "
+            "FLAGS_serving_fleet_scale_up_occupancy or the "
+            "hysteresis gap closes and the fleet flaps", type=float)
+define_flag("serving_fleet_roles", "",
+            "disaggregated prefill/decode split for the serving fleet "
+            "(serving/fleet/disagg.py): 'P:D' replica counts, e.g. "
+            "'1:1' builds one prefill-role and one decode-role "
+            "replica — bench.py fleet and the fleet worker read it "
+            "when the caller passes no explicit roles; empty "
+            "(default) keeps every replica role 'both' (monolithic, "
+            "byte-identical to the pre-disaggregation fleet)",
+            type=str)
+define_flag("serving_fleet_migrate", True,
+            "live migration of in-flight sequences "
+            "(serving/fleet/migrate.MigrationCoordinator): on "
+            "scale-down retirement, drain consolidation, and DEGRADED "
+            "evacuation the router moves each straggler's KV blocks, "
+            "sampler rng state, and ledger counters to a SERVING peer "
+            "under the write-ahead migration ledger instead of "
+            "re-admitting it from the prompt; disabling falls back to "
+            "the prompt-replay reroute path everywhere")
+define_flag("serving_handoff_ledger_max", 64,
+            "bound on IN-FLIGHT entries in the write-ahead handoff "
+            "ledger (serving/fleet/disagg.HandoffLedger): while this "
+            "many handoffs are begun-but-uncommitted the router "
+            "starts no new ones (backpressure — the prefill replica "
+            "keeps decoding the request itself until a slot frees), "
+            "so a stuck decode fleet cannot grow the ledger or the "
+            "HA-store journal without bound")
 
 # -- vision (vision/models/resnet.py, nn/functional/norm.py) ----------------
 define_flag("use_fused_resnet_unit", False,

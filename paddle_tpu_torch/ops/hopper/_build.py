@@ -8,6 +8,11 @@ unchanged one is loaded from the earlier build. The sources have a
 plain C interface and include no PyTorch header, so a build takes
 seconds; the wrappers load the library with ``ctypes``. A failed build
 raises with the compiler's output.
+
+:func:`count_launch` is the one place a wrapper adds to its launch count
+(``<wrapper>.launches``), under a lock: replicas of a serving fleet step
+on threads of their own, and a bare ``+= 1`` from two threads can lose a
+count.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -26,6 +32,15 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 # reports registers, shared memory and spills in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, exactly under threads."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def find_nvcc() -> str:
@@ -66,9 +81,11 @@ def build_library(name: str, sources: list[str]) -> tuple[Path, str]:
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent builders never
-    # load a half-written library
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    # compile to a name private to this process and thread, and rename:
+    # concurrent builders never write one file or load a half-written
+    # library
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from ._build import build_library
+from ._build import build_library, count_launch
 
 # csrc/bn_stats.cu: threads of a partial CTA, rows a slot loads at once,
 # partial CTAs resident on an SM, warps of the final CTA
@@ -180,7 +180,7 @@ def bn_stats_cuda(x2d):
         sms, dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"bn_stats kernel launch failed: CUDA error {rc}")
-    bn_stats_cuda.launches += 1
+    count_launch(bn_stats_cuda)
     return buf[parts, 0], buf[parts, 1]
 
 

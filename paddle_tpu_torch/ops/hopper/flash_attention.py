@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from ._build import build_library
+from ._build import build_library, count_launch
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -435,7 +435,7 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {rc}")
-    flash_attention_fwd_cuda.launches += 1
+    count_launch(flash_attention_fwd_cuda)
     return out, lse
 
 
@@ -477,7 +477,7 @@ def flash_attention_dq_cuda(q, k, v, dout, lse, delta, causal, scale):
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     _launch_bwd(0, q, k, v, dout, lse, delta, causal, scale,
                 (dq.data_ptr(), None, None))
-    flash_attention_dq_cuda.launches += 1
+    count_launch(flash_attention_dq_cuda)
     return dq
 
 
@@ -491,7 +491,7 @@ def flash_attention_dkv_cuda(q, k, v, dout, lse, delta, causal, scale):
     dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
     _launch_bwd(1, q, k, v, dout, lse, delta, causal, scale,
                 (None, dk.data_ptr(), dv.data_ptr()))
-    flash_attention_dkv_cuda.launches += 1
+    count_launch(flash_attention_dkv_cuda)
     return dk, dv
 
 

@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from ._build import build_library
+from ._build import build_library, count_launch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -226,7 +226,7 @@ def _launch(q, kbuf, vbuf, block_tables, positions, kv_heads, head_dim, *,
     if rc != 0:
         raise RuntimeError(f"paged_attend kernel launch failed: CUDA error "
                            f"{rc}")
-    paged_attend_cuda.launches += 1
+    count_launch(paged_attend_cuda)
     return out
 
 

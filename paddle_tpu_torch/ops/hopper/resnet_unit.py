@@ -52,7 +52,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import build_library
+from ._build import build_library, count_launch
 
 _SOURCES = ["resnet_unit.cu"]
 _CONV3_SOURCES = ["conv3x3_bn.cu"]
@@ -754,7 +754,7 @@ def conv1x1_bn_fwd_cuda(x2d, w, a=None, b=None):
     _check_cuda(dict(x=x2d, w=w, a=a, b=b))
     _check_channels(rows, cin, cout)
     out = _launch_fwd(x2d, w, a, b, rows, cin, cout)
-    conv1x1_bn_fwd_cuda.launches += 1
+    count_launch(conv1x1_bn_fwd_cuda)
     return out
 
 
@@ -776,7 +776,7 @@ def conv1x1_bn_bwd_cuda(x2d, w, a, b, gy, gs1, gs2):
     _check_cuda(dict(x=x2d, w=w, a=a, b=b, gy=gy, gs1=gs1, gs2=gs2))
     _check_channels(rows, cin, cout)
     out = _launch_bwd(x2d, w, a, b, gy, gs1, gs2, rows, cin, cout)
-    conv1x1_bn_bwd_cuda.launches += 1
+    count_launch(conv1x1_bn_bwd_cuda)
     return out
 
 
@@ -800,7 +800,7 @@ def conv3x3_bn_fwd_cuda(x, w9, a, b):
     _check_cuda(dict(x=x, w=w9, a=a, b=b), prologue_needed=True)
     _check_channels(n * h * wd, cin, cout)
     out = _launch_conv3_fwd(x, w9, a, b)
-    conv3x3_bn_fwd_cuda.launches += 1
+    count_launch(conv3x3_bn_fwd_cuda)
     return out
 
 
@@ -824,7 +824,7 @@ def conv3x3_bn_bwd_cuda(x, w9, a, b, y, gy, gs1, gs2):
                 prologue_needed=True)
     _check_channels(n * h * wd, cin, cout)
     out = _launch_conv3_bwd(x, w9, a, b, y, gy, gs1, gs2)
-    conv3x3_bn_bwd_cuda.launches += 1
+    count_launch(conv3x3_bn_bwd_cuda)
     return out
 
 

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from ._build import build_library
+from ._build import build_library, count_launch
 
 MAX_WIDTH = 32768   # widest row the kernel takes (csrc/rms_norm.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -107,7 +107,7 @@ def rms_norm_cuda(x2d, w, eps):
         h, code, eps, dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {rc}")
-    rms_norm_cuda.launches += 1
+    count_launch(rms_norm_cuda)
     return out, rstd
 
 

@@ -28,12 +28,16 @@
 - speculation.py      speculative decoding: lossless verification,
                       n-gram and draft-model proposers, and the shared
                       temperature/top-k/top-p math
+- fleet/              the serving fleet over in-process replicas: the
+                      health-aware router with self-healing, the
+                      autoscaler, disaggregated prefill/decode and live
+                      migration (``serving.fleet``)
 
 Telemetry (``paddle_tpu_torch/telemetry``) is wired through all of it and
-off by default (``FLAGS_telemetry``). Not ported yet: the fleet that
-consumes the handoff and publishing hooks (the JAX package's
-``serving/fleet/*``: router, replicas, autoscaler, disaggregation,
-migration).
+off by default (``FLAGS_telemetry``). Not ported yet: CUDA graphs for the
+decode signature, and the JAX package's ``serving/fleet/worker.py`` (one
+replica per process under the launcher) and ``sharding.py`` (tensor
+parallelism over several cards).
 """
 
 from .engine import ServingEngine, sample_token

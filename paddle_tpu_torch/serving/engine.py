@@ -80,8 +80,12 @@ packages in either direction. ``enable_fleet_publish`` pushes
 ``health()`` with the telemetry snapshot to a store every few steps, and
 ``routing_signals`` gives a router its per-request inputs.
 
-Not ported yet: the fleet modules that consume these hooks
-(``serving/fleet/*``), and CUDA graphs for the decode signature.
+The fleet (``serving/fleet/``: router, self-healing replicas,
+autoscaler, disaggregated prefill/decode, live migration) consumes these
+hooks; its replicas are engines like this one. Not ported yet: CUDA
+graphs for the decode signature, and the JAX package's fleet
+``worker.py`` and ``sharding.py`` (one replica per process, tensor
+parallelism over several cards).
 """
 
 from __future__ import annotations
@@ -116,6 +120,28 @@ def sample_token(logits: np.ndarray, seq: Sequence) -> int:
         return int(np.argmax(logits))
     p = processed_probs(logits, seq)
     return int(seq.rng.choice(len(p), p=p))
+
+
+class SpecPlan:
+    """The scheduler's lookahead oracle: the configured lookahead,
+    capped so the verify row never writes past ``max_context`` or drafts
+    past the request's remaining output (emitted tokens are accepted +
+    1), backed off by :func:`adaptive_k`."""
+
+    __slots__ = ("k", "max_context", "width")
+
+    def __init__(self, k: int, max_context: int, width: int):
+        self.k, self.max_context, self.width = k, max_context, width
+
+    def __call__(self, seq: Sequence) -> int:
+        if seq.spec_off:
+            return 0
+        remaining = seq.max_new_tokens - len(seq.output)
+        k = min(self.k, remaining - 1, self.max_context - 1 - seq.ctx,
+                self.width - 1)
+        if k <= 0:
+            return 0
+        return adaptive_k(seq, k)
 
 
 class ServingEngine:
@@ -201,11 +227,23 @@ class ServingEngine:
                 f"FLAGS_serving_spec_lookahead={self._spec_k} with "
                 f"spec={self.spec_mode!r}: lookahead must be >= 1 (use "
                 f"spec='off' to disable speculation)")
+        # the verify width W: a power of two covering 1 + lookahead, so
+        # the batch shape never varies with a sequence's adaptive k
+        self._spec_width = 0
+        if self.spec_mode != "off":
+            w = 1
+            while w < 1 + self._spec_k:
+                w *= 2
+            self._spec_width = min(w, max(2, self.max_context))
+        # the oracle holds the three numbers it reads, not the engine: a
+        # bound method here would make a cycle (engine -> scheduler ->
+        # engine), and a dropped engine would keep its pool's device
+        # memory until the cycle collector ran
         self.scheduler = Scheduler(
             self.pool, max_slots=self.max_slots,
             prefill_chunk=self.prefill_chunk, token_budget=token_budget,
-            spec_k=(self._spec_plan_k if self.spec_mode != "off"
-                    else None))
+            spec_k=(None if self.spec_mode == "off" else SpecPlan(
+                self._spec_k, self.max_context, self._spec_width)))
         self.metrics = ServingMetrics()
         # IN-FLIGHT requests only: finished ones go back to the caller
         self.requests: dict[int, Sequence] = {}
@@ -226,15 +264,8 @@ class ServingEngine:
         # lifetime proposal/acceptance totals for health()
         self._spec_proposed_life = 0
         self._spec_accepted_life = 0
-        # the verify width W: a power of two covering 1 + lookahead, so
-        # the batch shape never varies with a sequence's adaptive k
         self._proposer = None
-        self._spec_width = 0
         if self.spec_mode != "off":
-            w = 1
-            while w < 1 + self._spec_k:
-                w *= 2
-            self._spec_width = min(w, max(2, self.max_context))
             self._proposer = build_proposer(self.spec_mode, engine=self,
                                             draft_model=draft_model)
         # fleet publishing (enable_fleet_publish): (store, rank, every)
@@ -1026,20 +1057,6 @@ class ServingEngine:
             raise SampleFailures(row_failures)
 
     # -- speculative decoding ----------------------------------------------
-    def _spec_plan_k(self, seq: Sequence) -> int:
-        """The scheduler's lookahead oracle: the configured lookahead,
-        capped so the verify row never writes past ``max_context`` or
-        drafts past the request's remaining output (emitted tokens are
-        accepted + 1), backed off by :func:`adaptive_k`."""
-        if seq.spec_off:
-            return 0
-        remaining = seq.max_new_tokens - len(seq.output)
-        k = min(self._spec_k, remaining - 1,
-                self.max_context - 1 - seq.ctx, self._spec_width - 1)
-        if k <= 0:
-            return 0
-        return adaptive_k(seq, k)
-
     def _spec_forget(self, seq: Sequence) -> None:
         """Drop proposer-side draft state of a sequence whose blocks
         were rewound, finished or freed."""

@@ -30,7 +30,8 @@ engine occupancy, the goodput ledger and the telemetry families.
   tokens ``expired_partial`` and a quarantined one's ``failed``;
   accepted drafts are ``spec_accepted`` and rejected ones
   ``spec_rejected``. A handoff books the source's tokens when it lets
-  the request go (``resolve_handoff``). Once every request is terminal
+  the request go (``resolve_handoff``), a live migration's under
+  ``migrated`` (``serving/fleet/migrate.py``). Once every request is terminal
   the kinds sum EXACTLY to ``tokens_computed``; ``serving_goodput_ratio``
   is delivered work over everything classified so far.
 - The attention-bytes ledger (``serving_attn_bytes_total{kind=touched|

@@ -31,6 +31,10 @@ isolation and the engine lifecycle state machine.
   work runs out under a deadline, stragglers ``cancelled``) to STOPPED.
   The current state is exported as one-hot ``serving_health_state``
   telemetry gauges.
+- **Fleet**: the roles (``PREFILL_ROLE``/``DECODE_ROLE``/``BOTH_ROLE``)
+  and ``JOINING`` are the fleet's (``serving/fleet/``); its replicas
+  thread the ``serving.fleet.*`` fault sites through
+  :func:`fault_point` like the engine's.
 - **Observability**: every lifecycle event of a request goes onto its
   bounded timeline and the process request log (:func:`note_event`), a
   quarantine, a first DEGRADED entry and a hung step each freeze one
@@ -92,7 +96,8 @@ DRAINING = "draining"
 STOPPED = "stopped"
 ENGINE_STATES = (SERVING, DEGRADED, DRAINING, STOPPED)
 
-# a replica's probation state (fleet routing); an engine is never JOINING
+# a replica's probation state (serving/fleet/router.py); an engine is
+# never JOINING
 JOINING = "joining"
 REPLICA_STATES = ENGINE_STATES + (JOINING,)
 

@@ -163,7 +163,7 @@ class Scheduler:
         self.max_slots = int(max_slots)
         self.prefill_chunk = int(prefill_chunk)
         self.token_budget = int(token_budget)
-        # the lookahead oracle (engine._spec_plan_k): draft tokens a
+        # the lookahead oracle (engine.SpecPlan): draft tokens a
         # RUNNING sequence wants this step; None = speculation off
         self.spec_k = spec_k
         self.waiting: deque[Sequence] = deque()

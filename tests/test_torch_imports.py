@@ -57,6 +57,14 @@ TELEMETRY_MODULES = (
     "paddle_tpu_torch.telemetry.registry",
     "paddle_tpu_torch.telemetry.requests",
     "paddle_tpu_torch.telemetry.tracer")
+# the serving fleet (router, autoscaler, disaggregation, migration), which
+# both scans must reach
+FLEET_MODULES = (
+    "paddle_tpu_torch.serving.fleet",
+    "paddle_tpu_torch.serving.fleet.autoscaler",
+    "paddle_tpu_torch.serving.fleet.disagg",
+    "paddle_tpu_torch.serving.fleet.migrate",
+    "paddle_tpu_torch.serving.fleet.router")
 
 
 def _port_modules():
@@ -76,7 +84,8 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     and chip_smoke import in a fresh interpreter."""
     mods = _port_modules() + ["chip_smoke"]
     assert (set(TRAINING_MODULES) | set(RESNET_MODULES)
-            | set(SERVING_MODULES) | set(TELEMETRY_MODULES)) <= set(mods)
+            | set(SERVING_MODULES) | set(TELEMETRY_MODULES)
+            | set(FLEET_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -129,8 +138,8 @@ def test_telemetry_off_by_default_starts_no_thread():
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_import_in_source(path):
     """AST scan: no absolute import names jax or the JAX package. The
-    scan covers every source of the package (the training, ResNet and
-    telemetry modules among them) and chip_smoke.py."""
+    scan covers every source of the package (the training, ResNet,
+    telemetry and fleet modules among them) and chip_smoke.py."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     for node in ast.walk(tree):
@@ -143,6 +152,15 @@ def test_no_jax_or_reference_import_in_source(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (
                 f"{path}:{node.lineno} imports {name}")
+
+
+def test_fleet_sources_are_scanned():
+    """The AST scan reaches every module of ``serving/fleet``."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in FLEET_MODULES:
+        rel = mod.replace(".", os.sep)
+        assert (rel + ".py" in scanned
+                or os.path.join(rel, "__init__.py") in scanned), mod
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
