@@ -47,13 +47,17 @@ contract alone: K5 and K6 built, phase 6's host-tier and fault checks,
 then phases 7d and 7e.
 ``python3 chip_smoke.py --fleet`` runs the serving fleet alone: K5 and
 K6 built, phase 6's fleet checks, then phase 7g.
+``python3 chip_smoke.py --int8`` is the quick loop for K10 (the
+weight-only int8 matmul): its build's ptxas report, every case of phase
+5b against the plain version (two calls bitwise equal) and its timings,
+then K5 and K6 built, phase 6's int8 gate and phase 7h.
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
 
 1. Device: name, count, ``nvidia-smi`` name and power limit; build the
    kernels from the checkout's sources (one nvcc per CUDA source, all
-   six started together).
+   seven started together).
 2. K5 (ragged paged attention, CUDA) against its plain version on the
    same bf16 pool: decode at mixed depths with an idle row, prefill at
    position 0 and 256, a ragged 100-row chunk, GQA decode, decode at
@@ -78,6 +82,14 @@ the run with a non-zero exit code and no result line:
    PyTorch library call for the same function, and the bound (K6 also by
    CUDA-graph replay, at the training shape, 8192 x 4096, and as the
    wrapper's host microseconds per call).
+5b. K10 (weight-only int8 matmul, CUDA) against its plain version at
+   Llama-2-7B's linear shapes (4096 -> 4096, 4096 -> 11008, 11008 ->
+   4096, 4096 -> 32000) with 1, 8, 64, 128 and 512 rows, in bf16 and
+   f32, and at ragged rows (37, 300, and 45 in f32); two calls bitwise
+   equal; an N that is not a multiple of 16 raises. The bf16 cases timed
+   by CUDA events and by CUDA-graph replay beside ``torch.matmul`` on
+   the same weight in bf16 (the product quantization replaces), the
+   plain version and the bound.
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
    tokens (kernels) equal dense ``generate`` tokens, with the default
    engine (prefix cache on); a shared-prefix set (4 prompts on one
@@ -103,8 +115,13 @@ the run with a non-zero exit code and no result line:
    fleet hands every request off once and gives the monolithic tokens
    with speculation off and n-gram; ``migrate_one`` moves one request
    mid-decode and one mid-prefill and their tokens equal the unmoved
-   run; launches exact. After the phase the card holds no more than it
-   did before it (no cycle collection).
+   run; launches exact. Last, the int8 gate on the same model:
+   ``quantize_for_decode`` on the card gives the int8 bytes and scales
+   of the CPU's, linear weights fall to a quarter of f32's (the card
+   frees the difference), and the engine's greedy tokens (K5, K6, K10:
+   15 launches a dispatch) equal dense ``generate``'s on the quantized
+   model. After the phase the card holds no more than it did before it
+   (no cycle collection).
 7. Serving at full Llama-2-7B (bf16, 32 layers; block 16, 8 slots,
    prefill chunk 128): 8 requests through the engine; throughput,
    TTFT/TPOT, peak memory, exact launch counts; then a short
@@ -114,15 +131,17 @@ the run with a non-zero exit code and no result line:
    merge kernels apart. Then (a) bench.py's shared-prefix mix (32
    requests on 4 system prompts of 192 tokens, Zipf 1.2, plus 4 exact
    resubmits, 64 new tokens, one burst) with caching on and off; (b) its
-   repeat-heavy mix (32 requests, a 16-token pattern tiled 8 times, 128
-   new tokens, token budget 512) with n-gram speculation and without;
-   (c) 8 of those requests, 32 new tokens, with a bf16 draft model of
-   TinyLlama-1.1B's geometry (22 layers, random weights). Each run logs
+   repeat-heavy mix (32 requests, a 16-token pattern tiled 8 times, 64
+   new tokens where bench.py has 128, token budget 512) with n-gram
+   speculation and without; (c) 4 of those requests, 32 new tokens,
+   with a bf16 draft model of TinyLlama-1.1B's geometry (22 layers,
+   random weights). Each run logs
    TTFT, TPOT, tokens/s, peak memory, prefix and speculation counters,
    and holds its launches to K5 = 32 x target + 22 x draft dispatches and
    K6 = 65 x target + 45 x draft dispatches. (d) bench.py's on-chip
-   zipf-hosttier mix (48 requests, 8 system prompts of 192 tokens,
-   suffixes of 1-32, RandomState(7); 16 new where bench.py has 32) in a
+   zipf-hosttier mix (the first 32 of its 48 requests, 8 system prompts
+   of 192 tokens, suffixes of 1-32, RandomState(7); 16 new where
+   bench.py has 32) in a
    sequential closed loop,
    three runs: device (unbounded cached set, a pool that holds
    everything), host (a cached set of 24 blocks, the host tier on with 1
@@ -165,20 +184,32 @@ the run with a non-zero exit code and no result line:
    no drain budget (scale-ups, scale-downs, migrations); (v) a replica
    hung for 8 s under a 5 s step budget while both step on threads of
    their own; (vi) the first 16 requests in one burst (32 new) on two
-   replicas stepped inline and on threads, in the order inline,
-   threaded, threaded, inline. Zero loss and exact launches in every
-   run; ``[serve:7g-*]`` lines give tok/s, TTFT and TPOT (per replica in
+   replicas stepped inline, then on threads. Zero loss and exact
+   launches in every run; ``[serve:7g-*]`` lines give tok/s, TTFT and
+   TPOT (per replica in
    (i)), the routed split, the respawn's seconds, the handoff's bytes
    and ms, the scale events and migrations, and the fleet step's wall ms
    inline against threaded on the same steps, prefill and decode steps
-   apart, beside the card's name and power limit.
+   apart, beside the card's name and power limit. (h) the model of
+   phase 7 in bf16, then quantized in place with ``quantize_for_decode``:
+   ``generate`` decode tok/s at batch 1 and 8 (a 128-token prompt, 128
+   new, as bench.py's ``int8_speedup``) and phase 7's mix through the
+   engine, each both ways, with exact launches (K10 = 225, K5 = 32, K6 =
+   65 a dispatch), zero loss, linear weight bytes, tok/s, TTFT, TPOT and
+   the decode step against the int8 weights' bound (1.97 ms).
 8. Training parity at Llama-2-7B width, 2 layers, f32, b=1, s=256: the
    loss and every parameter's gradient on the card (kernels) against
-   the CPU (plain versions), then a 3-step TrainStep loss trajectory.
+   the CPU (plain versions), also under per-layer recompute with each
+   granularity (full, core_attn, full_attn); then a 3-step TrainStep loss
+   trajectory, and 3 more steps under LinearWarmup over
+   CosineAnnealingDecay with a ``grad_postprocess``.
 9. Training at Llama-2-7B widths, 8 layers, bf16, AdamW with f32
    masters, batch 2 x 4096: 2 warm-up and 5 timed TrainSteps; step
    time, tokens/s, MFU, peak memory, exact launch counts per step, a
-   falling loss; then a torch.profiler window as for serving.
+   falling loss; then a torch.profiler window as for serving. Then the
+   same steps with ``recompute=True`` (granularity full): 16 flash
+   forwards and 33 K6 forwards a step, the plain run's losses, a lower
+   peak memory, step time and tokens/s.
 10. K7 and K8 (fused conv + BatchNorm, CUDA) forward and backward and
     K9 (BatchNorm statistics, CUDA) against their plain versions at
     ResNet-50 shapes (batch 256, 224^2, bf16): K7 with the prologue
@@ -386,12 +417,13 @@ def phase_build():
     """One nvcc per CUDA source, all started together in worker threads;
     all must succeed."""
     from paddle_tpu_torch.ops.hopper import (bn_stats, flash_attention,
-                                             paged_attention, resnet_unit,
-                                             rms_norm)
+                                             int8_matmul, paged_attention,
+                                             resnet_unit, rms_norm)
 
     t0 = time.perf_counter()
     builds = (paged_attention.build, flash_attention.build, resnet_unit.build,
-              resnet_unit.build_conv3x3, rms_norm.build, bn_stats.build)
+              resnet_unit.build_conv3x3, rms_norm.build, bn_stats.build,
+              int8_matmul.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         nvcc_logs = list(pool.map(lambda build: build(), builds))
     t_all = time.perf_counter() - t0
@@ -1063,6 +1095,189 @@ def time_flash_bwd_whole(m):
     return whole, delta_ms
 
 
+# -- phase 5b: K10, the weight-only int8 matmul -------------------------------
+
+# Llama-2-7B's linear shapes (name, K, N): q/k/v/o, gate/up, down, the head
+INT8_SHAPES = (("4096x4096", 4096, 4096), ("4096x11008", 4096, 11008),
+               ("11008x4096", 11008, 4096), ("4096x32000", 4096, 32000))
+# rows: a decode step of 1 and of 8 slots, 8 slots x 8 verify rows, a
+# 128-token prefill chunk, a 512-token chunk
+INT8_ROWS = (1, 8, 64, 128, 512)
+# ragged rows beside them (shape name, rows, dtype)
+INT8_RAGGED = (("4096x11008", 37, torch.bfloat16),
+               ("11008x4096", 300, torch.bfloat16),
+               ("4096x4096", 45, torch.float32))
+# the main path's shape: a decode step of 8 slots through gate/up
+INT8_MAIN = "4096x11008_m8_bfloat16"
+# K10 against its plain version. bf16: both sides sum in f32 (in other
+# orders), round the sum to bf16, multiply by the bf16 scale and round
+# again: two bf16 ulps of the largest output, 2^-6 of it. f32: the order
+# of up to 11008 products only, 1e-5 of the largest output
+INT8_REL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+# weights of one Llama-2-7B decode step: 224 linears and the untied head
+LLAMA7B_INT8_WEIGHTS = 32 * (4 * 4096 * 4096 + 3 * 4096 * 11008) \
+    + 4096 * 32000
+
+
+def k10_inputs(gen, k, n):
+    """Seeded int8 weights ``[k, n]`` over the whole range and f32
+    scales of a quantized Llama weight's order (absmax / 127)."""
+    q = torch.randint(-127, 128, (k, n), device="cuda", generator=gen,
+                      dtype=torch.int8)
+    s = (0.02 + 0.01 * torch.rand(1, n, device="cuda", generator=gen)) / 127
+    return q, s
+
+
+def k10_check(name, x, q, s):
+    """K10 against its plain version, called twice for equal bits.
+    Returns (max_abs_err, a failure message or None)."""
+    from paddle_tpu_torch.ops.hopper.int8_matmul import (int8_matmul_cuda,
+                                                         int8_matmul_plain)
+
+    out = int8_matmul_cuda(x, q, s)
+    out2 = int8_matmul_cuda(x, q, s)
+    want = int8_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = INT8_REL[x.dtype] * scale
+    ok = bool(torch.isfinite(out).all()) and err <= tol
+    same = torch.equal(out, out2)
+    log(f"[k10] {name} max_abs_err={err} tol={tol} ({INT8_REL[x.dtype]} of "
+        f"the largest |out| {scale}) ok={ok} bitwise_equal={same}")
+    if ok and same:
+        return err, None
+    return err, (f"K10 {name}: kernel disagrees with the plain version (ok="
+                 f"{ok}, equal bits={same})")
+
+
+def phase_k10(failures=None):
+    """K10 at every shape of INT8_SHAPES x INT8_ROWS in bf16 and f32 and at
+    INT8_RAGGED; an N that is not a multiple of 16 must raise. A failure
+    ends the run or, given a ``failures`` list, is added to it. Returns
+    {case: inputs and error} for the timings (bf16 only)."""
+    # the plain bf16 product sums in f32 throughout, as the kernel does
+    # (restored after the checks: the timings take the library defaults)
+    matmul = torch.backends.cuda.matmul
+    before = (matmul.allow_bf16_reduced_precision_reduction,
+              matmul.allow_tf32)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_tf32 = False
+    try:
+        return _k10_cases(failures)
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_tf32) = before
+
+
+def _k10_cases(failures):
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    results = {}
+    cases = [(sh, m, dt) for sh, _, _ in INT8_SHAPES for m in INT8_ROWS
+             for dt in (torch.bfloat16, torch.float32)] + list(INT8_RAGGED)
+    weights = {sh: k10_inputs(gen, k, n) for sh, k, n in INT8_SHAPES}
+    dims = {sh: (k, n) for sh, k, n in INT8_SHAPES}
+    for sh, m, dt in cases:
+        q, s = weights[sh]
+        x = torch.randn(m, dims[sh][0], device="cuda", generator=gen).to(dt)
+        name = f"{sh}_m{m}_{str(dt).split('.')[-1]}"
+        err, failure = k10_check(name, x, q, s)
+        if failures is None:
+            check(failure is None, failure)
+        elif failure:
+            failures.append(failure)
+        results[name] = dict(x=x, q=q, s=s, max_err=err,
+                             timed=dt == torch.bfloat16 and m in INT8_ROWS)
+    q, s = k10_inputs(gen, 4096, 4104)
+    try:
+        int8_matmul_cuda(torch.randn(8, 4096, device="cuda",
+                                     dtype=torch.bfloat16), q, s)
+        raised = False
+    except ValueError as e:
+        raised = "N % 16" in str(e)
+    log(f"[k10] N=4104 (not a multiple of 16) raises: {raised}")
+    if failures is None:
+        check(raised, "K10 took an N that is not a multiple of 16")
+    elif not raised:
+        failures.append("K10 took an N that is not a multiple of 16")
+    return results
+
+
+def time_k10(results):
+    """Each timed case of K10 by CUDA events and by CUDA-graph replay,
+    beside ``torch.matmul`` on the same weight in bf16 (the dense product
+    that quantization replaces), the plain version and the bound (int8
+    weights, activations, scales and output over the HBM rate, or the
+    products at the bf16 tensor-core peak); and the host microseconds a
+    call of the wrapper and of ``torch.matmul`` (least of 5 rounds of
+    100). Returns {case: times}."""
+    from paddle_tpu_torch.ops.hopper.int8_matmul import (int8_matmul_cuda,
+                                                         int8_matmul_plain)
+
+    times = {}
+    for name, r in results.items():
+        if not r["timed"]:
+            continue
+        x, q, s = r["x"], r["q"], r["s"]
+        (m, k), n = x.shape, q.shape[1]
+        dense = q.to(torch.bfloat16)
+        nbytes = k * n + 2 * m * k + 4 * n + 2 * m * n
+        bound, by = _bound(nbytes, {torch.bfloat16: 2 * m * n * k})
+        t = dict(
+            ms=time_ms(lambda: int8_matmul_cuda(x, q, s)),
+            graph_ms=time_ms_graph(lambda: int8_matmul_cuda(x, q, s)),
+            host_us=host_us(lambda: int8_matmul_cuda(x, q, s))[0],
+            library_host_us=host_us(lambda: torch.matmul(x, dense))[0],
+            plain_ms=time_ms(lambda: int8_matmul_plain(x, q, s)),
+            library_ms=time_ms(lambda: torch.matmul(x, dense)),
+            library_graph_ms=time_ms_graph(lambda: torch.matmul(x, dense)),
+            bound_ms=bound, bound_by=by, max_err=r["max_err"])
+        del dense
+        times[name] = t
+        log(f"[k10-time] {name} "
+            + " ".join(f"{key}={val}" for key, val in t.items())
+            + f" graph_over_bound={t['graph_ms'] / bound} graph_over_"
+            f"library={t['graph_ms'] / t['library_graph_ms']}")
+    return times
+
+
+def k10_only():
+    """``--int8``: build K10 alone (ptxas registers, spills, shared
+    memory), check it at every case of phase 5b and time it, then build
+    K5 and K6 and run phase 6's int8 gate at Llama-2-7B width (2 layers,
+    f32) and phase 7h on full Llama-2-7B. Every kernel case runs; the
+    failures are reported together at the end. Prints no result line."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import (int8_matmul, paged_attention,
+                                             rms_norm)
+
+    phase_device()
+    log(f"[k10] implementation={os.path.dirname(int8_matmul.__file__)}")
+    build_log(int8_matmul.build)
+    failures = []
+    time_k10(phase_k10(failures))
+    log(f"[k10] failures={failures}")
+    check(not failures, f"K10: {failures}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(lambda b: b(), (paged_attention.build,
+                                      rms_norm.build)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=2,
+                                                   dtype="float32"), seed=0)
+    phase_parity_int8(model, phase6_prompts(model.config.vocab_size))
+    del model
+    release_device_memory()
+    _, _, card = phase_device()
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(dtype="bfloat16"), seed=0)
+    knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
+    warm_serving(model, knobs)
+    phase_int8_serving(model, knobs, card)
+    return 0
+
+
 # -- phase 6: parity at full width --------------------------------------------
 
 def _dense_last_logits(model, tokens):
@@ -1200,6 +1415,7 @@ def phase_parity():
     release_device_memory()
     phase_parity_tier(model)
     phase_parity_fleet(model, prompts)
+    phase_parity_int8(model, prompts)   # quantizes the model: its last use
     log(f"[parity] seconds={time.perf_counter() - t0}")
     del model
     release_device_memory()
@@ -1211,6 +1427,87 @@ def phase6_prompts(vocab):
     tokens (the first draws of phase 6's generator)."""
     rng = np.random.default_rng(5)
     return [rng.integers(0, vocab, n).tolist() for n in (5, 17, 29, 40)]
+
+
+def linear_weights(model):
+    """(elements, bytes) of the 2-D weights ``quantize_for_decode``
+    converts: every Column/RowParallelLinear and an untied LM head."""
+    from paddle_tpu_torch.distributed.fleet.mpu import (ColumnParallelLinear,
+                                                        RowParallelLinear)
+    from paddle_tpu_torch.models.llama import LlamaLMHead
+
+    n = nbytes = 0
+    for m in model.modules():
+        if isinstance(m, (ColumnParallelLinear, RowParallelLinear)) or (
+                isinstance(m, LlamaLMHead) and not m._tied):
+            n += m.weight.numel()
+            nbytes += m.weight.numel() * m.weight.element_size()
+    return n, nbytes
+
+
+def phase_parity_int8(model, prompts):
+    """Phase 6's int8 gate (f32, TF32 off) on phase 6's model, which it
+    quantizes in place: ``quantize_for_decode`` on the card gives the
+    same int8 bytes and scales as on the CPU (a copy of the same weights);
+    linear weight memory is a quarter of f32's (half of bf16's) and the
+    card frees the difference; the engine's greedy tokens (K5, K6, K10,
+    15 K10 launches a dispatch at 2 layers) equal dense ``generate``'s on
+    the same quantized model."""
+    import copy
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.models.generation import quantize_for_decode
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul_cuda
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    n_lin, f32_bytes = linear_weights(model)
+    host = copy.deepcopy(model).to("cpu")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    quantize_for_decode(model)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    quantize_for_decode(host)
+    card_state, host_state = model.state_dict(), host.state_dict()
+    n_int8 = n_scales = 0
+    for name, t in card_state.items():
+        if t.dtype == torch.int8 or name.endswith(".weight_scale"):
+            check(torch.equal(t.cpu(), host_state[name]),
+                  f"int8 gate: {name} differs between the card's and the "
+                  f"CPU's quantize_for_decode")
+            n_int8 += t.dtype == torch.int8
+            n_scales += name.endswith(".weight_scale")
+    want_n = 7 * cfg.num_hidden_layers + 1
+    check(n_int8 == want_n == n_scales, f"int8 gate: {n_int8} int8 weights "
+          f"and {n_scales} scales, want {want_n} of each")
+    _, int8_bytes = linear_weights(model)
+    scale_bytes = sum(t.numel() * 4 for n, t in card_state.items()
+                      if n.endswith(".weight_scale"))
+    log(f"[parity-int8] int8 bytes and scales equal card vs CPU: {n_int8} "
+        f"weights; linear weight bytes f32 {f32_bytes} bf16 {2 * n_lin} "
+        f"int8 {int8_bytes} (x{f32_bytes / int8_bytes} f32, "
+        f"x{2 * n_lin / int8_bytes} bf16); card memory freed {freed} "
+        f"(f32 - int8 - scales = {f32_bytes - int8_bytes - scale_bytes})")
+    check(4 * int8_bytes == f32_bytes and int8_bytes == n_lin,
+          "int8 gate: linear weights are not a quarter of f32's")
+    check(abs(freed - (f32_bytes - int8_bytes - scale_bytes)) < 1 << 22,
+          f"int8 gate: the card freed {freed} bytes, not the f32 weights' "
+          f"difference")
+    del host, host_state
+    engine = ServingEngine.from_model(model)
+    int8_matmul_cuda.launches = 0
+    out = _engine_outputs(engine, prompts, 8)
+    k10 = int8_matmul_cuda.launches
+    check(k10 == want_n * engine.dispatches, f"int8 gate: K10 launches {k10}"
+          f" != {want_n} x {engine.dispatches} dispatches")
+    _check_greedy(model, "int8", prompts, out, 8)
+    log(f"[parity-int8] llama2_7b width, {cfg.num_hidden_layers} layers, f32:"
+        f" engine tokens equal dense generate on the quantized model; K10 "
+        f"launches {k10} = {want_n} x {engine.dispatches} dispatches; "
+        f"seconds={time.perf_counter() - t0}")
+    del engine
+    release_device_memory()
 
 
 def _moved_blocks_equal(dst, rid, state):
@@ -1455,15 +1752,18 @@ def first_divergence(a, b):
             for p, q in zip(a, b)]
 
 
-def serve_run(engine, label, prompts, max_new, closed_loop=False):
+def serve_run(engine, label, prompts, max_new, closed_loop=False,
+              k10_per_dispatch=0):
     """One burst of requests (every arrival at t0) through ``engine``,
     or with ``closed_loop`` bench.py's sequential replay (each request
     arrives when the one before it finished): every dispatch's logits
-    checked finite, K5/K6 launches counted over this run alone and held
-    to 32 x target dispatches + 22 x draft dispatches (K5) and 65 x
-    target + 45 x draft (K6), each request held to ``max_new`` tokens
-    and outcome ok, and the pool to its invariants. Logs the run's
+    checked finite, K5/K6/K10 launches counted over this run alone and
+    held to 32 x target dispatches + 22 x draft dispatches (K5), 65 x
+    target + 45 x draft (K6) and ``k10_per_dispatch`` x target (K10: 225
+    for a quantized Llama-2-7B, else 0), each request held to ``max_new``
+    tokens and outcome ok, and the pool to its invariants. Logs the run's
     numbers and returns them."""
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul_cuda
     from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
     from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
     from paddle_tpu_torch.serving.robustness import now_s
@@ -1483,6 +1783,7 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False):
     dd0 = getattr(engine._proposer, "dispatches", 0)
     paged_attend_cuda.launches = 0
     rms_norm_cuda.launches = 0
+    int8_matmul_cuda.launches = 0
     t0 = time.perf_counter()
     if closed_loop:
         rids, done = [], {}
@@ -1498,6 +1799,7 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k5, k6 = paged_attend_cuda.launches, rms_norm_cuda.launches
+    k10 = int8_matmul_cuda.launches
     del engine._dispatch, engine._dispatch_full   # the wrappers' cycles
     n_target = engine.dispatches - d0
     n_draft = getattr(engine._proposer, "dispatches", 0) - dd0
@@ -1506,7 +1808,7 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False):
     r = dict(label=label, wall_s=wall, output_tok_s=out_tokens / wall,
              steps=m["steps"], dispatches=n_target,
              verify_dispatches=engine.verify_dispatches,
-             draft_dispatches=n_draft, k5=k5, k6=k6,
+             draft_dispatches=n_draft, k5=k5, k6=k6, k10=k10,
              peak_memory_bytes=torch.cuda.max_memory_allocated(),
              outputs=[done[i].output_ids for i in rids],
              **{k: m[k] for k in (
@@ -1536,6 +1838,8 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False):
           + (2 * draft_layers + 1) * n_draft,
           f"{label}: K6 launches {k6} != 65 x {n_target} + "
           f"{2 * draft_layers + 1} x {n_draft}")
+    check(k10 == k10_per_dispatch * n_target, f"{label}: K10 launches {k10} "
+          f"!= {k10_per_dispatch} x {n_target}")
     engine.pool.check_invariants()
     return r
 
@@ -1596,7 +1900,9 @@ def phase_serving(card):
     for spec in ("ngram", "off"):
         engine = ServingEngine.from_model(model, spec=spec,
                                           token_budget=512, **knobs)
-        runs[f"spec_{spec}"] = serve_run(engine, f"spec_{spec}", rep, 128)
+        # 64 new tokens where bench.py has 128: the run stays inside half
+        # its time limit
+        runs[f"spec_{spec}"] = serve_run(engine, f"spec_{spec}", rep, 64)
         del engine
         release_device_memory()
     ng = runs["spec_ngram"]
@@ -1610,7 +1916,8 @@ def phase_serving(card):
     draft = LlamaForCausalLM(tinyllama_config(dtype="bfloat16"), seed=1)
     engine = ServingEngine.from_model(model, spec="draft", draft_model=draft,
                                       **knobs)
-    runs["spec_draft"] = serve_run(engine, "spec_draft", rep[:8], 32)
+    # 4 requests (cut from 8: the run stays inside half its time limit)
+    runs["spec_draft"] = serve_run(engine, "spec_draft", rep[:4], 32)
     check(runs["spec_draft"]["draft_dispatches"] > 0,
           "7c: the draft model made no dispatch")
     log(f"[serve:7c] seconds={time.perf_counter() - t0} draft weight_bytes="
@@ -1622,6 +1929,8 @@ def phase_serving(card):
     runs.update(phase_telemetry_serving(model, knobs, card,
                                         runs["main"]["outputs"]))
     runs.update(phase_fleet_serving(model, knobs, card))
+    # quantizes the model in place: its last use
+    runs.update(phase_int8_serving(model, knobs, card))
     del model
     release_device_memory()
     check_released("phase 7", base)
@@ -1636,6 +1945,117 @@ def warm_serving(model, knobs):
     warm = ServingEngine.from_model(model, pool_blocks=64, **knobs)
     warm.add_request(list(range(1, 129)), max_new_tokens=2)
     warm.run()
+
+
+# phase 7h: bench.py's chip decode bench (bench.py:480-546): a 128-token
+# prompt, 128 greedy new tokens, batches 1 and 8; tok/s = batch x new
+# tokens over the seconds of one generate()
+INT8_GEN_PROMPT, INT8_GEN_NEW, INT8_GEN_BATCHES = 128, 128, (1, 8)
+
+
+def generate_tok_s(model, reps=1):
+    """Greedy ``generate`` decode tok/s at each of INT8_GEN_BATCHES, as
+    bench.py's ``int8_speedup`` counts them (prefill included): one short
+    warm-up, then the median of ``reps`` timed calls. Returns {batch:
+    tok/s}."""
+    rng = np.random.RandomState(0)
+    rates = {}
+    for b in INT8_GEN_BATCHES:
+        ids = torch.tensor(rng.randint(0, model.config.vocab_size,
+                                       (b, INT8_GEN_PROMPT)), device="cuda")
+        model.generate(ids, max_new_tokens=4)
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.generate(ids, max_new_tokens=INT8_GEN_NEW)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(out.shape == (b, INT8_GEN_PROMPT + INT8_GEN_NEW),
+              "7h: generate returned another shape")
+        rates[b] = b * INT8_GEN_NEW / sorted(secs)[len(secs) // 2]
+    return rates
+
+
+def phase_int8_serving(model, knobs, card):
+    """Phase 7h: full Llama-2-7B (32 layers) in bf16, then quantized in
+    place (the model's last use), on phase 7's mix: zero loss and exact
+    launches (K10 = 7 x 32 + 1 = 225, K5 = 32, K6 = 65 a dispatch), tok/s,
+    TTFT, TPOT, phase seconds and the decode roofline for int8 against
+    bf16, then int8's profile window (device ms a dispatch by family, the
+    idle share, one prefill and one decode dispatch apart);
+    ``generate`` decode tok/s at batch 1 and 8 both ways; linear weight
+    memory and the decode step against the int8 weights' bound (1.97 ms
+    at 3.35 TB/s)."""
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.models.generation import quantize_for_decode
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    prompts = phase7_mix(cfg.vocab_size)
+    n_lin, bf16_bytes = linear_weights(model)
+    gen = {"bf16": generate_tok_s(model)}
+    runs = {}
+    peak_gbs = HBM_BYTES_S / 1e9
+
+    def serve(label, per_dispatch):
+        engine = ServingEngine.from_model(model, hbm_peak_gbs=peak_gbs,
+                                          **knobs)
+        r = serve_run(engine, label, prompts, 64,
+                      k10_per_dispatch=per_dispatch)
+        m = engine.metrics.snapshot()
+        frac = m["decode_roofline_frac"]
+        r.update(model_bytes=engine.model_bytes, decode_roofline_frac=frac,
+                 decode_step_ms=(None if not frac else engine.model_bytes
+                                 / (frac * HBM_BYTES_S) * 1e3),
+                 phase_seconds=m["phase_seconds"])
+        log(f"[serve:{label}] phase_seconds={json.dumps(m['phase_seconds'])}")
+        if per_dispatch:
+            # bf16's profile is phase 7's main run (the same dispatches)
+            profile_window(engine, cfg.vocab_size)
+        del engine
+        release_device_memory()
+        return r
+
+    runs["7h-bf16"] = serve("7h-bf16", 0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    quantize_for_decode(model)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    _, int8_bytes = linear_weights(model)
+    check(int8_bytes == n_lin == LLAMA7B_INT8_WEIGHTS and
+          2 * int8_bytes == bf16_bytes, "7h: linear weights are not half of "
+          "bf16's")
+    warm_serving(model, knobs)
+    gen["int8"] = generate_tok_s(model)
+    runs["7h-int8"] = serve("7h-int8", 7 * LLAMA_LAYERS + 1)
+    bound_ms = LLAMA7B_INT8_WEIGHTS / HBM_BYTES_S * 1e3
+    b, q = runs["7h-bf16"], runs["7h-int8"]
+    for key, r in runs.items():
+        log(f"[serve:{key}] tok_s={r['output_tok_s']} ttft_p50_s="
+            f"{r['ttft_p50_s']} ttft_p95_s={r['ttft_p95_s']} tpot_p50_s="
+            f"{r['tpot_p50_s']} tpot_p95_s={r['tpot_p95_s']} model_bytes="
+            f"{r['model_bytes']} decode_roofline_frac="
+            f"{r['decode_roofline_frac']} decode_step_ms={r['decode_step_ms']}"
+            f" k5={r['k5']} k6={r['k6']} k10={r['k10']} dispatches="
+            f"{r['dispatches']} peak_memory_bytes={r['peak_memory_bytes']} "
+            f"({card})")
+    log(f"[serve:7h] int8/bf16: tok_s x{q['output_tok_s'] / b['output_tok_s']}"
+        f" tpot_p50 x{q['tpot_p50_s'] / b['tpot_p50_s']}; generate decode "
+        f"tok/s bf16 {gen['bf16']} int8 {gen['int8']} int8_speedup "
+        f"{ {k: gen['int8'][k] / gen['bf16'][k] for k in gen['int8']} }; "
+        f"linear weight bytes bf16 {bf16_bytes} int8 {int8_bytes}, card "
+        f"memory freed by quantizing {freed}; decode step "
+        f"{q['decode_step_ms']} ms against the int8 weights' bound "
+        f"{bound_ms} ms (bf16 {b['decode_step_ms']} ms); first differing "
+        f"token int8 against bf16 per request: "
+        f"{first_divergence(q['outputs'], b['outputs'])} (quantization "
+        f"moves the logits; phase 6 holds the int8 tokens to dense "
+        f"generate in f32); seconds={time.perf_counter() - t0} ({card})")
+    runs["7h-int8"]["generate_tok_s"] = gen["int8"]
+    runs["7h-bf16"]["generate_tok_s"] = gen["bf16"]
+    return runs
 
 
 def tier_only():
@@ -1716,8 +2136,11 @@ def phase7_mix(vocab):
 
 # phase 7d: bench.py's on-chip zipf-hosttier mix (bench.py:939-945), its
 # 32 new tokens cut to 16 (at 32 the device and host runs took 51.9 and
-# 54.0 s on the card, so the three would pass 150 s)
+# 54.0 s on the card, so the three would pass 150 s), and its 48 requests
+# (drawn as bench.py draws them) cut to the first 32 (the three runs took
+# 122 s of a 641 s run; the whole run stays inside half its time limit)
 HOSTTIER_REQUESTS, HOSTTIER_PREFIXES, HOSTTIER_PREFIX_LEN = 48, 8, 192
+HOSTTIER_RUN_REQUESTS = 32
 HOSTTIER_SUFFIX, HOSTTIER_NEW = 32, 16
 HOSTTIER_BYTES = 1 << 30
 
@@ -1790,9 +2213,9 @@ def tier_copy_ms(pool, iters=20):
 
 def phase_hosttier(model, knobs):
     """Phase 7d: bench.py's on-chip zipf-hosttier mix at full Llama-2-7B
-    in bf16 (48 requests, 8 system prompts of 192 tokens, Zipf 1.2,
-    suffixes of 1-32, RandomState(7); 16 new tokens where bench.py has
-    32), sequential closed
+    in bf16 (the first 32 of its 48 requests, 8 system prompts of 192
+    tokens, Zipf 1.2, suffixes of 1-32, RandomState(7); 16 new tokens
+    where bench.py has 32), sequential closed
     loop, three runs: ``device`` (unbounded cached set, a pool that holds
     everything), ``host`` (a cached set of 2 x 192/16 = 24 blocks, the
     host tier on with 1 GiB) and ``cold`` (24 blocks, tier off). Host
@@ -1806,7 +2229,7 @@ def phase_hosttier(model, knobs):
 
     t_start = time.perf_counter()
     vocab = model.config.vocab_size
-    prompts = hosttier_prompts(vocab)
+    prompts = hosttier_prompts(vocab, HOSTTIER_RUN_REQUESTS)
     bs = knobs["block_size"]
     starved = 2 * (HOSTTIER_PREFIX_LEN // bs)
     check(HOSTTIER_PREFIXES * (HOSTTIER_PREFIX_LEN // bs) > starved,
@@ -2256,6 +2679,7 @@ def phase_telemetry_serving(model, knobs, card, main_outputs=None):
 # K5's family: its split kernels (paged_attend_kernel_cc, _tc) and merge
 KERNEL_FAMILIES = (("k5_paged_attention", ("paged_attend_kernel",)),
                    ("k6_rms_norm", ("rms_norm_fwd",)),
+                   ("k10_int8_matmul", ("int8_mm_",)),
                    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")))
 
 
@@ -3152,12 +3576,13 @@ def phase_fleet_serving(model, knobs, card):
     # (vi) inline against threaded on the same steps: the first 16
     # requests in one burst, 32 new tokens, two warmed replicas stepped
     # inline (no budget) or each on its worker thread (a budget no step
-    # reaches), in the order inline, threaded, threaded, inline; fleet
+    # reaches), inline then threaded (cut from inline, threaded,
+    # threaded, inline to keep the run inside half its time limit); fleet
     # steps split by kind, both replicas live throughout
     by_mode = {"inline": [], "threaded": []}
-    for i, mode in enumerate(("inline", "threaded", "threaded", "inline")):
+    for mode in ("inline", "threaded"):
         budget = 30.0 if mode == "threaded" else 0.0
-        label = f"7g-{mode}-{'ab'[i // 2]}"
+        label = f"7g-{mode}"
         with port_flags(serving_fleet_step_timeout_s=budget):
             fleet = FleetRouter([EngineReplica(j, warmed(j))
                                  for j in range(2)])
@@ -3251,6 +3676,31 @@ def phase_train_parity():
     log(f"[train-parity] all {len(host_params)} gradients within "
         f"{TRAIN_GRAD_REL} of their largest element; worst {worst[0]} "
         f"{worst[1]}")
+    i, lab = (torch.tensor(a, device="cuda") for a in batch)
+    for gran in ("full", "core_attn", "full_attn"):
+        # per-layer recompute on the card against the CPU's plain step
+        card.config.recompute = True
+        card.config.recompute_granularity = gran
+        for p in card.parameters():
+            p.grad = None
+        loss = llama_loss_fn(card, i, lab)
+        loss.backward()
+        err = abs(float(loss.detach()) - losses["cpu"]) / abs(losses["cpu"])
+        check(err <= TRAIN_LOSS_RTOL, f"recompute={gran}: loss differs card "
+              f"vs CPU")
+        worst = ("", 0.0)
+        for n, p in card.named_parameters():
+            e = _max_rel_err(p.grad, host_params[n].grad)
+            worst = max(worst, (n, e), key=lambda t: t[1])
+            check(e <= TRAIN_GRAD_REL, f"recompute={gran}: gradient of {n} "
+                  f"differs card vs CPU: {e} of its largest element")
+        log(f"[train-parity] recompute={gran}: loss card="
+            f"{float(loss.detach())} "
+            f"rel_err={err}; all gradients within {TRAIN_GRAD_REL}; worst "
+            f"{worst[0]} {worst[1]}")
+    card.config.recompute = False
+    for p in card.parameters():
+        p.grad = None
     traj = {}
     for dev, model in (("cuda", card), ("cpu", host)):
         i, lab = (torch.tensor(a, device=dev) for a in batch)
@@ -3265,6 +3715,33 @@ def phase_train_parity():
         f"seconds={time.perf_counter() - t0}")
     check(max(rel) <= TRAIN_TRAJ_RTOL, "loss trajectory differs card vs CPU")
     check(traj["cuda"][-1] < traj["cuda"][0], "parity loss did not fall")
+    # 3 more steps under LinearWarmup over CosineAnnealingDecay with a
+    # grad_postprocess that halves every gradient
+    from paddle_tpu_torch.optimizer import lr as sched_lr
+
+    traj, rates = {}, {}
+    for dev, model in (("cuda", card), ("cpu", host)):
+        i, lab = (torch.tensor(a, device=dev) for a in batch)
+        sched = sched_lr.LinearWarmup(
+            sched_lr.CosineAnnealingDecay(1e-6, T_max=3), warmup_steps=1,
+            start_lr=2e-7, end_lr=1e-6)
+        step = TrainStep(model, AdamW(learning_rate=sched), llama_loss_fn,
+                         grad_postprocess=lambda g: {n: v * 0.5
+                                                     for n, v in g.items()})
+        traj[dev], rates[dev] = [], []
+        for _ in range(3):
+            rates[dev].append(step.optimizer.get_lr())
+            traj[dev].append(float(step(i, lab)))
+            sched.step()
+    rel = [abs(a - b) / abs(b) for a, b in zip(traj["cuda"], traj["cpu"])]
+    log(f"[train-parity] 3 AdamW steps, LinearWarmup over "
+        f"CosineAnnealingDecay (rates {rates['cuda']}), grad_postprocess "
+        f"halving: card={traj['cuda']} cpu={traj['cpu']} rel_err={rel} tol "
+        f"{TRAIN_TRAJ_RTOL} seconds={time.perf_counter() - t0}")
+    check(rates["cuda"] == rates["cpu"] and len(set(rates["cuda"])) == 3,
+          "the schedule did not move the rate")
+    check(max(rel) <= TRAIN_TRAJ_RTOL, "scheduled loss trajectory differs "
+          "card vs CPU")
     del card, host
     torch.cuda.empty_cache()
 
@@ -3297,12 +3774,20 @@ def _reset_train_counts():
         fn.launches = 0
 
 
-def phase_training(warmup=2, timed=5):
+def phase_training(warmup=2, timed=5, recompute=False, plain=None):
     """Llama-2-7B widths (hidden 4096, intermediate 11008, 32 heads of
     128, vocab 32000) cut to 8 layers, bf16 with f32 AdamW masters, a
     fixed random batch of 2 x 4096 tokens, as bench.py's 7B-layer bench
     runs it. Every step must launch exactly 8 flash forward, 8 dq and 8
-    dkv kernels and 17 K6 forwards; the loss must stay finite and fall."""
+    dkv kernels and 17 K6 forwards; the loss must stay finite and fall.
+
+    With ``recompute`` (granularity ``full``), the same steps from the
+    same weights: 16 flash forwards (each layer's forward runs again in
+    the backward), 8 dq, 8 dkv and 33 K6 forwards a step; each step's
+    loss equal to ``plain``'s (the run without recompute: bitwise, or
+    else within phase 8's trajectory tolerance, logged as which); a lower
+    peak memory; no profile window. Returns the launch counts with the
+    losses, step ms and peak memory."""
     from paddle_tpu_torch import (LlamaConfig, LlamaForCausalLM, TrainStep,
                                   llama_loss_fn)
     from paddle_tpu_torch.optimizer import AdamW
@@ -3310,7 +3795,8 @@ def phase_training(warmup=2, timed=5):
     torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated()
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
-                                fused_head_loss=True, dtype="bfloat16")
+                                fused_head_loss=True, dtype="bfloat16",
+                                recompute=recompute)
     model = LlamaForCausalLM(cfg, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     mem_weights = torch.cuda.memory_allocated()
@@ -3320,8 +3806,9 @@ def phase_training(warmup=2, timed=5):
     ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
                         device="cuda", generator=gen)
     ids, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
-    want = dict(fwd=TRAIN_LAYERS, dq=TRAIN_LAYERS, dkv=TRAIN_LAYERS,
-                k6=2 * TRAIN_LAYERS + 1)
+    again = 2 if recompute else 1
+    want = dict(fwd=again * TRAIN_LAYERS, dq=TRAIN_LAYERS, dkv=TRAIN_LAYERS,
+                k6=again * 2 * TRAIN_LAYERS + 1)
     losses, seconds = [], []
     _reset_train_counts()
     for i in range(warmup + timed):
@@ -3343,8 +3830,8 @@ def phase_training(warmup=2, timed=5):
     tok_s = tokens / step_s
     mfu = 6 * n_params * tok_s / PEAK_OPS_S[torch.bfloat16]
     log(f"[train] llama2_7b widths, {TRAIN_LAYERS} layers, bf16, AdamW "
-        f"multi_precision, batch {TRAIN_BATCH}x{TRAIN_SEQ}: params="
-        f"{n_params} losses={losses}")
+        f"multi_precision, batch {TRAIN_BATCH}x{TRAIN_SEQ}, recompute="
+        f"{recompute}: params={n_params} losses={losses}")
     log(f"[train] step_ms={step_s * 1e3} (mean of {timed} after {warmup} "
         f"warm-up; each {[t * 1e3 for t in seconds]}) tokens_per_s={tok_s} "
         f"mfu={mfu} (6*N*tokens/s over 989e12)")
@@ -3355,10 +3842,26 @@ def phase_training(warmup=2, timed=5):
         f"{want})")
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
-    profile_train_window(step, ids, labels, step_s * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if plain is None:
+        profile_train_window(step, ids, labels, step_s * 1e3)
+    else:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"])]
+        bitwise = losses == plain["losses"]
+        log(f"[train] recompute=full against the plain step: losses "
+            f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
+            f"rel_err={rel} (tol {TRAIN_TRAJ_RTOL}); peak_memory_bytes "
+            f"{peak} against {plain['peak']} (x{peak / plain['peak']}); "
+            f"step_ms {step_s * 1e3} against {plain['step_ms']} "
+            f"(x{step_s * 1e3 / plain['step_ms']}); tokens_per_s {tok_s} "
+            f"against {tokens / plain['step_ms'] * 1e3}")
+        check(bitwise or max(rel) <= TRAIN_TRAJ_RTOL, "recompute: the "
+              "losses differ from the plain step's")
+        check(peak < plain["peak"], "recompute: peak memory is not below "
+              "the plain step's")
     del model, step
     torch.cuda.empty_cache()
-    return counts
+    return dict(counts, losses=losses, peak=peak, step_ms=step_s * 1e3)
 
 
 def profile_train_window(step, ids, labels, wall_ms, steps=2):
@@ -4542,6 +5045,8 @@ def main() -> int:
         return tier_only()
     if argv == ["--fleet"]:
         return fleet_only()
+    if argv == ["--int8"]:
+        return k10_only()
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
@@ -4552,12 +5057,15 @@ def main() -> int:
     time_k5(k5)
     time_k6(k6)
     flash_times = time_flash(flash)
+    k10 = phase_k10()
+    k10_times = time_k10(k10)
     phase_parity()
     runs = phase_serving(card)
     k5_launches = sum(r["k5"] for r in runs.values())
     k6_launches = sum(r["k6"] for r in runs.values())
     phase_train_parity()
     train = phase_training()
+    phase_training(recompute=True, plain=train)
     t_resnet = time.perf_counter()
     ru_results = phase_resnet_kernels()
     ru_errs = {k: v["errs"] for k, v in ru_results.items()}
@@ -4597,6 +5105,21 @@ def main() -> int:
                          flash_times["dkv"], shape),
              also_replaces=[f"{pallas}:610"]),
     ]
+    main_k10 = k10_times[INT8_MAIN]
+    kernels.append(dict(
+        timed_entry("int8_matmul", "cuda",
+                    "paddle_tpu_torch/csrc/int8_matmul.cu",
+                    "paddle_tpu/distributed/fleet/mpu.py:132",
+                    runs["7h-int8"]["k10"],
+                    max(r["max_err"] for r in k10.values()), main_k10,
+                    INT8_MAIN),
+        also_replaces=["paddle_tpu/models/llama.py:328"],
+        note="no pl.pallas_call: XLA's fused convert+dot of _int8_matmul",
+        graph_ms=main_k10["graph_ms"],
+        library_graph_ms=main_k10["library_graph_ms"],
+        launches_by_run={k: r["k10"] for k, r in runs.items()
+                         if r.get("k10")},
+        other_shapes={c: t for c, t in k10_times.items() if c != INT8_MAIN}))
     ru_src = "paddle_tpu_torch/csrc/resnet_unit.cu"
     k8_src = "paddle_tpu_torch/csrc/conv3x3_bn.cu"
     ru_pallas = "paddle_tpu/ops/pallas/resnet_unit.py"

@@ -22,15 +22,21 @@ contract, request handoff and fleet publishing, the fleet
 (``serving.fleet``: router with self-healing replicas, autoscaler,
 disaggregated prefill/decode, live migration), and the ``telemetry``
 package (metric families, spans, flight recorder, request timelines,
-exporters, cross-rank aggregation; off by default).
+exporters, cross-rank aggregation; off by default). Weight-only int8
+serving (``models.quantize_for_decode``) runs the int8 matmul kernel K10
+(CUDA C++); training has per-layer recompute
+(``distributed.fleet.recompute``), the learning-rate schedulers
+(``optimizer.lr``), eleven optimizers with an eager ``step()`` and the
+loss functions and layers of ``nn``.
 """
 
-from . import flags, telemetry, vision
+from . import flags, nn, optimizer, telemetry, vision
 from .convert import load_reference_state
 from .jit import TrainStep
-from .models import LlamaConfig, LlamaForCausalLM, llama_loss_fn
+from .models import (LlamaConfig, LlamaForCausalLM, llama_loss_fn,
+                     quantize_for_decode)
 from .serving import ServingEngine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "TrainStep",
-           "flags", "llama_loss_fn", "load_reference_state", "telemetry",
-           "vision"]
+           "flags", "llama_loss_fn", "load_reference_state", "nn",
+           "optimizer", "quantize_for_decode", "telemetry", "vision"]

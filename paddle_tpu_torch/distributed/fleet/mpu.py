@@ -10,6 +10,13 @@ are kept, so a JAX state dict copies in by name with no transposes
 ``torch.matmul``: the JAX package leaves them to XLA outside any
 kernel. Parameters are created uninitialised; the model that owns them
 initialises them from its seeded generator.
+
+After ``models.generation.quantize_for_decode`` a linear holds an int8
+``weight`` and an f32 ``weight_scale`` buffer ``[1, out]``; its forward
+is then ``(x @ q) * s`` in x's dtype through kernel K10
+(``ops/hopper/int8_matmul.py``; the plain version on the CPU), with the
+bias added after, and no autograd, as the JAX package's
+``_int8_matmul``.
 """
 
 from __future__ import annotations
@@ -17,9 +24,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...ops.hopper.int8_matmul import int8_matmul
+
 
 def _param(shape, device, dtype):
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+def quantized_matmul(layer, x):
+    """``(x @ q) * s`` for a layer that ``quantize_for_decode`` converted
+    (an int8 ``weight`` and a ``weight_scale`` buffer), else None: the
+    dense path."""
+    ws = getattr(layer, "weight_scale", None)
+    if ws is None or layer.weight.dtype != torch.int8:
+        return None
+    return int8_matmul(x, layer.weight, ws)
 
 
 class VocabParallelEmbedding(nn.Module):
@@ -51,7 +70,9 @@ class ColumnParallelLinear(nn.Module):
                      if has_bias else None)
 
     def forward(self, x):
-        out = torch.matmul(x, self.weight)
+        out = quantized_matmul(self, x)
+        if out is None:
+            out = torch.matmul(x, self.weight)
         return out if self.bias is None else out + self.bias
 
 

@@ -8,8 +8,12 @@ PyTorch runs eagerly, so the loop is a Python loop and the buffers are
 written in place. Greedy decoding matches the JAX package token for
 token. Seeded sampling draws from a ``torch.Generator``, so it matches
 the JAX package in distribution only (the serving engine samples
-host-side with numpy and matches it exactly). ``quantize_for_decode``
-is not ported yet.
+host-side with numpy and matches it exactly).
+
+``quantize_for_decode`` converts a model in place to weight-only int8
+serving: the same int8 bytes and scales as the JAX package's function,
+and forwards through kernel K10 (``ops/hopper/int8_matmul.py``) on the
+card.
 
 ``cached_attention`` is the model-facing attention for both cache
 kinds: a ``PagedLayerCache`` (anything with ``block_tables``) routes to
@@ -21,8 +25,52 @@ behind it in the JAX package either.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 NEG_INF = -1e30
+
+
+def quantize_for_decode(model):
+    """Convert ``model`` IN PLACE to weight-only int8 serving form, as
+    the JAX package's ``quantize_for_decode`` does: every
+    ``ColumnParallelLinear``/``RowParallelLinear`` weight and an untied
+    ``LlamaLMHead`` weight becomes per-output-channel symmetric int8
+    (``s = absmax / 127`` over the input axis, 1.0 where the column is
+    all zero; ``q = clip(round_half_even(w / s), -127, 127)``, in f32),
+    a parameter with ``requires_grad=False``, with an f32
+    ``weight_scale`` buffer ``[1, out]``. Their forwards then compute
+    ``(x @ q) * s`` (kernel K10 on the card). A tied head (it aliases the
+    embedding, which the lookup reads at full precision) and weights that
+    are not 2-D or already int8 are left as they are. The result serves
+    only; ``model.eval()`` is called. Linear weight memory halves against
+    bf16 and quarters against f32. Returns the model."""
+    from ..distributed.fleet.mpu import ColumnParallelLinear, RowParallelLinear
+    from .llama import LlamaLMHead
+
+    for layer in model.modules():
+        if isinstance(layer, LlamaLMHead):
+            if layer._tied:
+                continue
+        elif not isinstance(layer, (ColumnParallelLinear, RowParallelLinear)):
+            continue
+        w = layer.weight
+        if w.dim() != 2 or not w.is_floating_point():
+            continue
+        with torch.no_grad():
+            wf = w.detach().float()
+            absmax = wf.abs().amax(dim=0, keepdim=True)
+            # a tensor divisor: CUDA divides by a Python scalar through its
+            # reciprocal, which rounds apart from the JAX package's (and
+            # the CPU's) true division
+            s = torch.where(absmax > 0,
+                            absmax / torch.full_like(absmax, 127.0),
+                            torch.ones_like(absmax))
+            q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+            del wf
+        layer.weight = nn.Parameter(q, requires_grad=False)
+        layer.register_buffer("weight_scale", s)
+    model.eval()
+    return model
 
 
 def cached_attention(q, k, v, kv_cache, position_offset, *, kv_heads,

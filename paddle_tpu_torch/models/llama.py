@@ -11,8 +11,13 @@ passes ``attn_mask``, as in the JAX package. Parameter names and
 Paddle's ``[in, out]`` linear layout follow the JAX package, so its
 state dict loads by name (``paddle_tpu_torch/convert.py``).
 
-``recompute=True`` (activation checkpointing per decoder layer) is not
-ported yet and raises in the cache-less forward.
+``config.recompute`` checkpoints each decoder layer in the cache-less
+forward (``distributed/fleet/recompute.py``) under
+``recompute_granularity`` ``full``, ``core_attn`` or ``full_attn``, as
+the JAX package does; cached decoding never recomputes. After
+``models.generation.quantize_for_decode`` the linears and an untied LM
+head run the weight-only int8 product (kernel K10 on the card); the
+fused head loss reads the head's weight as it is.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 from torch import nn
 
 from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
-                                     VocabParallelEmbedding)
+                                     VocabParallelEmbedding, quantized_matmul)
+from ..distributed.fleet.recompute import recompute
 from ..framework.device import resolve_device, resolve_dtype
 from ..nn import functional as F
 
@@ -202,6 +208,7 @@ class LlamaMLP(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, rope, *, device, dtype):
         super().__init__()
+        self.config = config
         self.input_layernorm = LlamaRMSNorm(config, device=device,
                                             dtype=dtype)
         self.self_attn = LlamaAttention(config, rope, device=device,
@@ -211,16 +218,23 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, device=device, dtype=dtype)
 
     def decode(self, x, kv_cache, position_offset):
-        """Cache-aware step: attention writes this chunk's K/V."""
+        """Cache-aware step (no recompute: decoding has no backward):
+        attention writes this chunk's K/V."""
         h, new_cache = self.self_attn(self.input_layernorm(x),
                                       position_offset=position_offset,
                                       kv_cache=kv_cache)
         x = x + h
         return x + self.mlp(self.post_attention_layernorm(x)), new_cache
 
-    def forward(self, x, attn_mask=None):
+    def _body(self, x, attn_mask=None):
         x = x + self.self_attn(self.input_layernorm(x), attn_mask=attn_mask)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward(self, x, attn_mask=None):
+        if self.config.recompute:
+            return recompute(self._body, x, attn_mask,
+                             policy=self.config.recompute_granularity)
+        return self._body(x, attn_mask)
 
 
 class LlamaModel(nn.Module):
@@ -252,10 +266,6 @@ class LlamaModel(nn.Module):
                 x, nc = layer.decode(x, cache, position_offset)
                 new_caches.append(nc)
             return self.norm(x), new_caches
-        if self.config.recompute:
-            raise NotImplementedError(
-                "recompute (activation checkpointing per decoder layer) is "
-                "not ported yet")
         for layer in self.layers:
             x = layer(x, attn_mask=attn_mask)
         return self.norm(x)
@@ -271,6 +281,9 @@ class LlamaLMHead(nn.Module):
                         device=device, dtype=dtype)))
 
     def forward(self, x):
+        out = quantized_matmul(self, x)   # weight-only int8 serving
+        if out is not None:
+            return out
         return torch.matmul(x, self.weight.t() if self._tied else self.weight)
 
 

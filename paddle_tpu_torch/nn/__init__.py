@@ -1,9 +1,14 @@
 """Neural-network functions and layers of the port."""
 
 from . import functional, layer
-from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, CrossEntropyLoss,
-                    Linear, MaxPool2D, ReLU, Sequential)
+from .layer import (AdaptiveAvgPool2D, BCELoss, BCEWithLogitsLoss, BatchNorm2D,
+                    Conv2D, CosineEmbeddingLoss, CrossEntropyLoss,
+                    HingeEmbeddingLoss, KLDivLoss, L1Loss, Linear, MSELoss,
+                    MarginRankingLoss, MaxPool2D, NLLLoss, ReLU, Sequential,
+                    SmoothL1Loss, TripletMarginLoss)
 
-__all__ = ["AdaptiveAvgPool2D", "BatchNorm2D", "Conv2D", "CrossEntropyLoss",
-           "Linear", "MaxPool2D", "ReLU", "Sequential", "functional",
-           "layer"]
+__all__ = ["AdaptiveAvgPool2D", "BCELoss", "BCEWithLogitsLoss", "BatchNorm2D",
+           "Conv2D", "CosineEmbeddingLoss", "CrossEntropyLoss",
+           "HingeEmbeddingLoss", "KLDivLoss", "L1Loss", "Linear", "MSELoss",
+           "MarginRankingLoss", "MaxPool2D", "NLLLoss", "ReLU", "Sequential",
+           "SmoothL1Loss", "TripletMarginLoss", "functional", "layer"]

@@ -1,4 +1,5 @@
-"""Loss layers (port of ``nn/layer/loss.py``: ``CrossEntropyLoss``)."""
+"""Loss layers (port of ``nn/layer/loss.py``): the twelve layers of the
+JAX module, each over its function in ``nn.functional``."""
 
 from __future__ import annotations
 
@@ -8,9 +9,6 @@ from .. import functional as F
 
 
 class CrossEntropyLoss(nn.Module):
-    """Takes what ``nn.functional.cross_entropy`` takes; the other
-    options raise there."""
-
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -22,3 +20,113 @@ class CrossEntropyLoss(nn.Module):
 
     def forward(self, input, label):
         return F.cross_entropy(input, label, **self._kw)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self._reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self._reduction)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self._reduction, self._delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self._reduction, self._delta)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self._weight, self._ignore_index = weight, ignore_index
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, self._weight, self._ignore_index,
+                          self._reduction)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self._weight, self._reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self._weight,
+                                      self._reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self._weight, self._reduction = weight, reduction
+        self._pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self._weight, self._reduction, self._pos_weight)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self._reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin, self._reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self._margin,
+                                     self._reduction)
+
+
+class HingeEmbeddingLoss(nn.Module):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin, self._reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self._margin,
+                                      self._reduction)
+
+
+class CosineEmbeddingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin, self._reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self._margin,
+                                       self._reduction)
+
+
+class TripletMarginLoss(nn.Module):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self._args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, *self._args)

@@ -21,6 +21,12 @@
   ``csrc/bn_stats.cu``), replacing
   ``paddle_tpu/ops/pallas/bn_stats.py``, with the autograd Function
   whose backward is plain PyTorch.
+- ``int8_matmul``: K10, the weight-only int8 matmul of
+  ``quantize_for_decode`` (CUDA C++, sm_90a, ``csrc/int8_matmul.cu``).
+  It replaces no Pallas kernel: XLA fuses the JAX package's
+  ``(x @ convert(q)) * s`` (``paddle_tpu/distributed/fleet/mpu.py``
+  ``_int8_matmul``), which PyTorch would run as a dense bf16 copy of
+  every weight.
 
 Each module holds the kernel's wrapper with its launch counter
 (``<wrapper>.launches``) and the plain PyTorch version of the same

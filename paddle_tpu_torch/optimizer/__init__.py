@@ -1,6 +1,11 @@
-"""Optimizers of the port (the subset Llama and ResNet training use)."""
+"""Optimizers of the port (port of ``optimizer/``): the optimizer base,
+eleven optimizers and the learning-rate schedulers (``optimizer.lr``).
+``LBFGS`` is not ported yet."""
 
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW, Momentum
+from .optimizers import (ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, RMSProp, Rprop)
 
-__all__ = ["Adam", "AdamW", "Momentum", "Optimizer"]
+__all__ = ["ASGD", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW",
+           "Lamb", "Momentum", "Optimizer", "RMSProp", "Rprop", "lr"]

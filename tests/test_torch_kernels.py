@@ -552,3 +552,72 @@ def test_rms_norm_on_card_has_gradient_equal_to_plain_autograd(cuda):
         tol = 2 * 2.0 ** -8 * float(ref_.float().abs().max())
         torch.testing.assert_close(got.float(), ref_.float(), atol=tol,
                                    rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 512], ids=["decode", "prefill"])
+def test_int8_matmul_kernel_matches_plain(cuda, rows):
+    """Kernel K10 at Llama-2-7B's gate/up shape (4096 -> 11008), a decode
+    step of 8 slots and a 512-token prefill chunk, bf16: equal to the
+    plain version within two bf16 ulps of the largest output (both sides
+    round the f32 sum and the scaled product), and equal bits twice."""
+    from paddle_tpu_torch.ops.hopper import int8_matmul as hop_i8
+
+    before = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(rows)
+        q = torch.randint(-127, 128, (4096, 11008), device=cuda,
+                          generator=gen, dtype=torch.int8)
+        s = (0.02 + 0.01 * torch.rand(1, 11008, device=cuda,
+                                      generator=gen)) / 127
+        x = torch.randn(rows, 4096, device=cuda,
+                        generator=gen).to(torch.bfloat16)
+        got = hop_i8.int8_matmul_cuda(x, q, s)
+        again = hop_i8.int8_matmul_cuda(x, q, s)
+        want = hop_i8.int8_matmul_plain(x, q, s)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            before
+    tol = 2.0 ** -6 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_recompute_step_on_card_equals_plain_step(cuda):
+    """A Llama training step (flash kernels, K6) with ``recompute`` under
+    each granularity gives the loss and gradients of the step without it:
+    f32 with TF32 off, to 1e-5 of each gradient's largest element (the
+    recomputation reruns the same kernels on the same inputs)."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, llama_loss_fn
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        ids = torch.randint(0, 128, (2, 129), device=cuda, generator=gen)
+        ids, labels = ids[:, :-1], ids[:, 1:]
+
+        def run(**kw):
+            cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                                   intermediate_size=512,
+                                   max_position_embeddings=256, **kw)
+            model = LlamaForCausalLM(cfg, device=cuda, seed=6)
+            loss = llama_loss_fn(model, ids, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.detach(), {n: p.grad for n, p in
+                                   model.named_parameters()}
+
+        want_loss, want = run()
+        for gran in ("full", "core_attn", "full_attn"):
+            loss, grads = run(recompute=True, recompute_granularity=gran)
+            assert torch.equal(loss, want_loss), gran
+            for n, g in grads.items():
+                tol = 1e-5 * float(want[n].abs().max())
+                torch.testing.assert_close(g, want[n], atol=tol, rtol=0,
+                                           msg=f"{gran} {n}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

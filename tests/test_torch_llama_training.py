@@ -274,12 +274,39 @@ def test_adamw_apply_decay_param_fun_on_structured_names(name, want):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: AdamW(learning_rate=object()),
-    lambda: AdamW(lr_ratio=lambda p: 1.0),
+    lambda opt, lr: opt.AdamW(learning_rate=lr.CosineAnnealingDecay(
+        1e-2, T_max=4)),
+    lambda opt, lr: opt.AdamW(learning_rate=1e-2, lr_ratio=lambda p: 0.5),
 ], ids=["lr_scheduler", "lr_ratio"])
 def test_optimizer_options_not_ported_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+    """Both options were refused until slice 17 ported them. A scheduler
+    as the learning rate: ``get_lr()`` reads it as the JAX package's
+    does. ``lr_ratio``: accepted and ignored, as the JAX package does
+    (ROADMAP queue 3, F4). Two updates under the option equal the JAX
+    package's to 1e-6; a rate that is neither a number nor a scheduler
+    raises."""
+    from paddle_tpu.optimizer import lr as jlr
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.optimizer import lr as tlr
+
+    jo, to = make(jopt, jlr), make(topt, tlr)
+    rng = np.random.RandomState(7)
+    w = rng.randn(4, 6).astype(np.float32)
+    jw, tw = jnp.asarray(w), torch.from_numpy(w.copy())
+    js, ts = jo._init_slots(jw), to._init_slots(tw)
+    for step in (1, 2):
+        g = rng.randn(4, 6).astype(np.float32)
+        assert to.get_lr() == jo.get_lr()
+        jw, js = jo._update(jw, jnp.asarray(g), js, jo.get_lr(), step)
+        to._update(tw, torch.from_numpy(g), ts, to.get_lr(), step)
+        if to._is_scheduler:
+            to._learning_rate.step()
+            jo._learning_rate.step()
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-6,
+                               rtol=1e-6)
+    with pytest.raises(TypeError):
+        AdamW(learning_rate=object())
 
 
 @pytest.mark.parametrize("norm", [0.5, 1e3, float("nan")],
@@ -380,19 +407,38 @@ def test_cross_entropy_and_grad_match_jax(case):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(weight=torch.ones(11)), dict(soft_label=True),
-    dict(use_softmax=False), dict(label_smoothing=0.1),
-    dict(reduction="sum"), dict(axis=0),
+    dict(weight=np.linspace(0.5, 1.5, 11, dtype=np.float32)),
+    dict(soft_label=True), dict(use_softmax=False),
+    dict(label_smoothing=0.1), dict(reduction="sum"), dict(axis=0),
 ], ids=["weight", "soft_label", "no_softmax", "label_smoothing",
         "reduction_sum", "axis_0"])
 def test_cross_entropy_options_not_ported_raise(kw):
-    """What Llama training does not use is refused, not approximated."""
+    """The options that Llama training does not use were refused until
+    slice 17 ported them; each now equals the JAX package's
+    ``cross_entropy`` on the same inputs (f32, 1e-6)."""
+    from paddle_tpu.nn import functional as jF
+
     from paddle_tpu_torch.nn import functional as tF
 
-    with pytest.raises(NotImplementedError):
-        tF.cross_entropy(torch.zeros(2, 3, 11), torch.zeros(2, 3,
-                                                             dtype=torch.long),
-                         **kw)
+    rng = np.random.RandomState(11)
+    logits = rng.rand(2, 3, 11).astype(np.float32) + 0.1
+    if kw.get("soft_label"):
+        labels = rng.rand(2, 3, 11).astype(np.float32)
+        labels /= labels.sum(-1, keepdims=True)
+    elif kw.get("axis") == 0:
+        labels = rng.randint(0, 2, (1, 3, 11))
+    else:
+        labels = rng.randint(0, 11, (2, 3))
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    jkw = {k: pt.to_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    got = tF.cross_entropy(torch.from_numpy(logits),
+                           torch.from_numpy(labels), **tkw)
+    want = jF.cross_entropy(pt.to_tensor(logits), pt.to_tensor(labels),
+                            **jkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               atol=1e-6, rtol=1e-6)
 
 
 def test_accumulate_then_step_equals_one_step_on_both_batches():
@@ -418,13 +464,14 @@ def test_accumulate_then_step_equals_one_step_on_both_batches():
 
 def test_mask_and_recompute_routes():
     """An ``attn_mask`` takes the plain composition with an additive
-    bias (a full mask equals no mask); ``recompute`` is not ported yet
-    and raises."""
+    bias (a full mask equals no mask); ``recompute`` (ported in slice 17)
+    checkpoints each layer and gives the same logits, with a mask too."""
     tm = LlamaForCausalLM(LlamaConfig.tiny(**GEOM), device="cpu")
     ids = torch.from_numpy(_batch(0, 16)[0])
+    mask = torch.ones(2, 16, dtype=torch.bool)
     with torch.no_grad():
-        torch.testing.assert_close(
-            tm(ids, attn_mask=torch.ones(2, 16, dtype=torch.bool)), tm(ids))
+        want = tm(ids)
+        torch.testing.assert_close(tm(ids, attn_mask=mask), want)
     tm.config.recompute = True
-    with pytest.raises(NotImplementedError, match="recompute"):
-        tm(ids)
+    assert torch.equal(tm(ids), want)
+    torch.testing.assert_close(tm(ids, attn_mask=mask), want)
