@@ -50,7 +50,10 @@ K6 built, phase 6's fleet checks, then phase 7g.
 ``python3 chip_smoke.py --int8`` is the quick loop for K10 (the
 weight-only int8 matmul): its build's ptxas report, every case of phase
 5b against the plain version (two calls bitwise equal) and its timings,
-then K5 and K6 built, phase 6's int8 gate and phase 7h.
+the wrapper's host microseconds by part and every split of K the C call
+takes at phase 5b's shapes, then K5 and K6
+built, phase 6's int8 gate and phase 7h; ``--int8-kernel`` stops after
+the kernel loop. Both take ``--root DIR`` (another checkout's port).
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -85,11 +88,13 @@ the run with a non-zero exit code and no result line:
 5b. K10 (weight-only int8 matmul, CUDA) against its plain version at
    Llama-2-7B's linear shapes (4096 -> 4096, 4096 -> 11008, 11008 ->
    4096, 4096 -> 32000) with 1, 8, 64, 128 and 512 rows, in bf16 and
-   f32, and at ragged rows (37, 300, and 45 in f32); two calls bitwise
-   equal; an N that is not a multiple of 16 raises. The bf16 cases timed
-   by CUDA events and by CUDA-graph replay beside ``torch.matmul`` on
-   the same weight in bf16 (the product quantization replaces), the
-   plain version and the bound.
+   f32, and at ragged rows (37, 300, and 45 in f32) and the row tiles'
+   edges 16, 17 and 129 at 4096 -> 11008; two calls bitwise equal; an N
+   that is not a multiple of 16 raises. The bf16 cases timed by CUDA
+   events and by CUDA-graph replay beside ``torch.matmul`` on the same
+   weight in bf16 (the product quantization replaces), the plain
+   version and the bound, with the wrapper's host microseconds a call
+   (and by part at the decode shape).
 6. Serving parity at Llama-2-7B width, 2 layers, f32: engine greedy
    tokens (kernels) equal dense ``generate`` tokens, with the default
    engine (prefix cache on); a shared-prefix set (4 prompts on one
@@ -253,6 +258,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 
@@ -431,7 +437,7 @@ def phase_build():
         for line in nvcc_log.splitlines():
             if "Compiling entry" in line:
                 log(f"[build] ptxas: {line.split(chr(39))[1]}")
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "C75")):
                 log(f"[build] ptxas: {line.strip()}")
     log(f"[build] seconds={t_all}")
 
@@ -1103,10 +1109,15 @@ INT8_SHAPES = (("4096x4096", 4096, 4096), ("4096x11008", 4096, 11008),
 # rows: a decode step of 1 and of 8 slots, 8 slots x 8 verify rows, a
 # 128-token prefill chunk, a 512-token chunk
 INT8_ROWS = (1, 8, 64, 128, 512)
-# ragged rows beside them (shape name, rows, dtype)
+# ragged rows beside them (shape name, rows, dtype), and the row tiles'
+# edges at gate/up: 16 (the last 16-row tile), 17 (a 32-row tile of 17),
+# 129 (a 128-row tile and one of 1 row)
 INT8_RAGGED = (("4096x11008", 37, torch.bfloat16),
                ("11008x4096", 300, torch.bfloat16),
-               ("4096x4096", 45, torch.float32))
+               ("4096x4096", 45, torch.float32),
+               ("4096x11008", 16, torch.bfloat16),
+               ("4096x11008", 17, torch.bfloat16),
+               ("4096x11008", 129, torch.bfloat16))
 # the main path's shape: a decode step of 8 slots through gate/up
 INT8_MAIN = "4096x11008_m8_bfloat16"
 # K10 against its plain version. bf16: both sides sum in f32 (in other
@@ -1189,7 +1200,7 @@ def _k10_cases(failures):
         elif failure:
             failures.append(failure)
         results[name] = dict(x=x, q=q, s=s, max_err=err,
-                             timed=dt == torch.bfloat16 and m in INT8_ROWS)
+                             timed=dt == torch.bfloat16)
     q, s = k10_inputs(gen, 4096, 4104)
     try:
         int8_matmul_cuda(torch.randn(8, 4096, device="cuda",
@@ -1243,23 +1254,126 @@ def time_k10(results):
     return times
 
 
-def k10_only():
-    """``--int8``: build K10 alone (ptxas registers, spills, shared
-    memory), check it at every case of phase 5b and time it, then build
-    K5 and K6 and run phase 6's int8 gate at Llama-2-7B width (2 layers,
-    f32) and phase 7h on full Llama-2-7B. Every kernel case runs; the
-    failures are reported together at the end. Prints no result line."""
-    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.ops.hopper import (int8_matmul, paged_attention,
-                                             rms_norm)
+def k10_host_parts(results):
+    """Host microseconds of each part of a K10 call at INT8_MAIN (the
+    least of 5 rounds of 100 back-to-back calls, enqueue only): the
+    checks, the output's allocation (and the ``torch.empty`` it
+    replaced), the plan lookup, the stream lookup, the launch count's
+    lock, the library call without a launch (M = 0: ctypes and the
+    argument checks) and with it (the current device, q's cached tensor
+    map, x's map, the launch), the whole wrapper, and ``torch.matmul``
+    on the weight in bf16."""
+    from paddle_tpu_torch.ops.hopper import int8_matmul as hop
+
+    r = results[INT8_MAIN]
+    x, q, s = r["x"], r["q"], r["s"]
+    (m, k), n = x.shape, q.shape[1]
+    dev = x.get_device()
+    out = hop.int8_matmul_cuda(x, q, s)
+    code = hop.int8_matmul_plan(m, n, k, x.dtype, hop._sms(dev))["code"]
+    lib = hop._library()
+    dense = q.to(torch.bfloat16)
+    tally = types.SimpleNamespace(launches=0)
+
+    def call(rows):
+        return lib.int8_matmul_launch(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), rows,
+            n, k, code, dev, torch._C._cuda_getCurrentRawStream(dev))
+
+    parts = {
+        "check": lambda: hop._check(x, q, s),
+        "new_empty": lambda: x.new_empty((m, n)),
+        "torch.empty": lambda: torch.empty((m, n), device=x.device,
+                                           dtype=x.dtype),
+        "plan": lambda: hop.int8_matmul_plan(m, n, k, x.dtype,
+                                             hop._sms(dev))["code"],
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "count_launch": lambda: hop.count_launch(tally),
+        "library_call_no_launch": lambda: call(0),
+        "library_call": lambda: call(m),
+        "wrapper": lambda: hop.int8_matmul_cuda(x, q, s),
+        "torch.matmul": lambda: torch.matmul(x, dense),
+    }
+    us = {name: host_us(fn)[0] for name, fn in parts.items()}
+    log(f"[k10-host] {INT8_MAIN} parts_us_per_call={json.dumps(us)} "
+        f"wrapper_over_matmul={us['wrapper'] / us['torch.matmul']}")
+
+
+def k10_sweep(results):
+    """Each timed case of INT8_ROWS through every split of K the C call
+    takes for its row tile (1, 2, 4 or 8 CTAs): checked against the
+    plain version (equal bits twice), timed by graph replay. The plan's
+    launch is marked."""
+    from paddle_tpu_torch.ops.hopper import int8_matmul as hop
+
+    lib = hop._library()
+    for name, r in results.items():
+        x, q, s = r["x"], r["q"], r["s"]
+        (m, k), n = x.shape, q.shape[1]
+        if not r["timed"] or m not in INT8_ROWS:
+            continue
+        dev = x.get_device()
+        plan = hop.int8_matmul_plan(m, n, k, x.dtype, hop._sms(dev))
+        want = hop.int8_matmul_plain(x, q, s).float()
+        tol = INT8_REL[x.dtype] * float(want.abs().max())
+        for splits in (1, 2, 4, 8):
+            per = -(-plan["stages"] // splits)
+            if -(-plan["stages"] // per) != splits:
+                continue
+            code = hop.plan_code(per, splits, plan["bm"], 1)
+
+            def call(out, _code=code):
+                rc = lib.int8_matmul_launch(
+                    x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                    m, n, k, _code, dev,
+                    torch._C._cuda_getCurrentRawStream(dev))
+                check(rc == 0, f"K10 sweep {name}: CUDA error {rc}")
+                return out
+
+            got, again = call(x.new_empty((m, n))), call(x.new_empty((m, n)))
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            check(err <= tol and torch.equal(got, again),
+                  f"K10 sweep {name} splits={splits}: max_abs_err={err} "
+                  f"tol={tol}")
+            buf = x.new_empty((m, n))
+            log(f"[k10-sweep] {name} bm={plan['bm']} wg={plan['wg']} "
+                f"splits={splits} graph_ms={time_ms_graph(lambda: call(buf))}"
+                f" max_abs_err={err}"
+                + (" (the plan's launch)" if code == plan["code"] else ""))
+
+
+def k10_kernel_loop():
+    """Build K10 alone (ptxas registers, spills, shared memory), check it
+    at every case of phase 5b and time it; where the wrapper has them,
+    the host microseconds by part and every launch the C call takes.
+    Every case runs; the failures are reported together at the end.
+    Works on another checkout's port too (``--root``)."""
+    from paddle_tpu_torch.ops.hopper import int8_matmul
 
     phase_device()
     log(f"[k10] implementation={os.path.dirname(int8_matmul.__file__)}")
     build_log(int8_matmul.build)
     failures = []
-    time_k10(phase_k10(failures))
+    results = phase_k10(failures)
+    time_k10(results)
+    if hasattr(int8_matmul, "plan_code"):
+        k10_host_parts(results)
+        k10_sweep(results)
     log(f"[k10] failures={failures}")
     check(not failures, f"K10: {failures}")
+
+
+def k10_only():
+    """``--int8``: :func:`k10_kernel_loop`, then build K5 and K6 and run
+    phase 6's int8 gate at Llama-2-7B width (2 layers, f32) and phase 7h
+    on full Llama-2-7B. ``--int8-kernel`` stops after the kernel loop.
+    Both work on another checkout's port too (``--root``). Prints no
+    result line."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import paged_attention, rms_norm
+
+    k10_kernel_loop()
     with ThreadPoolExecutor(max_workers=2) as pool:
         list(pool.map(lambda b: b(), (paged_attention.build,
                                       rms_norm.build)))
@@ -4625,7 +4739,8 @@ def build_log(build):
     for line in build().splitlines():
         if "Compiling entry" in line:
             log(f"[build] ptxas: {line.split(chr(39))[1]}")
-        if any(w in line for w in ("registers", "spill", "smem", "arning")):
+        if any(w in line for w in ("registers", "spill", "smem", "arning",
+                                   "C75")):
             log(f"[build] ptxas: {line.strip()}")
     log(f"[build] seconds={time.perf_counter() - t0}")
 
@@ -5019,7 +5134,7 @@ def main() -> int:
     root = HERE
     if argv[:1] in (["--k5"], ["--k8-fwd"], ["--flash-fwd"],
                     ["--flash-bwd"], ["--k7-fwd"], ["--k7-bwd"],
-                    ["--norms"]) \
+                    ["--norms"], ["--int8"], ["--int8-kernel"]) \
             and argv[1:2] == ["--root"] \
             and len(argv) == 3:
         # another checkout's port (an earlier commit's), timed the same way
@@ -5047,6 +5162,9 @@ def main() -> int:
         return fleet_only()
     if argv == ["--int8"]:
         return k10_only()
+    if argv == ["--int8-kernel"]:
+        k10_kernel_loop()
+        return 0
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
@@ -5059,6 +5177,7 @@ def main() -> int:
     flash_times = time_flash(flash)
     k10 = phase_k10()
     k10_times = time_k10(k10)
+    k10_host_parts(k10)
     phase_parity()
     runs = phase_serving(card)
     k5_launches = sum(r["k5"] for r in runs.values())

@@ -16,8 +16,22 @@ The kernel is CUDA C++ for ``sm_90a``
 (``paddle_tpu_torch/csrc/int8_matmul.cu``, whose header note gives the
 design), built with ``nvcc`` on first use and called through ``ctypes``.
 It takes bf16 activations (serving) and f32 ones (the f32 parity
-checks). What bounds it on an H100 is HBM bytes:
-decode reads every weight once.
+checks). What bounds it on an H100: at decode (up to 16 rows) the int8
+bytes of the weight, which every call reads once; at a 512-row prefill
+chunk the operations, and the loads of x from L2 that feed them. One
+body serves every row count in bf16: the product runs as
+``out^T = q^T x^T`` on ``wgmma``, the weight tile converted in registers
+as its A operand and x from shared memory as its B (TMA, mbarriers, a
+producer warp or warpgroup), so the token rows are ``wgmma``'s N (8 to
+128 a tile). Where the tiles do not fill the card, K is split over the
+CTAs of a thread-block cluster, which add their partial sums through
+shared memory in split order: one launch a call, no workspace, equal
+bits on every call. :func:`int8_matmul_plan` gives the launch (row tile,
+warpgroups, split; the rule was chosen by timing every split on the card,
+``chip_smoke.py --int8-kernel``) and packs it into the one ``int`` the C
+call takes. The tensor map of each weight is kept by the C side, so a
+call encodes only x's; a call costs about as much host time as
+``torch.matmul``'s.
 
 :func:`int8_matmul_plain` is the plain PyTorch version, for CPU tensors
 and for the comparison on the card; :func:`int8_matmul_cuda` launches the
@@ -35,9 +49,13 @@ from ._build import build_library, count_launch
 
 SOURCES = ["int8_matmul.cu"]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# tiles of the two bodies (csrc/int8_matmul.cu): bf16 BN x BK with BM = 16
-# or 64 rows, f32 64 x 64 outputs over 16-row K stages
-BF16_BN, BF16_BK = 128, 64
+# tiles of the two bodies (csrc/int8_matmul.cu). bf16: BM token rows
+# (wgmma's N, the least of ROW_TILES that holds the rows, else the last),
+# 128 weight columns a consumer warpgroup (1 a CTA below 64 rows, else 2),
+# 64 of K a stage, K split over at most 8 CTAs of a cluster into at least
+# 4 stages each. f32: 64 x 64 outputs over 16-row K stages, no split.
+ROW_TILES = (8, 16, 32, 64, 128)
+BF16_COLS, BF16_BK, MAX_SPLITS, MIN_STAGES = 128, 64, 8, 4
 F32_BM, F32_BN, F32_BK = 64, 64, 16
 H100_SMS = 132
 
@@ -49,29 +67,49 @@ def int8_matmul_plain(x, q, s):
     return (x @ q.to(x.dtype)) * s.to(x.dtype)
 
 
+def plan_code(per, splits, bm, dtype_code):
+    """The launch as the C call's one ``plan`` int: bits 0-11 ``per``,
+    12-15 ``splits``, 16-23 ``bm``, 28 the dtype code."""
+    return per | splits << 12 | bm << 16 | dtype_code << 28
+
+
 @functools.lru_cache(maxsize=4096)
 def int8_matmul_plan(m, n, k, dtype, sms=H100_SMS):
     """The launch of :func:`int8_matmul_cuda` for ``x [m, k]`` of
-    ``dtype`` and ``q [k, n]``: the bf16 body's row tiles of 16 (``mi``:
-    1 up to 16 rows, else 4), the tile sizes, and the split of K over
-    ``splits`` CTAs of ``per`` K stages each. K is split only where the
-    output tiles do not fill the card's ``sms`` SMs, into at most two
-    CTAs an SM and at least 4 stages a split. Cached: the wrapper asks
-    once a shape (callers do not change the returned dict)."""
-    if dtype == torch.bfloat16:
-        mi = 1 if m <= 16 else 4
-        bm, bn, bk = 16 * mi, BF16_BN, BF16_BK
-    else:
-        mi, bm, bn, bk = 1, F32_BM, F32_BN, F32_BK
-    tiles = math.ceil(n / bn) * math.ceil(m / bm)
-    stages = math.ceil(k / bk)
+    ``dtype`` and ``q [k, n]``. bf16: the row tile ``bm``, ``wg``
+    consumer warpgroups of 128 columns a CTA, the ``tiles`` of ``bm`` x
+    ``bn`` outputs, and the split of K into ``splits`` CTAs (a cluster)
+    of ``per`` stages of 64, each at least 4 (csrc/int8_matmul.cu
+    ``Cfg``). Decode tiles (``bm`` < 64) take 1 warpgroup and 3 CTAs an
+    SM, and the split doubles while the CTAs fit on the card at once, up
+    to 8. Prefill tiles take 2 warpgroups (each stage of x then serves
+    256 columns) and 1 CTA an SM, and the split doubles while the CTAs
+    fit in one wave, up to 4: a cluster of 8 such CTAs needs 8 free SMs
+    of one GPC. f32: 64 x 64 tiles and no
+    split. ``code`` packs it for the C call (:func:`plan_code`). Cached:
+    the wrapper asks once a shape (callers do not change the returned
+    dict)."""
+    if dtype != torch.bfloat16:
+        stages = math.ceil(k / F32_BK)
+        return dict(body="f32", bm=F32_BM, bn=F32_BN, bk=F32_BK, wg=0,
+                    tiles=math.ceil(n / F32_BN) * math.ceil(m / F32_BM),
+                    stages=stages, splits=1, per=stages,
+                    code=plan_code(0, 1, 0, _DTYPE_CODES[torch.float32]))
+    bm = next((b for b in ROW_TILES if m <= b), ROW_TILES[-1])
+    wg, ctas, most = (1, 3, MAX_SPLITS) if bm < 64 else (2, 1, MAX_SPLITS // 2)
+    bn = wg * BF16_COLS
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    slots = sms * ctas
+    stages = math.ceil(k / BF16_BK)
     splits = 1
-    if tiles < sms:
-        splits = max(1, min(math.ceil(2 * sms / tiles), stages // 4))
+    while (2 * splits <= most and 2 * splits * tiles <= slots
+           and stages >= 2 * splits * MIN_STAGES):
+        splits *= 2
     per = math.ceil(stages / splits)
     splits = math.ceil(stages / per)
-    return dict(mi=mi, bm=bm, bn=bn, bk=bk, tiles=tiles, splits=splits,
-                per=per)
+    return dict(body="wgmma", bm=bm, bn=bn, bk=BF16_BK, wg=wg, tiles=tiles,
+                stages=stages, splits=splits, per=per,
+                code=plan_code(per, splits, bm, _DTYPE_CODES[torch.bfloat16]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,7 +117,7 @@ def _library():
     path, _ = build_library("int8_matmul", SOURCES)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matmul_launch.argtypes = [p] * 5 + [i] * 8 + [p]
+    lib.int8_matmul_launch.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.int8_matmul_launch.restype = i
     return lib
 
@@ -98,10 +136,9 @@ def _sms(index):
 
 
 def _check(x, q, s):
-    """(x as a contiguous [M, K], N, dtype code, device index) of inputs
-    the kernel takes; raises ``ValueError`` on any other."""
-    code = _DTYPE_CODES.get(x.dtype)
-    if code is None:
+    """(x contiguous, K, N, device index) of inputs the kernel takes;
+    raises ``ValueError`` on any other."""
+    if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x dtype {x.dtype}: the kernel takes float32 or "
                          f"bfloat16 activations")
     if q.dtype != torch.int8 or q.dim() != 2:
@@ -121,11 +158,11 @@ def _check(x, q, s):
     dev = x.get_device()
     if dev < 0 or q.get_device() != dev or s.get_device() != dev:
         raise ValueError("x, q and s must lie on one CUDA device")
-    x2 = x.reshape(-1, k).contiguous()
-    for t in (x2, q, s):
-        if t.data_ptr() % 16:
-            raise ValueError("every operand must start 16-byte aligned")
-    return x2, n, code, dev
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if (x.data_ptr() | q.data_ptr() | s.data_ptr()) % 16:
+        raise ValueError("every operand must start 16-byte aligned")
+    return x, k, n, dev
 
 
 def int8_matmul_cuda(x, q, s):
@@ -134,24 +171,20 @@ def int8_matmul_cuda(x, q, s):
     ``N % 16 == 0`` and ``K % 8 == 0``. Returns ``[..., N]`` in x's
     dtype. Raises ``ValueError`` on inputs the kernel does not take and
     ``RuntimeError`` when the launch fails."""
-    x2, n, code, dev = _check(x, q, s)
-    m, k = x2.shape
-    out = torch.empty((m, n), device=x2.device, dtype=x2.dtype)
+    x, k, n, dev = _check(x, q, s)
+    out = x.new_empty((*x.shape[:-1], n))
+    m = x.numel() // k
     if m == 0:
-        return out.reshape(*x.shape[:-1], n)
-    plan = int8_matmul_plan(m, n, k, x2.dtype, _sms(dev))
-    ws = (torch.empty((plan["splits"], m, n), device=x2.device,
-                      dtype=torch.float32) if plan["splits"] > 1 else None)
+        return out
     rc = _library().int8_matmul_launch(
-        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), m, n, k, code, plan["mi"],
-        plan["splits"], plan["per"], dev,
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
+        int8_matmul_plan(m, n, k, x.dtype, _sms(dev))["code"], dev,
         torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     count_launch(int8_matmul_cuda)
-    return out.reshape(*x.shape[:-1], n)
+    return out
 
 
 int8_matmul_cuda.launches = 0

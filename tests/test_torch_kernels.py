@@ -555,12 +555,15 @@ def test_rms_norm_on_card_has_gradient_equal_to_plain_autograd(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("rows", [8, 512, 16, 17, 128, 129, 45],
+                         ids=["decode", "prefill", "edge16", "edge17",
+                              "edge128", "edge129", "ragged45"])
 def test_int8_matmul_kernel_matches_plain(cuda, rows):
     """Kernel K10 at Llama-2-7B's gate/up shape (4096 -> 11008), a decode
-    step of 8 slots and a 512-token prefill chunk, bf16: equal to the
-    plain version within two bf16 ulps of the largest output (both sides
-    round the f32 sum and the scaled product), and equal bits twice."""
+    step of 8 slots, a 512-token prefill chunk, the row tiles' edges (16,
+    17, 128, 129) and a ragged count, bf16: equal to the plain version
+    within two bf16 ulps of the largest output (both sides round the f32
+    sum and the scaled product), and equal bits twice."""
     from paddle_tpu_torch.ops.hopper import int8_matmul as hop_i8
 
     before = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction

@@ -41,7 +41,8 @@ from paddle_tpu_torch import (LlamaConfig, LlamaForCausalLM,  # noqa: E402
                               ServingEngine, load_reference_state,
                               quantize_for_decode)
 from paddle_tpu_torch.ops.hopper.int8_matmul import (  # noqa: E402
-    int8_matmul, int8_matmul_cuda, int8_matmul_plain, int8_matmul_plan)
+    BF16_COLS, MAX_SPLITS, MIN_STAGES, ROW_TILES, int8_matmul,
+    int8_matmul_cuda, int8_matmul_plain, int8_matmul_plan, plan_code)
 from torch_threads import one_torch_thread  # noqa: E402, F401
 
 GEOM = dict(num_hidden_layers=2, num_key_value_heads=2,
@@ -179,23 +180,71 @@ def test_int8_matmul_kernel_refuses_what_it_does_not_take(case):
 
 
 @pytest.mark.parametrize("m,n,k,dtype,want", [
-    # decode: the output tiles fill a quarter of the card, K splits 8 ways
-    (1, 4096, 4096, torch.bfloat16, dict(mi=1, splits=8, per=8)),
-    (8, 11008, 4096, torch.bfloat16, dict(mi=1, splits=4, per=16)),
-    (8, 4096, 11008, torch.bfloat16, dict(mi=1, splits=9, per=20)),
-    # a prefill chunk of 512 rows fills the card without a split
-    (512, 4096, 4096, torch.bfloat16, dict(mi=4, splits=1, per=64)),
-    (1, 4096, 4096, torch.float32, dict(mi=1, splits=5, per=52)),
-    (512, 4096, 4096, torch.float32, dict(mi=1, splits=1, per=256)),
+    # decode: 8-row tiles of 128 columns, 3 CTAs an SM, fill a twelfth of
+    # the card, so K splits 8 ways (a cluster of 8 CTAs)
+    (1, 4096, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=8, wg=1, tiles=32, splits=8, per=8)),
+    (8, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=8, wg=1, tiles=86, splits=4, per=16)),
+    (8, 4096, 11008, torch.bfloat16,
+     dict(body="wgmma", bm=8, wg=1, tiles=32, splits=8, per=22)),
+    # a 512-row chunk: four 128-row tiles of 256 columns, K split in two
+    (512, 4096, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=128, wg=2, tiles=64, splits=2, per=32)),
+    (1, 4096, 4096, torch.float32,
+     dict(body="f32", splits=1, per=256)),
+    (512, 4096, 4096, torch.float32,
+     dict(body="f32", splits=1, per=256)),
+    # the row tiles' edges at gate/up: one body for every row count
+    (16, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=16, wg=1, tiles=86, splits=4, per=16)),
+    (17, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=32, wg=1, tiles=86, splits=4, per=16)),
+    (128, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=128, wg=2, tiles=43, splits=2, per=32)),
+    (129, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=128, wg=2, tiles=86, splits=1, per=64)),
+    # prefill splits at most 4 ways, and only while one wave holds them
+    (512, 11008, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=128, wg=2, tiles=172, splits=1, per=64)),
+    (512, 32000, 4096, torch.bfloat16,
+     dict(body="wgmma", bm=128, wg=2, tiles=500, splits=1, per=64)),
 ])
 def test_int8_matmul_plan(m, n, k, dtype, want):
-    """The launch plan: the row tiles and the split of K, every split
+    """The launch plan: the body and row tile per row count, the tiles,
+    and the split of K, at most 8 ways (a cluster), every split
     non-empty and together covering K once."""
     plan = int8_matmul_plan(m, n, k, dtype)
     assert {key: plan[key] for key in want} == want
     stages = -(-k // plan["bk"])
+    assert plan["stages"] == stages
     assert (plan["splits"] - 1) * plan["per"] < stages \
         <= plan["splits"] * plan["per"]
+    assert 1 <= plan["splits"] <= MAX_SPLITS
+    assert plan["tiles"] == -(-m // plan["bm"]) * -(-n // plan["bn"])
+    if plan["body"] == "wgmma":
+        assert plan["bm"] >= min(m, ROW_TILES[-1])
+        assert plan["wg"] == (2 if plan["bm"] >= 64 else 1)
+        assert plan["bn"] == BF16_COLS * plan["wg"]
+        assert stages >= plan["splits"] * MIN_STAGES or plan["splits"] == 1
+
+
+def test_int8_matmul_plan_code():
+    """The plan's one ``int`` for the C call carries each field at the
+    bits the C side reads (per 0-11, splits 12-15, bm 16-23, dtype 28),
+    and distinct launches get distinct codes."""
+    codes = set()
+    for m, n, k in ((1, 4096, 4096), (8, 11008, 4096), (8, 4096, 11008),
+                    (17, 11008, 4096), (512, 32000, 4096)):
+        plan = int8_matmul_plan(m, n, k, torch.bfloat16)
+        code = plan["code"]
+        assert (code & 0xFFF, code >> 12 & 0xF, code >> 16 & 0xFF,
+                code >> 28) == (plan["per"], plan["splits"], plan["bm"], 1)
+        codes.add(code)
+    assert len(codes) == 5
+    assert int8_matmul_plan(8, 4096, 4096, torch.float32)["code"] >> 28 == 0
+    assert plan_code(22, 8, 8, 1) == \
+        int8_matmul_plan(8, 4096, 11008, torch.bfloat16)["code"]
 
 
 def test_generate_greedy_matches_jax(quantized):
