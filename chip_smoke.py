@@ -54,6 +54,8 @@ the wrapper's host microseconds by part and every split of K the C call
 takes at phase 5b's shapes, then K5 and K6
 built, phase 6's int8 gate and phase 7h; ``--int8-kernel`` stops after
 the kernel loop. Both take ``--root DIR`` (another checkout's port).
+``python3 chip_smoke.py --families`` builds the flash, K5 and K10
+libraries and runs phase 13 alone (the transformer families).
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -135,8 +137,9 @@ the run with a non-zero exit code and no result line:
    window replayed under the profiler, by family and with K5's split and
    merge kernels apart. Then (a) bench.py's shared-prefix mix (32
    requests on 4 system prompts of 192 tokens, Zipf 1.2, plus 4 exact
-   resubmits, 64 new tokens, one burst) with caching on and off; (b) its
-   repeat-heavy mix (32 requests, a 16-token pattern tiled 8 times, 64
+   resubmits, 32 new tokens where bench.py has 64, one burst) with
+   caching on and off; (b) its
+   repeat-heavy mix (32 requests, a 16-token pattern tiled 8 times, 32
    new tokens where bench.py has 128, token budget 512) with n-gram
    speculation and without; (c) 4 of those requests, 32 new tokens,
    with a bf16 draft model of TinyLlama-1.1B's geometry (22 layers,
@@ -144,7 +147,7 @@ the run with a non-zero exit code and no result line:
    TTFT, TPOT, tokens/s, peak memory, prefix and speculation counters,
    and holds its launches to K5 = 32 x target + 22 x draft dispatches and
    K6 = 65 x target + 45 x draft dispatches. (d) bench.py's on-chip
-   zipf-hosttier mix (the first 32 of its 48 requests, 8 system prompts
+   zipf-hosttier mix (the first 24 of its 48 requests, 8 system prompts
    of 192 tokens, suffixes of 1-32, RandomState(7); 16 new where
    bench.py has 32) in a
    sequential closed loop,
@@ -238,8 +241,31 @@ the run with a non-zero exit code and no result line:
     launch counts per step and a falling loss; a torch.profiler window;
     then the same step with both flags off (cuDNN and plain BatchNorm)
     as the whole-step yardstick.
-13. One ``kernels`` JSON line.
-14. The result line ``{"ok": true, "device": {...}}``.
+13. The transformer families beside Llama, at full width: (a) K1-K4 at
+    BERT-base's non-causal b=32 s=512 h=12 d=64, DiT-XL/2's non-causal
+    b=32 s=256 h=16 d=72 (zero-padded to 128) and GPT-2 small's causal
+    b=8 s=1024 h=12 d=64, bf16: out, lse, dq, dk, dv against the plain
+    versions, row by row, equal bits over two backward calls; timed
+    (wrappers, kernels alone, plain, SDPA, bounds; d=72 also at d=64).
+    (b) K5 at GPT-2 small's decode (8 slots, 12 x 64, MHA) and K10 at
+    its four linear shapes (768 -> 2304, 768, 3072; 3072 -> 768) against
+    their plain versions, timed. (c) GPT-2 small serving (``GPTConfig()``,
+    random weights from seed 0): in f32 the engine's greedy tokens equal
+    dense ``generate``'s, dense and after ``quantize_for_decode`` (K10 48
+    a dispatch, the head dense); in bf16 phase 7's mix, then quantized:
+    zero loss, exact launches (K5 12 a dispatch, K6 none), tok/s, TTFT,
+    TPOT. (d) GPT-2 small, BERT-base and DiT-XL/2 at full width cut to 2
+    layers, f32: the loss and every gradient on the card against the
+    CPU, and 2 AdamW TrainSteps. (e) Training at full width and depth,
+    bf16, AdamW with f32 masters, 2 warm-up and 5 timed steps: GPT-2
+    small at 8 x 1024, BERT-base (fused MLM head) at seq 512 and the
+    first of batch 64/48/32/16 that fits, DiT-XL/2 (32^2 latents, 256
+    tokens) at the first of batch 32/16/8 that fits; one flash forward,
+    one dq and one dkv a layer a step (12 / 12 / 28), a falling loss,
+    step ms, tokens/s (samples/s), MFU by bench.py's formulas, peak
+    memory and a torch.profiler window each.
+14. One ``kernels`` JSON line.
+15. The result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or the JAX package. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -945,15 +971,62 @@ def flash_row_err(got, want, floor=0.0):
     return float(torch.where(err == 0, 0.0, err / top).max())
 
 
-def phase_flash():
-    """Each case: the forward kernel against the plain forward (out,
-    lse), then the dq and dkv kernels against the plain FA2 backward
-    (dq, dk, dv), both backward versions fed the plain forward's out and
-    lse so that each kernel is judged on its own; bf16 outputs also row
-    by row (flash_row_err), and a second bf16 backward call must give
-    the same bits (no atomics)."""
+def flash_check(name, q, k, v, do, causal, scale):
+    """One case: the forward kernel against the plain forward (out, lse),
+    then the dq and dkv kernels against the plain FA2 backward (dq, dk,
+    dv), both backward versions fed the plain forward's out and lse so
+    that each kernel is judged on its own; bf16 outputs also row by row
+    (flash_row_err), and a second bf16 backward call must give the same
+    bits (no atomics). Returns (errors, plain out, plain lse)."""
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
 
+    dt = q.dtype
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                          scale)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse, do,
+                                        causal, scale)
+    again = (fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
+                                         do, causal, scale)
+             if dt == torch.bfloat16 else grads)
+    want_grads = fa.flash_attention_bwd_reference(
+        q, k, v, want_out, want_lse, do, causal, scale)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(grads, again))
+    log(f"[flash] {name} dq/dk/dv of two calls bitwise_equal={same}")
+    check(same, f"flash {name}: two backward calls differ")
+    errs = {}
+    for key, got, want in zip(("out", "dq", "dk", "dv"),
+                              (out, *grads), (want_out, *want_grads)):
+        check(bool(torch.isfinite(got).all()), f"flash {name}: {key} "
+              f"not finite")
+        check(got.shape == want.shape, f"flash {name}: {key} shape "
+              f"{tuple(got.shape)} != {tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        tol = (FLASH_F32_ATOL if dt == torch.float32 else
+               FLASH_BF16_REL * float(want.float().abs().max()))
+        errs[key] = err
+        row_tol = FLASH_BF16_REL if key == "out" else FLASH_GRAD_ROW_REL
+        row_err = (flash_row_err(got, want, FLASH_ROW_FLOOR
+                                 if key != "out" else 0.0)
+                   if dt != torch.float32 else 0.0)
+        rows = (f" worst_row_rel_err={row_err} row_tol={row_tol}"
+                f" (of each row's largest value)" if row_err else "")
+        log(f"[flash] {name} {key} max_abs_err={err} tol={tol}{rows}")
+        check(err <= tol, f"flash {name}: {key} disagrees with the "
+              f"plain version")
+        check(row_err <= row_tol, f"flash {name}: a row of {key} "
+              f"disagrees with the plain version")
+    errs["lse"] = float((lse - want_lse).abs().max())
+    log(f"[flash] {name} lse max_abs_err={errs['lse']} tol="
+        f"{FLASH_LSE_ATOL}")
+    check(errs["lse"] <= FLASH_LSE_ATOL, f"flash {name}: lse disagrees")
+    return errs, want_out, want_lse
+
+
+def phase_flash():
+    """Each case of FLASH_CASES through :func:`flash_check`; the first
+    (the training shape) is kept for the timings."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     results = {}
     for name, dt, b, sq, sk, h, kv, d, causal in FLASH_CASES:
@@ -963,44 +1036,8 @@ def phase_flash():
         q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
         do = rnd(b, sq, h, d)
         scale = 1.0 / d ** 0.5
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
-        want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
-                                                              scale)
-        grads = fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse, do,
-                                            causal, scale)
-        again = (fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
-                                             do, causal, scale)
-                 if dt == torch.bfloat16 else grads)
-        want_grads = fa.flash_attention_bwd_reference(
-            q, k, v, want_out, want_lse, do, causal, scale)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(grads, again))
-        log(f"[flash] {name} dq/dk/dv of two calls bitwise_equal={same}")
-        check(same, f"flash {name}: two backward calls differ")
-        errs = {}
-        for key, got, want in zip(("out", "dq", "dk", "dv"),
-                                  (out, *grads), (want_out, *want_grads)):
-            check(bool(torch.isfinite(got).all()), f"flash {name}: {key} "
-                  f"not finite")
-            err = float((got.float() - want.float()).abs().max())
-            tol = (FLASH_F32_ATOL if dt == torch.float32 else
-                   FLASH_BF16_REL * float(want.float().abs().max()))
-            errs[key] = err
-            row_tol = FLASH_BF16_REL if key == "out" else FLASH_GRAD_ROW_REL
-            row_err = (flash_row_err(got, want, FLASH_ROW_FLOOR
-                                     if key != "out" else 0.0)
-                       if dt != torch.float32 else 0.0)
-            rows = (f" worst_row_rel_err={row_err} row_tol={row_tol}"
-                    f" (of each row's largest value)" if row_err else "")
-            log(f"[flash] {name} {key} max_abs_err={err} tol={tol}{rows}")
-            check(err <= tol, f"flash {name}: {key} disagrees with the "
-                  f"plain version")
-            check(row_err <= row_tol, f"flash {name}: a row of {key} "
-                  f"disagrees with the plain version")
-        errs["lse"] = float((lse - want_lse).abs().max())
-        log(f"[flash] {name} lse max_abs_err={errs['lse']} tol="
-            f"{FLASH_LSE_ATOL}")
-        check(errs["lse"] <= FLASH_LSE_ATOL, f"flash {name}: lse disagrees")
+        errs, want_out, want_lse = flash_check(name, q, k, v, do, causal,
+                                               scale)
         results[name] = errs
         if not results.get("main"):
             delta = (do.float() * want_out.float()).sum(-1).transpose(
@@ -1008,8 +1045,7 @@ def phase_flash():
             results["main"] = dict(q=q, k=k, v=v, do=do, out=want_out,
                                    lse=want_lse, delta=delta, causal=causal,
                                    scale=scale, name=name)
-        del q, k, v, do, out, lse, want_out, want_lse, grads, again
-        del want_grads
+        del q, k, v, do, want_out, want_lse
     torch.cuda.empty_cache()
     return results
 
@@ -1039,51 +1075,34 @@ def flash_bound(m, kernel):
 
 
 def time_flash(results):
-    """Times on the main case (the training shape). The plain backward
-    and SDPA's backward compute dq, dk and dv together; the plain and
-    library times of dq and dkv are those of the whole backward, which is
-    also timed as the port runs it (delta, dq, dkv), with delta's
-    share."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    from paddle_tpu_torch.ops.hopper import flash_attention as fa
-
-    m = results["main"]
-    q, k, v, do = m["q"], m["k"], m["v"], m["do"]
-    causal, scale = m["causal"], m["scale"]
-    bwd_args = (q, k, v, do, m["lse"], m["delta"], causal, scale)
-    plain_fwd = time_ms(lambda: fa.flash_attention_fwd_reference(
-        q, k, v, causal, scale), iters=2, warmup=1)
-    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, m["out"], m["lse"], do, causal, scale), iters=2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
-    lib_out = sdpa(qt, kt, vt, is_causal=causal)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dot, retain_graph=True))
-    timing = {
-        "fwd": dict(ms=time_ms(lambda: fa.flash_attention_fwd_cuda(
-            q, k, v, causal, scale)), plain_ms=plain_fwd, library_ms=lib_fwd),
-        "dq": dict(ms=time_ms(lambda: fa.flash_attention_dq_cuda(*bwd_args)),
-                   plain_ms=plain_bwd, library_ms=lib_bwd),
-        "dkv": dict(ms=time_ms(lambda: fa.flash_attention_dkv_cuda(
-            *bwd_args)), plain_ms=plain_bwd, library_ms=lib_bwd),
-    }
-    for kernel, r in timing.items():
-        r["bound_ms"], r["bound_by"] = flash_bound(m, kernel)
+    """Times on the main case (the training shape), by
+    :func:`time_flash_case`. The plain backward and SDPA's backward
+    compute dq, dk and dv together; the plain and library times of dq and
+    dkv are those of the whole backward, which is also timed as the port
+    runs it (delta, dq, dkv), with delta's share."""
+    m = results.pop("main")
+    t = time_flash_case(m["q"], m["k"], m["v"], m["do"], m["out"], m["lse"],
+                        m["causal"], m["scale"])
+    timing = {}
+    for kernel, ms, plain, lib in (
+            ("fwd", "fwd_ms", "plain_fwd_ms", "library_fwd_ms"),
+            ("dq", "dq_kernel_ms", "plain_bwd_ms", "library_bwd_ms"),
+            ("dkv", "dkv_kernel_ms", "plain_bwd_ms", "library_bwd_ms")):
+        r = timing[kernel] = dict(
+            ms=t[ms], plain_ms=t[plain], library_ms=t[lib],
+            bound_ms=t[f"{kernel}_bound_ms"],
+            bound_by=t[f"{kernel}_bound_by"])
         log(f"[time] flash {kernel} {m['name']} ms={r['ms']} plain_ms="
             f"{r['plain_ms']} library_ms={r['library_ms']} bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}) bound_share="
             f"{r['bound_ms'] / r['ms']}")
-    whole, delta_ms = time_flash_bwd_whole(m)
+    delta_ms = time_delta(m["do"], m["out"])
     log(f"[time] flash backward pair dq+dkv ms="
         f"{timing['dq']['ms'] + timing['dkv']['ms']} whole_backward_ms="
-        f"{whole} (delta, dq, dkv) delta_ms={delta_ms} delta_share="
-        f"{delta_ms / whole} sdpa_backward_ms={lib_bwd} (dq, dk, dv in one "
-        f"call)")
-    del results["main"], qt, kt, vt, lib_out
+        f"{t['bwd_ms']} (delta, dq, dkv) delta_ms={delta_ms} delta_share="
+        f"{delta_ms / t['bwd_ms']} sdpa_backward_ms={t['library_bwd_ms']} "
+        f"(dq, dk, dv in one call)")
+    del m
     torch.cuda.empty_cache()
     return timing
 
@@ -1096,9 +1115,13 @@ def time_flash_bwd_whole(m):
     q, k, v, do, out = m["q"], m["k"], m["v"], m["do"], m["out"]
     whole = time_ms(lambda: fa.flash_attention_bwd_cuda(
         q, k, v, out, m["lse"], do, m["causal"], m["scale"]))
-    delta_ms = time_ms(lambda: (do.float() * out.float()).sum(-1).transpose(
+    return whole, time_delta(do, out)
+
+
+def time_delta(do, out):
+    """ms of the backward's delta = rowsum(dO O), in plain torch."""
+    return time_ms(lambda: (do.float() * out.float()).sum(-1).transpose(
         1, 2).contiguous())
-    return whole, delta_ms
 
 
 # -- phase 5b: K10, the weight-only int8 matmul -------------------------------
@@ -1394,17 +1417,24 @@ def k10_only():
 
 # -- phase 6: parity at full width --------------------------------------------
 
+def serving_geometry(model):
+    """(layers, K/V heads, head_dim) of a Llama (``model.config``) or a
+    GPT (``model.gpt.cfg``, K/V at every head), as the engine reads
+    them."""
+    cfg = getattr(model, "config", None) or model.gpt.cfg
+    kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+    return (cfg.num_hidden_layers, kv,
+            cfg.hidden_size // cfg.num_attention_heads)
+
+
 def _dense_last_logits(model, tokens):
     """Dense-cache forward of ``tokens`` in one prefill: last-row f32
     logits (for the top-2 gap of a mismatch report)."""
-    cfg = model.config
-    d = cfg.hidden_size // cfg.num_attention_heads
+    layers, kv, d = serving_geometry(model)
     dev = next(model.parameters()).device
-    caches = [(torch.zeros(1, len(tokens), cfg.num_key_value_heads, d,
-                           device=dev),
-               torch.zeros(1, len(tokens), cfg.num_key_value_heads, d,
-                           device=dev))
-              for _ in range(cfg.num_hidden_layers)]
+    caches = [(torch.zeros(1, len(tokens), kv, d, device=dev),
+               torch.zeros(1, len(tokens), kv, d, device=dev))
+              for _ in range(layers)]
     with torch.no_grad():
         logits, _ = model(torch.tensor([tokens], device=dev),
                           kv_caches=caches, position_offset=0)
@@ -1867,7 +1897,7 @@ def first_divergence(a, b):
 
 
 def serve_run(engine, label, prompts, max_new, closed_loop=False,
-              k10_per_dispatch=0):
+              k10_per_dispatch=0, layers=LLAMA_LAYERS, rms_norms=True):
     """One burst of requests (every arrival at t0) through ``engine``,
     or with ``closed_loop`` bench.py's sequential replay (each request
     arrives when the one before it finished): every dispatch's logits
@@ -1875,8 +1905,9 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False,
     held to 32 x target dispatches + 22 x draft dispatches (K5), 65 x
     target + 45 x draft (K6) and ``k10_per_dispatch`` x target (K10: 225
     for a quantized Llama-2-7B, else 0), each request held to ``max_new``
-    tokens and outcome ok, and the pool to its invariants. Logs the run's
-    numbers and returns them."""
+    tokens and outcome ok, and the pool to its invariants. A target of
+    another depth gives its ``layers``; one without RMSNorm (GPT) runs
+    K6 no time. Logs the run's numbers and returns them."""
     from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul_cuda
     from paddle_tpu_torch.ops.hopper.paged_attention import paged_attend_cuda
     from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
@@ -1945,12 +1976,12 @@ def serve_run(engine, label, prompts, max_new, closed_loop=False,
     check(all(done[i].outcome == "ok" for i in rids),
           f"{label}: a request finished with another outcome than ok")
     check(finite and all(finite), f"{label}: non-finite logits")
-    check(k5 == LLAMA_LAYERS * n_target + draft_layers * n_draft,
-          f"{label}: K5 launches {k5} != 32 x {n_target} + "
+    check(k5 == layers * n_target + draft_layers * n_draft,
+          f"{label}: K5 launches {k5} != {layers} x {n_target} + "
           f"{draft_layers} x {n_draft}")
-    check(k6 == (2 * LLAMA_LAYERS + 1) * n_target
-          + (2 * draft_layers + 1) * n_draft,
-          f"{label}: K6 launches {k6} != 65 x {n_target} + "
+    k6_target = 2 * layers + 1 if rms_norms else 0
+    check(k6 == k6_target * n_target + (2 * draft_layers + 1) * n_draft,
+          f"{label}: K6 launches {k6} != {k6_target} x {n_target} + "
           f"{2 * draft_layers + 1} x {n_draft}")
     check(k10 == k10_per_dispatch * n_target, f"{label}: K10 launches {k10} "
           f"!= {k10_per_dispatch} x {n_target}")
@@ -1996,7 +2027,7 @@ def phase_serving(card):
     for cache in (True, False):
         engine = ServingEngine.from_model(model, prefix_cache=cache, **knobs)
         label = f"prefix_cache_{'on' if cache else 'off'}"
-        runs[label] = serve_run(engine, label, shared, 64)
+        runs[label] = serve_run(engine, label, shared, PHASE7_CUT_NEW)
         del engine
         release_device_memory()
     on = runs["prefix_cache_on"]
@@ -2014,9 +2045,8 @@ def phase_serving(card):
     for spec in ("ngram", "off"):
         engine = ServingEngine.from_model(model, spec=spec,
                                           token_budget=512, **knobs)
-        # 64 new tokens where bench.py has 128: the run stays inside half
-        # its time limit
-        runs[f"spec_{spec}"] = serve_run(engine, f"spec_{spec}", rep, 64)
+        runs[f"spec_{spec}"] = serve_run(engine, f"spec_{spec}", rep,
+                                         PHASE7_CUT_NEW)
         del engine
         release_device_memory()
     ng = runs["spec_ngram"]
@@ -2241,6 +2271,12 @@ def fleet_only():
     return 0
 
 
+# phases 7a and 7b: 32 new tokens where bench.py has 64 (serve_prefix) and
+# 128 (serve_spec); cut from 64 when phase 13 came (7a and 7b took 35-41 s
+# each of 584-710 s runs): the whole run aims at half its time limit
+PHASE7_CUT_NEW = 32
+
+
 def phase7_mix(vocab):
     """Phase 7's requests: 8 prompts of 128-512 seeded tokens."""
     rng = np.random.default_rng(7)
@@ -2252,9 +2288,11 @@ def phase7_mix(vocab):
 # 32 new tokens cut to 16 (at 32 the device and host runs took 51.9 and
 # 54.0 s on the card, so the three would pass 150 s), and its 48 requests
 # (drawn as bench.py draws them) cut to the first 32 (the three runs took
-# 122 s of a 641 s run; the whole run stays inside half its time limit)
+# 122 s of a 641 s run), then to the first 24 when phase 13 came (at 32
+# they took 75-93 s of 584-710 s runs): the whole run aims at half its
+# time limit
 HOSTTIER_REQUESTS, HOSTTIER_PREFIXES, HOSTTIER_PREFIX_LEN = 48, 8, 192
-HOSTTIER_RUN_REQUESTS = 32
+HOSTTIER_RUN_REQUESTS = 24
 HOSTTIER_SUFFIX, HOSTTIER_NEW = 32, 16
 HOSTTIER_BYTES = 1 << 30
 
@@ -2327,7 +2365,7 @@ def tier_copy_ms(pool, iters=20):
 
 def phase_hosttier(model, knobs):
     """Phase 7d: bench.py's on-chip zipf-hosttier mix at full Llama-2-7B
-    in bf16 (the first 32 of its 48 requests, 8 system prompts of 192
+    in bf16 (the first 24 of its 48 requests, 8 system prompts of 192
     tokens, Zipf 1.2, suffixes of 1-32, RandomState(7); 16 new tokens
     where bench.py has 32), sequential closed
     loop, three runs: ``device`` (unbounded cached set, a pool that holds
@@ -3958,7 +3996,7 @@ def phase_training(warmup=2, timed=5, recompute=False, plain=None):
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
     peak = torch.cuda.max_memory_allocated()
     if plain is None:
-        profile_train_window(step, ids, labels, step_s * 1e3)
+        profile_train_window(step, (ids, labels), step_s * 1e3)
     else:
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"])]
         bitwise = losses == plain["losses"]
@@ -3978,31 +4016,519 @@ def phase_training(warmup=2, timed=5, recompute=False, plain=None):
     return dict(counts, losses=losses, peak=peak, step_ms=step_s * 1e3)
 
 
-def profile_train_window(step, ids, labels, wall_ms, steps=2):
+def profile_train_window(step, batch, wall_ms, steps=2, label="train"):
     """Device time per training step by kernel family under
     torch.profiler, and the device's idle share against the unprofiled
-    step time ``wall_ms``."""
+    step time ``wall_ms``. Returns (device ms by family, idle share)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step(ids, labels)
+            step(*batch)
         torch.cuda.synchronize()
     others, ranges = {}, {}
     device_ms = device_ms_by_family(prof, TRAIN_FAMILIES, steps, others,
                                     ranges)
     busy_ms = sum(device_ms.values())
-    log(f"[train-profile] per step: wall_ms={wall_ms} (unprofiled) "
+    log(f"[{label}-profile] per step: wall_ms={wall_ms} (unprofiled) "
         f"device_busy_ms={busy_ms} device_idle_share={1 - busy_ms / wall_ms}"
         f" ({steps} profiled steps)")
-    log(f"[train-profile] device_ms_per_step_by_family="
+    log(f"[{label}-profile] device_ms_per_step_by_family="
         f"{json.dumps(device_ms)}")
-    log(f"[train-profile] device span per step of the TrainStep ranges: "
+    log(f"[{label}-profile] device span per step of the TrainStep ranges: "
         f"{json.dumps(ranges)}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[train-profile] largest of other, ms per step: "
+    log(f"[{label}-profile] largest of other, ms per step: "
         f"{json.dumps([(k[:90], v) for k, v in top])}")
+    return device_ms, 1 - busy_ms / wall_ms
+
+
+# -- phase 13: the transformer families beside Llama -------------------------
+
+# the three families' attention at their training shapes (name, dtype, b,
+# sq, sk, h, kv, d, causal): BERT-base at bench_bert's batch 64 x 512 cut
+# to 32 (the plain backward's f32 scores), DiT-XL/2 at batch 32 (head_dim
+# 72: zero-padded to 128), GPT-2 small at batch 8 x 1024
+FAMILY_FLASH_CASES = [
+    ("bert_noncausal_b32_s512_h12_d64_bf16", torch.bfloat16, 32, 512, 512,
+     12, 12, 64, False),
+    ("dit_xl2_noncausal_b32_s256_h16_d72_bf16", torch.bfloat16, 32, 256, 256,
+     16, 16, 72, False),
+    ("gpt_causal_b8_s1024_h12_d64_bf16", torch.bfloat16, 8, 1024, 1024, 12,
+     12, 64, True),
+]
+# GPT-2 small (GPTConfig()): 12 layers; quantized, 4 int8 linears a layer
+# (qkv, out, fc_in, fc_out) and the head dense
+GPT_LAYERS = 12
+GPT_INT8_PER_DISPATCH = 4 * GPT_LAYERS
+# K10 at GPT-2 small's four linear shapes (name, K, N), with a decode step
+# of 8 slots and a 128-token prefill chunk
+GPT_INT8_SHAPES = (("768x2304", 768, 2304), ("768x768", 768, 768),
+                   ("768x3072", 768, 3072), ("3072x768", 3072, 768))
+GPT_INT8_ROWS = (8, 128)
+# the first batch of each list that fits: bench_bert's TPU candidates at
+# seq 512, bench_dit's
+BERT_BATCHES, BERT_SEQ = (64, 48, 32, 16), 512
+DIT_BATCHES = (32, 16, 8)
+GPT_TRAIN_BATCH, GPT_TRAIN_SEQ = 8, 1024
+
+
+def time_flash_case(q, k, v, do, out, lse, causal, scale):
+    """Times of one flash case by CUDA events: the wrappers as the model
+    calls them (forward; whole backward with delta, and the zero padding
+    at a padded head_dim), the kernels alone at the width they run
+    (``*_kernel_ms``, dq and dkv apart), the plain versions, SDPA's
+    forward and backward, and each kernel's bound at the true head_dim
+    (:func:`flash_bound`)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    d = q.shape[-1]
+    width = fa.PADDED_HEAD_DIMS.get(d, d)
+    qp, kp, vp, dop, outp = (fa.pad_head_dim(t, width)
+                             for t in (q, k, v, do, out))
+    delta = (dop.float() * outp.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (qp, kp, vp, dop, lse, delta, causal, scale)
+    r = dict(
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal,
+                                                           scale)),
+        bwd_ms=time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, causal, scale)),
+        fwd_kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(
+            qp, kp, vp, causal, scale)),
+        dq_kernel_ms=time_ms(lambda: fa.flash_attention_dq_cuda(*bwd_args)),
+        dkv_kernel_ms=time_ms(lambda: fa.flash_attention_dkv_cuda(
+            *bwd_args)),
+        plain_fwd_ms=time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, causal, scale), iters=2, warmup=1),
+        plain_bwd_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal, scale), iters=2, warmup=1))
+    del qp, kp, vp, dop, outp, delta, bwd_args
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    r["library_fwd_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                               scale=scale))
+    lib_out = sdpa(qt, kt, vt, is_causal=causal, scale=scale)
+    r["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    m = dict(q=q, k=k, causal=causal)
+    for kernel in ("fwd", "dq", "dkv"):
+        r[f"{kernel}_bound_ms"], r[f"{kernel}_bound_by"] = flash_bound(
+            m, kernel)
+    return r
+
+
+def phase_family_flash():
+    """Phase 13a: K1-K4 at the three families' attention shapes, each
+    through :func:`flash_check` (out, lse, dq, dk, dv against the plain
+    versions, row by row, equal bits over two backward calls) and timed
+    (:func:`time_flash_case`); the padded head_dim 72 is also timed at
+    d = 64 on the same batch and heads, the time a native 72-wide tile
+    would stay above. Returns {case: errors and times}."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1913)
+    results = {}
+    for name, dt, b, sq, sk, h, kv, d, causal in FAMILY_FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+        do = rnd(b, sq, h, d)
+        scale = 1.0 / d ** 0.5
+        errs, out, lse = flash_check(name, q, k, v, do, causal, scale)
+        r = dict(errs, **time_flash_case(q, k, v, do, out, lse, causal,
+                                         scale))
+        del q, k, v, do, out, lse
+        if d != 64:
+            q64, k64, v64, do64 = (rnd(b, sq, h, 64) for _ in range(4))
+            out64, lse64 = fa.flash_attention_fwd_cuda(q64, k64, v64, causal,
+                                                       0.125)
+            r["d64_fwd_ms"] = time_ms(lambda: fa.flash_attention_fwd_cuda(
+                q64, k64, v64, causal, 0.125))
+            r["d64_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                q64, k64, v64, out64, lse64, do64, causal, 0.125))
+            del q64, k64, v64, do64, out64, lse64
+        log(f"[family-flash] {name} "
+            + " ".join(f"{key}={val}" for key, val in r.items()))
+        results[name] = r
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_gpt_kernels():
+    """Phase 13b: K5 at GPT-2 small's decode (8 slots, 12 heads of 64,
+    MHA, at phase 7's depths) and K10 at its four linear shapes (8 and
+    128 rows in bf16, 8 in f32), each against its plain version (K10
+    twice, for equal bits) and timed as phases 5 and 5b time them.
+    Returns (K5 result, K10 times)."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(1914)
+    c = k5_case(gen, b=8, s=1, h=12, kv=12, d=64, bs=16,
+                max_blocks=1024 // 16, positions=serving_depths())
+    args = (c["q"], c["kbuf"], c["vbuf"], c["tables"], c["positions"])
+    kw = dict(kv_heads=12, head_dim=64)
+    got = pa.paged_attend_cuda(*args, **kw)
+    want = pa.paged_attend_reference(*args, **kw)
+    torch.cuda.synchronize()
+    k5 = dict(case=c, args=args, kw=kw, max_err=k5_check(
+        "gpt_decode_b8_h12_d64", got, want))
+    check(torch.equal(got, pa.paged_attend_cuda(*args, **kw)),
+          "K5 gpt_decode_b8_h12_d64: two calls differ")
+    results = {"gpt_decode_b8_h12_d64": k5}
+    time_k5(results)
+    matmul = torch.backends.cuda.matmul
+    before = (matmul.allow_bf16_reduced_precision_reduction,
+              matmul.allow_tf32)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_tf32 = False
+    cases = {}
+    try:
+        for sh, kk, n in GPT_INT8_SHAPES:
+            q, sc = k10_inputs(gen, kk, n)
+            for m, dt in [(m, torch.bfloat16) for m in GPT_INT8_ROWS] + [
+                    (8, torch.float32)]:
+                x = torch.randn(m, kk, device="cuda", generator=gen).to(dt)
+                name = f"gpt_{sh}_m{m}_{str(dt).split('.')[-1]}"
+                err, failure = k10_check(name, x, q, sc)
+                check(failure is None, failure)
+                cases[name] = dict(x=x, q=q, s=sc, max_err=err,
+                                   timed=dt == torch.bfloat16)
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_tf32) = before
+    k10 = time_k10(cases)
+    del cases
+    torch.cuda.empty_cache()
+    return results["gpt_decode_b8_h12_d64"], k10
+
+
+def phase_gpt_serving(card):
+    """Phase 13c: GPT-2 small (``GPTConfig()``: vocab 50304, 768 wide, 12
+    layers, 12 heads, 1024 positions; random weights from seed 0). In f32
+    (TF32 off): the default engine's greedy tokens on phase 6's prompts
+    equal dense ``generate``'s; then the model quantized in place by
+    ``quantize_for_decode`` (the head dense): tokens equal again and K10
+    launches exact (48 a dispatch). In bf16: phase 7's mix (8 requests of
+    128-512 tokens, 64 new; block 16, 8 slots, chunk 128) through
+    ``ServingEngine.from_model``, then the same model quantized: zero
+    loss, exact launches (K5 12, K6 0, K10 0 or 48 a dispatch), tok/s,
+    TTFT, TPOT. Returns the two bf16 runs."""
+    from paddle_tpu_torch import (GPTConfig, GPTForCausalLM, ServingEngine,
+                                  quantize_for_decode)
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg = GPTConfig()
+    model = GPTForCausalLM(cfg, seed=0)
+    check(serving_geometry(model) == (GPT_LAYERS, 12, 64),
+          "GPT-2 small's geometry")
+    prompts = phase6_prompts(cfg.vocab_size)
+    engine = ServingEngine.from_model(model)
+    _check_greedy(model, "gpt f32", prompts,
+                  _engine_outputs(engine, prompts, 8), 8)
+    del engine
+    quantize_for_decode(model)
+    n_int8 = sum(p.dtype == torch.int8 for p in model.parameters())
+    check(n_int8 == GPT_INT8_PER_DISPATCH and
+          model.lm_head.dtype == torch.float32,
+          f"GPT quantized: {n_int8} int8 weights (want "
+          f"{GPT_INT8_PER_DISPATCH}) and the head {model.lm_head.dtype}")
+    engine = ServingEngine.from_model(model)
+    int8_matmul_cuda.launches = 0
+    out = _engine_outputs(engine, prompts, 8)
+    k10 = int8_matmul_cuda.launches
+    check(k10 == GPT_INT8_PER_DISPATCH * engine.dispatches,
+          f"GPT int8: K10 launches {k10} != {GPT_INT8_PER_DISPATCH} x "
+          f"{engine.dispatches} dispatches")
+    _check_greedy(model, "gpt int8 f32", prompts, out, 8)
+    log(f"[gpt-serve] f32, 12 layers: engine tokens equal dense generate, "
+        f"dense and quantized (K10 {k10} = {GPT_INT8_PER_DISPATCH} x "
+        f"{engine.dispatches} dispatches); seconds="
+        f"{time.perf_counter() - t0}")
+    del engine, model
+    release_device_memory()
+
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(GPTConfig(dtype="bfloat16"), seed=0)
+    knobs = dict(block_size=16, max_slots=8, prefill_chunk=128)
+    mix = phase7_mix(cfg.vocab_size)
+    runs = {}
+    for label in ("gpt-bf16", "gpt-int8"):
+        if label == "gpt-int8":
+            quantize_for_decode(model)
+        warm_serving(model, knobs)
+        engine = ServingEngine.from_model(model, **knobs)
+        runs[label] = serve_run(
+            engine, label, mix, 64, layers=GPT_LAYERS, rms_norms=False,
+            k10_per_dispatch=GPT_INT8_PER_DISPATCH * (label == "gpt-int8"))
+        del engine
+        release_device_memory()
+    b, q = runs["gpt-bf16"], runs["gpt-int8"]
+    for label, r in runs.items():
+        log(f"[gpt-serve:{label}] tok_s={r['output_tok_s']} ttft_p50_s="
+            f"{r['ttft_p50_s']} ttft_p95_s={r['ttft_p95_s']} tpot_p50_s="
+            f"{r['tpot_p50_s']} tpot_p95_s={r['tpot_p95_s']} k5={r['k5']} "
+            f"k10={r['k10']} dispatches={r['dispatches']} peak_memory_bytes="
+            f"{r['peak_memory_bytes']} ({card})")
+    log(f"[gpt-serve] int8/bf16 tok_s x{q['output_tok_s'] / b['output_tok_s']}"
+        f"; first differing token per request: "
+        f"{first_divergence(q['outputs'], b['outputs'])}; seconds="
+        f"{time.perf_counter() - t0} ({card})")
+    del model
+    release_device_memory()
+    check_released("phase 13c", base)
+    return runs
+
+
+def _family_model(family, layers, dtype, device=None, seed=0):
+    """GPT-2 small, BERT-base (fused MLM head) or DiT-XL/2 at full width,
+    cut to ``layers`` when given."""
+    import paddle_tpu_torch as tpt
+
+    if family == "gpt":
+        kw = {} if layers is None else dict(num_hidden_layers=layers)
+        return tpt.GPTForCausalLM(tpt.GPTConfig(dtype=dtype, **kw),
+                                  device=device, seed=seed)
+    if family == "bert":
+        kw = {} if layers is None else dict(num_hidden_layers=layers)
+        return tpt.BertForPretraining(
+            tpt.BertConfig(fused_head_loss=True, dtype=dtype, **kw),
+            device=device, seed=seed)
+    kw = {} if layers is None else dict(depth=layers)
+    return tpt.DiT(tpt.DiTConfig(dtype=dtype, **kw), device=device,
+                   seed=seed)
+
+
+def _family_batch(family, batch, vocab, device, seed=0):
+    """A fixed random batch: GPT ids and next-token labels; BERT ids and
+    labels (a label below zero in 85 of 100 positions: not masked, so
+    ignored); DiT latents, timesteps, classes and a noise target."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if family == "gpt":
+        ids = torch.randint(0, vocab, (batch[0], batch[1] + 1),
+                            device=device, generator=gen)
+        return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    if family == "bert":
+        ids = torch.randint(0, vocab, batch, device=device, generator=gen)
+        labels = torch.randint(0, vocab, batch, device=device, generator=gen)
+        keep = torch.rand(batch, device=device, generator=gen) < 0.15
+        return ids, torch.where(keep, labels, torch.full_like(labels, -1))
+    b = batch[0]
+    x = torch.randn(b, 4, 32, 32, device=device, generator=gen)
+    t = torch.randint(0, 1000, (b,), device=device, generator=gen)
+    y = torch.randint(0, 1000, (b,), device=device, generator=gen)
+    tgt = torch.randn(b, 4, 32, 32, device=device, generator=gen)
+    return x, t, y, tgt
+
+
+def _family_cfg(model):
+    """The config of a GPT (``model.gpt.cfg``), BERT or DiT
+    (``model.cfg``)."""
+    return model.gpt.cfg if hasattr(model, "gpt") else model.cfg
+
+
+def _family_loss_fn(family):
+    import paddle_tpu_torch as tpt
+
+    return tpt.dit_loss_fn if family == "dit" else tpt.llama_loss_fn
+
+
+def _noisy_dit(model, seed):
+    """Every parameter of a DiT redrawn from N(0, 0.02) (LayerNorm
+    weights 1 + that): the adaLN-zero and final projections start at
+    zero, which would hide the blocks from a gradient check."""
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, device=p.device, generator=gen)
+            one = name.endswith("norm1.weight") or name.endswith(
+                "norm2.weight") or name == "final_norm.weight"
+            p.copy_(0.02 * noise + (1.0 if one else 0.0))
+
+
+def phase_family_train_parity():
+    """Phase 13d: each family at full width, 2 layers, f32, TF32 off: one
+    forward/backward on the card (flash kernels; DiT's head_dim 72
+    zero-padded) against the CPU (plain versions) on the same weights
+    (DiT's all redrawn non-zero), the loss to TRAIN_LOSS_RTOL and every
+    gradient to TRAIN_GRAD_REL of its largest element; then 2 AdamW
+    TrainSteps on each device, the losses to TRAIN_TRAJ_RTOL."""
+    from paddle_tpu_torch import TrainStep, load_reference_state
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    shapes = dict(gpt=(1, 256), bert=(2, 128), dit=(2,))
+    for family in ("gpt", "bert", "dit"):
+        card = _family_model(family, 2, "float32")
+        if family == "dit":
+            _noisy_dit(card, 7)
+        host = _family_model(family, 2, "float32", device="cpu", seed=1)
+        load_reference_state(host, {n: p.detach().cpu().numpy()
+                                    for n, p in card.named_parameters()})
+        vocab = getattr(_family_cfg(card), "vocab_size", 0)
+        batch = _family_batch(family, shapes[family], vocab, "cpu", seed=21)
+        loss_fn = _family_loss_fn(family)
+        losses = {}
+        for dev, model in (("cuda", card), ("cpu", host)):
+            loss = loss_fn(model, *(t.to(dev) for t in batch))
+            loss.backward()
+            losses[dev] = float(loss.detach())
+        err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        check(err <= TRAIN_LOSS_RTOL, f"{family}: f32 loss differs card vs "
+              f"CPU ({losses})")
+        host_params = dict(host.named_parameters())
+        worst = ("", 0.0)
+        for n, p in card.named_parameters():
+            if p.grad is None:
+                # BERT's token-type table without token types
+                check(host_params[n].grad is None, f"{family}: {n} has a "
+                      f"gradient on the CPU only")
+                continue
+            e = _max_rel_err(p.grad, host_params[n].grad)
+            worst = max(worst, (n, e), key=lambda x: x[1])
+            check(e <= TRAIN_GRAD_REL, f"{family}: gradient of {n} differs "
+                  f"card vs CPU: {e} of its largest element")
+        for model in (card, host):
+            for p in model.parameters():
+                p.grad = None
+        traj = {}
+        for dev, model in (("cuda", card), ("cpu", host)):
+            step = TrainStep(model, AdamW(learning_rate=1e-5), loss_fn)
+            traj[dev] = [float(step(*(t.to(dev) for t in batch)))
+                         for _ in range(2)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(traj["cuda"], traj["cpu"])]
+        log(f"[family-parity] {family} full width, 2 layers, f32: loss card="
+            f"{losses['cuda']} cpu={losses['cpu']} rel_err={err}; all "
+            f"{len(host_params)} gradients within {TRAIN_GRAD_REL}, worst "
+            f"{worst[0]} {worst[1]}; 2 AdamW steps card={traj['cuda']} cpu="
+            f"{traj['cpu']} rel_err={rel}")
+        check(max(rel) <= TRAIN_TRAJ_RTOL, f"{family}: f32 TrainStep losses "
+              f"differ card vs CPU")
+        del card, host, step
+        torch.cuda.empty_cache()
+    log(f"[family-parity] seconds={time.perf_counter() - t0}")
+
+
+def train_family(family, card, warmup=2, timed=5):
+    """Phase 13e: one family at full width and depth in bf16, AdamW with
+    f32 masters (``multi_precision``), learning rate 1e-4, on a fixed
+    random batch: GPT-2 small at 8 x 1024, BERT-base at seq 512 and the
+    first of BERT_BATCHES that fits, DiT-XL/2 (32^2 latents, 256 tokens)
+    at the first of DIT_BATCHES that fits. ``warmup`` + ``timed`` steps,
+    each launching exactly one flash forward, one dq and one dkv kernel a
+    layer and no K6; the loss finite and falling; step ms, tokens/s
+    (samples/s for DiT), MFU by bench.py's formulas over 989 TFLOP/s,
+    peak memory, then a torch.profiler window. Returns the numbers."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    batches = dict(gpt=[(GPT_TRAIN_BATCH, GPT_TRAIN_SEQ)],
+                   bert=[(b, BERT_SEQ) for b in BERT_BATCHES],
+                   dit=[(b,) for b in DIT_BATCHES])[family]
+    t0 = time.perf_counter()
+    for shape in batches:
+        torch.cuda.synchronize()
+        release_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model = _family_model(family, None, "bfloat16")
+        cfg = _family_cfg(model)
+        layers = getattr(cfg, "depth", None) or cfg.num_hidden_layers
+        vocab = getattr(cfg, "vocab_size", 0)
+        n_params = sum(p.numel() for p in model.parameters())
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      multi_precision=True),
+                         _family_loss_fn(family))
+        batch = _family_batch(family, shape, vocab, "cuda")
+        want = dict(fwd=layers, dq=layers, dkv=layers, k6=0)
+        losses, seconds = [], []
+        _reset_train_counts()
+        try:
+            for i in range(warmup + timed):
+                before = _train_counts()
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                losses.append(float(step(*batch)))
+                seconds.append(time.perf_counter() - ts)
+                after = _train_counts()
+                got = {k: after[k] - before[k] for k in want}
+                check(got == want, f"{family} training step {i}: launches "
+                      f"{got} != {want}")
+        except torch.cuda.OutOfMemoryError:
+            log(f"[family-train] {family} batch {shape}: out of memory, "
+                f"trying the next")
+            del model, step, batch
+            continue
+        break
+    else:
+        raise SmokeFailure(f"{family}: no batch of {batches} fits")
+    counts = _train_counts()
+    step_s = sum(seconds[warmup:]) / timed
+    if family == "dit":
+        tokens = (cfg.input_size // cfg.patch_size) ** 2
+        rate, unit = shape[0] / step_s, "samples_per_s"
+        mfu = 6 * n_params * tokens * rate / PEAK_OPS_S[torch.bfloat16]
+    else:
+        rate, unit = shape[0] * shape[1] / step_s, "tokens_per_s"
+        mfu = 6 * n_params * rate / PEAK_OPS_S[torch.bfloat16]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[family-train] {family} full width, {layers} layers, bf16, AdamW "
+        f"multi_precision, batch {shape}: params={n_params} losses={losses} "
+        f"step_ms={step_s * 1e3} (mean of {timed} after {warmup} warm-up; "
+        f"each {[t * 1e3 for t in seconds]}) {unit}={rate} mfu={mfu} "
+        f"peak_memory_bytes={peak} launches={counts} (per step {want}) "
+        f"({card})")
+    check(all(np.isfinite(losses)), f"{family}: non-finite training loss")
+    check(losses[-1] < losses[0], f"{family}: training loss did not fall: "
+          f"{losses}")
+    device_ms, idle = profile_train_window(step, batch, step_s * 1e3,
+                                           label=f"{family}-train")
+    log(f"[family-train] {family} seconds={time.perf_counter() - t0}")
+    del model, step, batch
+    release_device_memory()
+    return dict(counts, layers=layers, batch=list(shape), step_ms=step_s * 1e3,
+                rate=rate, unit=unit, mfu=mfu, peak=peak, losses=losses,
+                device_ms=device_ms, idle_share=idle)
+
+
+def phase_families(card):
+    """Phase 13, the transformer families beside Llama: 13a K1-K4 at
+    their attention shapes, 13b K5 and K10 at GPT-2 small's, 13c GPT-2
+    small serving, 13d f32 training parity card vs CPU, 13e training at
+    full width (GPT-2 small, BERT-base, DiT-XL/2). Returns every
+    phase's numbers."""
+    t0 = time.perf_counter()
+    flash = phase_family_flash()
+    k5, k10 = phase_gpt_kernels()
+    runs = phase_gpt_serving(card)
+    phase_family_train_parity()
+    train = {f: train_family(f, card) for f in ("gpt", "bert", "dit")}
+    log(f"[families] seconds={time.perf_counter() - t0}")
+    return dict(flash=flash, k5=k5, k10=k10, runs=runs, train=train)
+
+
+def families_only():
+    """``--families``: K1-K5 and K10 built, then phase 13 alone."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention, int8_matmul,
+                                             paged_attention)
+
+    _, _, card = phase_device()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(lambda build: build(), (
+            flash_attention.build, paged_attention.build, int8_matmul.build)))
+    phase_families(card)
+    return 0
 
 
 # -- phases 10-12: ResNet-50 -------------------------------------------------
@@ -5165,6 +5691,8 @@ def main() -> int:
     if argv == ["--int8-kernel"]:
         k10_kernel_loop()
         return 0
+    if argv == ["--families"]:
+        return families_only()
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
@@ -5192,9 +5720,47 @@ def main() -> int:
     phase_block_parity()
     resnet = phase_resnet_training()
     t_resnet = time.perf_counter() - t_resnet
+    t_families = time.perf_counter()
+    families = phase_families(card)
+    t_families = time.perf_counter() - t_families
+    runs.update(families["runs"])
+    k5["gpt_decode_b8_h12_d64"] = families["k5"]
+    k5_launches = sum(r["k5"] for r in runs.values())
+    trains = dict(llama=train, **families["train"])
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
+    family_flash = families["flash"]
+
+    def flash_extra(kernel, errs):
+        """The flash entry's launches by training run and the families'
+        shapes, each with its times beside its bound."""
+        keys = dict(fwd=("fwd_ms", "fwd_kernel_ms", "plain_fwd_ms",
+                         "library_fwd_ms"),
+                    dq=("bwd_ms", "dq_kernel_ms", "plain_bwd_ms",
+                        "library_bwd_ms"),
+                    dkv=("bwd_ms", "dkv_kernel_ms", "plain_bwd_ms",
+                         "library_bwd_ms"))[kernel]
+        return dict(
+            launches_by_run={k: t[kernel] for k, t in trains.items()},
+            family_shapes={
+                n: dict({k: r[k] for k in keys if k in r},
+                        bound_ms=r[f"{kernel}_bound_ms"],
+                        bound_by=r[f"{kernel}_bound_by"],
+                        max_abs_err=max(r[e] for e in errs),
+                        **{k: r[k] for k in ("d64_fwd_ms", "d64_bwd_ms")
+                           if k in r})
+                for n, r in family_flash.items()})
+
+    def flash_launches(kernel):
+        return sum(t[kernel] for t in trains.values())
+
+    def flash_err(*keys):
+        """The largest error of ``keys`` over every flash case checked,
+        the families' among them."""
+        return max(e[k] for e in (*flash.values(), *family_flash.values())
+                   for k in keys)
+
     kernels = [
         dict(k5_entry(k5_launches, k5),
              launches_by_run={k: r["k5"] for k, r in runs.items()}),
@@ -5210,26 +5776,26 @@ def main() -> int:
                  "bound_ms", "host_us")} for k, r in k6.items()
                  if r["main"] and k != "rows8_h4096"}),
         dict(timed_entry("flash_attention_fwd", "cuda", src, f"{pallas}:298",
-                         train["fwd"], max(max(e["out"], e["lse"])
-                                           for e in flash.values()),
+                         flash_launches("fwd"), flash_err("out", "lse"),
                          flash_times["fwd"], shape),
-             also_replaces=[f"{pallas}:172"]),
+             also_replaces=[f"{pallas}:172"],
+             **flash_extra("fwd", ("out", "lse"))),
         dict(timed_entry("flash_attention_dq", "cuda", src, f"{pallas}:673",
-                         train["dq"], max(e["dq"] for e in flash.values()),
+                         flash_launches("dq"), flash_err("dq"),
                          flash_times["dq"], shape),
-             also_replaces=[f"{pallas}:567"]),
+             also_replaces=[f"{pallas}:567"], **flash_extra("dq", ("dq",))),
         dict(timed_entry("flash_attention_dkv", "cuda", src, f"{pallas}:703",
-                         train["dkv"], max(max(e["dk"], e["dv"])
-                                           for e in flash.values()),
+                         flash_launches("dkv"), flash_err("dk", "dv"),
                          flash_times["dkv"], shape),
-             also_replaces=[f"{pallas}:610"]),
+             also_replaces=[f"{pallas}:610"],
+             **flash_extra("dkv", ("dk", "dv"))),
     ]
     main_k10 = k10_times[INT8_MAIN]
     kernels.append(dict(
         timed_entry("int8_matmul", "cuda",
                     "paddle_tpu_torch/csrc/int8_matmul.cu",
                     "paddle_tpu/distributed/fleet/mpu.py:132",
-                    runs["7h-int8"]["k10"],
+                    sum(r.get("k10", 0) for r in runs.values()),
                     max(r["max_err"] for r in k10.values()), main_k10,
                     INT8_MAIN),
         also_replaces=["paddle_tpu/models/llama.py:328"],
@@ -5238,7 +5804,8 @@ def main() -> int:
         library_graph_ms=main_k10["library_graph_ms"],
         launches_by_run={k: r["k10"] for k, r in runs.items()
                          if r.get("k10")},
-        other_shapes={c: t for c, t in k10_times.items() if c != INT8_MAIN}))
+        other_shapes=dict({c: t for c, t in k10_times.items()
+                           if c != INT8_MAIN}, **families["k10"])))
     ru_src = "paddle_tpu_torch/csrc/resnet_unit.cu"
     k8_src = "paddle_tpu_torch/csrc/conv3x3_bn.cu"
     ru_pallas = "paddle_tpu/ops/pallas/resnet_unit.py"
@@ -5265,7 +5832,8 @@ def main() -> int:
         host_us=ru_times[k9_main[0]]["k9"]["host_us"],
         other_shapes={c: ru_times[c]["k9"] for c in k9_main[1:]}))
     log(f"[done] seconds={time.perf_counter() - t_start} (of which the "
-        f"ResNet phases 10-12: {t_resnet})")
+        f"ResNet phases 10-12: {t_resnet}, the families' phase 13: "
+        f"{t_families})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

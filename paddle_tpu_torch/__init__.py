@@ -27,16 +27,22 @@ serving (``models.quantize_for_decode``) runs the int8 matmul kernel K10
 (CUDA C++); training has per-layer recompute
 (``distributed.fleet.recompute``), the learning-rate schedulers
 (``optimizer.lr``), eleven optimizers with an eager ``step()`` and the
-loss functions and layers of ``nn``.
+loss functions and layers of ``nn``. The transformer families beside
+Llama run on the same kernels: GPT serving (engine, ``generate``, int8)
+and training, BERT pretraining and DiT training (``models``, with
+``nn.LayerNorm``), K1-K4 taking DiT-XL/2's head_dim 72 zero-padded.
 """
 
 from . import flags, nn, optimizer, telemetry, vision
 from .convert import load_reference_state
 from .jit import TrainStep
-from .models import (LlamaConfig, LlamaForCausalLM, llama_loss_fn,
-                     quantize_for_decode)
+from .models import (BertConfig, BertForPretraining, DiT, DiTConfig,
+                     GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
+                     dit_loss_fn, llama_loss_fn, quantize_for_decode)
 from .serving import ServingEngine
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServingEngine", "TrainStep",
-           "flags", "llama_loss_fn", "load_reference_state", "nn",
-           "optimizer", "quantize_for_decode", "telemetry", "vision"]
+__all__ = ["BertConfig", "BertForPretraining", "DiT", "DiTConfig",
+           "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
+           "ServingEngine", "TrainStep", "dit_loss_fn", "flags",
+           "llama_loss_fn", "load_reference_state", "nn", "optimizer",
+           "quantize_for_decode", "telemetry", "vision"]

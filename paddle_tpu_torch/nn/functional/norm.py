@@ -1,5 +1,9 @@
 """Normalisation functions (port of ``nn/functional/norm.py``:
-``rms_norm``, ``batch_norm`` and ``ema_update_stats``).
+``layer_norm``, ``rms_norm``, ``batch_norm`` and ``ema_update_stats``).
+
+``layer_norm`` is plain PyTorch, as the JAX package's is plain XLA (no
+TPU kernel behind it): statistics and the affine in f32, the result cast
+back to the input dtype.
 
 ``rms_norm`` goes through ``RMSNormFunction`` on both devices, so it has
 a gradient everywhere: the tensor's device picks the forward (the CUDA
@@ -27,6 +31,24 @@ from ... import flags
 from ...ops.hopper.bn_stats import bn_stats
 from ...ops.hopper.bn_stats import supported as bn_stats_supported
 from ...ops.hopper.rms_norm import RMSNormFunction
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """Normalise the trailing ``normalized_shape`` axes: ``(x - mean) /
+    sqrt(var + epsilon)`` (the biased variance) in f32, times ``weight``
+    plus ``bias`` in f32, cast to x's dtype."""
+    ns = ([normalized_shape] if isinstance(normalized_shape, int)
+          else list(normalized_shape))
+    axes = tuple(range(-len(ns), 0))
+    x32 = x.float()
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+    out = (x32 - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):

@@ -1,5 +1,5 @@
-"""Layers of the port: the subset the ResNet models use and the twelve
-loss layers of ``nn/layer/loss.py``. Containers are
+"""Layers of the port: the subset the ResNet and transformer models use
+and the twelve loss layers of ``nn/layer/loss.py``. Containers are
 ``torch.nn.Sequential``, whose parameter names match the JAX package's
 (``layer1.0.conv1.weight``)."""
 
@@ -12,11 +12,11 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                    CrossEntropyLoss, HingeEmbeddingLoss, KLDivLoss, L1Loss,
                    MSELoss, MarginRankingLoss, NLLLoss, SmoothL1Loss,
                    TripletMarginLoss)
-from .norm import BatchNorm2D
+from .norm import BatchNorm2D, LayerNorm
 from .pooling import AdaptiveAvgPool2D, MaxPool2D
 
 __all__ = ["AdaptiveAvgPool2D", "BCELoss", "BCEWithLogitsLoss", "BatchNorm2D",
            "Conv2D", "CosineEmbeddingLoss", "CrossEntropyLoss",
-           "HingeEmbeddingLoss", "KLDivLoss", "L1Loss", "Linear", "MSELoss",
-           "MarginRankingLoss", "MaxPool2D", "NLLLoss", "ReLU", "Sequential",
-           "SmoothL1Loss", "TripletMarginLoss"]
+           "HingeEmbeddingLoss", "KLDivLoss", "L1Loss", "LayerNorm", "Linear",
+           "MSELoss", "MarginRankingLoss", "MaxPool2D", "NLLLoss", "ReLU",
+           "Sequential", "SmoothL1Loss", "TripletMarginLoss"]

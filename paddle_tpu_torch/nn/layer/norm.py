@@ -1,4 +1,9 @@
-"""BatchNorm layer (port of ``nn/layer/norm.py``: ``BatchNorm2D``).
+"""Norm layers (port of ``nn/layer/norm.py``: ``LayerNorm`` and
+``BatchNorm2D``).
+
+``LayerNorm`` holds ``weight`` (ones) and ``bias`` (zeros) over
+``normalized_shape``, as the JAX package names them, and runs
+``nn.functional.layer_norm``.
 
 The running statistics are f32 buffers named ``_mean`` and
 ``_variance``, as in the JAX package's state dict (for example
@@ -16,6 +21,30 @@ from .. import functional as F
 from ...framework.device import resolve_device
 from ._init import new_parameter
 from ._layout import nhwc_compute
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        ns = ([normalized_shape] if isinstance(normalized_shape, int)
+              else list(normalized_shape))
+        self._normalized_shape = ns
+        self._epsilon = epsilon
+        self.weight = (None if weight_attr is False
+                       else new_parameter(ns, device, dtype))
+        self.bias = (None if bias_attr is False
+                     else new_parameter(ns, device, dtype))
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
 
 
 class BatchNorm2D(nn.Module):

@@ -41,6 +41,15 @@ not choose between them yet, so both devices raise.
 are the plain PyTorch versions (the backward is the FA2 algebra from
 ``lse``, not autograd of the forward). A CPU tensor runs them; a CUDA
 tensor launches the kernels or raises, and never falls back.
+
+The kernels tile head_dim 64 and 128. DiT-XL/2's head_dim 72 (hidden
+1152 over 16 heads) runs padded: :func:`flash_attention_fwd_padded` and
+:func:`flash_attention_bwd_padded` zero-pad q, k, v (and out, dout) to
+``PADDED_HEAD_DIMS[72] = 128``, run the 128-wide kernels with the
+caller's scale (``1/sqrt(72)``, not ``1/sqrt(128)``) and slice out, dq,
+dk and dv back to 72 columns. Zero columns add nothing to ``QK^T``, and
+their outputs and gradients are zero, so the padded result is the
+unpadded one. Any other head_dim raises on the card.
 """
 
 from __future__ import annotations
@@ -54,6 +63,9 @@ import torch
 from ._build import build_library, count_launch
 
 HEAD_DIMS = (64, 128)
+# head_dim -> the kernels' width it runs at, zero-padded (see the module
+# note); a native tile for these widths is still to be written
+PADDED_HEAD_DIMS = {72: 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = ["flash_attention.cu"]
 
@@ -132,6 +144,38 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal, scale):
     dk = dk.reshape(b, sk, kv, g, d).sum(3)
     dv = dv.reshape(b, sk, kv, g, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def pad_head_dim(t, width):
+    """``t`` (``[..., d]``) with zero columns appended up to ``width``."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def flash_attention_fwd_padded(q, k, v, causal, scale,
+                               fwd=flash_attention_fwd_reference):
+    """The forward at a head_dim of ``PADDED_HEAD_DIMS``: ``fwd`` (the
+    kernel's wrapper on the card) on q, k, v zero-padded to the kernels'
+    width, with the caller's ``scale``; out sliced back to ``d``
+    columns, lse as it comes."""
+    d = q.shape[-1]
+    width = PADDED_HEAD_DIMS[d]
+    out, lse = fwd(*(pad_head_dim(t, width) for t in (q, k, v)), causal,
+                   scale)
+    return out[..., :d], lse
+
+
+def flash_attention_bwd_padded(q, k, v, out, lse, dout, causal, scale,
+                               bwd=flash_attention_bwd_reference):
+    """The backward at a head_dim of ``PADDED_HEAD_DIMS``: ``bwd`` on q,
+    k, v, out and dout zero-padded to the kernels' width (delta =
+    rowsum(dout * out) is unchanged by zero columns), with the caller's
+    ``scale``; dq, dk and dv sliced back to ``d`` columns."""
+    d = q.shape[-1]
+    width = PADDED_HEAD_DIMS[d]
+    qp, kp, vp, op, dop = (pad_head_dim(t, width)
+                           for t in (q, k, v, out, dout))
+    grads = bwd(qp, kp, vp, op, lse, dop, causal, scale)
+    return tuple(g[..., :d] for g in grads)
 
 
 # The bf16 forward's tiles (csrc/flash_attention.cu: kFwdBM, kFwdBN) and
@@ -386,7 +430,8 @@ def _check_cuda(tensors):
                          f"{sorted(map(str, devs))}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[3]}: the kernels take "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS}, and {tuple(PADDED_HEAD_DIMS)} "
+                         f"zero-padded")
 
 
 def _rows_aligned(t):
@@ -413,7 +458,11 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
     kernel, for f32 the CUDA-core one. Same contract as
     :func:`flash_attention_fwd_reference`. Raises ``ValueError`` on
     inputs the kernel does not take and ``RuntimeError`` when the launch
-    fails."""
+    fails. A head_dim of ``PADDED_HEAD_DIMS`` runs zero-padded
+    (:func:`flash_attention_fwd_padded`)."""
+    if q.shape[-1] in PADDED_HEAD_DIMS:
+        return flash_attention_fwd_padded(q, k, v, causal, scale,
+                                          fwd=flash_attention_fwd_cuda)
     _check(q, k, v, causal)
     _check_cuda((q, k, v))
     q, k, v = (_rows_aligned(t) for t in (q, k, v))
@@ -502,7 +551,12 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     """The backward on the card: same contract as
     :func:`flash_attention_bwd_reference`. ``delta = rowsum(dout * out)``
     is computed here in plain torch, as the JAX package computes it
-    outside its kernels; then the dq and dkv kernels run."""
+    outside its kernels; then the dq and dkv kernels run. A head_dim of
+    ``PADDED_HEAD_DIMS`` runs zero-padded
+    (:func:`flash_attention_bwd_padded`)."""
+    if q.shape[-1] in PADDED_HEAD_DIMS:
+        return flash_attention_bwd_padded(q, k, v, out, lse, dout, causal,
+                                          scale, bwd=flash_attention_bwd_cuda)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.contiguous()
     dq = flash_attention_dq_cuda(q, k, v, dout, lse, delta, causal, scale)

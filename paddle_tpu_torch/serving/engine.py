@@ -282,11 +282,20 @@ class ServingEngine:
 
     @classmethod
     def from_model(cls, model, device=None, **kw):
-        """Read the geometry from a Llama-style config. ``device``
+        """Read the geometry from a Llama-style ``model.config``, or from
+        a GPT's ``model.gpt.cfg`` when there is no ``config`` (K/V at
+        every attention head when the config has no
+        ``num_key_value_heads``), as the JAX engine does. ``device``
         defaults to the card and must be where the model lives."""
-        cfg = model.config
+        cfg = getattr(model, "config", None)
+        if cfg is None and hasattr(model, "gpt"):
+            cfg = model.gpt.cfg
+        if cfg is None:
+            raise ValueError("cannot infer the geometry; pass num_layers, "
+                             "kv_heads, head_dim and max_context")
         geom = dict(num_layers=cfg.num_hidden_layers,
-                    kv_heads=cfg.num_key_value_heads,
+                    kv_heads=getattr(cfg, "num_key_value_heads",
+                                     cfg.num_attention_heads),
                     head_dim=cfg.hidden_size // cfg.num_attention_heads,
                     max_context=cfg.max_position_embeddings)
         geom.update(kw)

@@ -672,3 +672,33 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         hop_fa.flash_attention_fwd_cuda(q, q, q, True, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["noncausal", "causal"])
+def test_head_dim_72_kernels_match_plain(cuda, causal):
+    """bf16 at d = 72: the forward, dq and dkv kernels (zero-padded to
+    128) against the unpadded plain versions, to 4 bf16 ulps of the
+    largest value; d = 96 still raises."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 256, 4, 72, device=cuda, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 72 ** -0.5
+    out, lse = hop_fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+    want_out, want_lse = hop_fa.flash_attention_fwd_reference(
+        q, k, v, causal, scale)
+    got = (out, *hop_fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
+                                                 do, causal, scale))
+    want = (want_out, *hop_fa.flash_attention_bwd_reference(
+        q, k, v, want_out, want_lse, do, causal, scale))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=2.0 ** -6 * float(w.abs().max()))
+    wide = torch.zeros(1, 64, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        hop_fa.flash_attention_fwd_cuda(wide, wide, wide, True, 1.0)

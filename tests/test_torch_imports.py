@@ -77,6 +77,13 @@ INT8_AND_TRAINING_SURFACE_MODULES = (
     "paddle_tpu_torch.ops.hopper.int8_matmul",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
     "paddle_tpu_torch.optimizer.optimizers")
+# the transformer families beside Llama (GPT, BERT, DiT) and what they
+# use, which both scans must reach
+TRANSFORMER_MODULES = (
+    "paddle_tpu_torch.models.bert", "paddle_tpu_torch.models.dit",
+    "paddle_tpu_torch.models.gpt", "paddle_tpu_torch.nn.initializer",
+    "paddle_tpu_torch.nn.functional.activation",
+    "paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.layer.norm")
 
 
 def _port_modules():
@@ -98,7 +105,8 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
     assert (set(TRAINING_MODULES) | set(RESNET_MODULES)
             | set(SERVING_MODULES) | set(TELEMETRY_MODULES)
             | set(FLEET_MODULES)
-            | set(INT8_AND_TRAINING_SURFACE_MODULES)) <= set(mods)
+            | set(INT8_AND_TRAINING_SURFACE_MODULES)
+            | set(TRANSFORMER_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"
