@@ -56,6 +56,8 @@ built, phase 6's int8 gate and phase 7h; ``--int8-kernel`` stops after
 the kernel loop. Both take ``--root DIR`` (another checkout's port).
 ``python3 chip_smoke.py --families`` builds the flash, K5 and K10
 libraries and runs phase 13 alone (the transformer families).
+``python3 chip_smoke.py --unet`` builds the flash library and runs phase
+14 alone (the Stable-Diffusion UNet).
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -147,7 +149,7 @@ the run with a non-zero exit code and no result line:
    TTFT, TPOT, tokens/s, peak memory, prefix and speculation counters,
    and holds its launches to K5 = 32 x target + 22 x draft dispatches and
    K6 = 65 x target + 45 x draft dispatches. (d) bench.py's on-chip
-   zipf-hosttier mix (the first 24 of its 48 requests, 8 system prompts
+   zipf-hosttier mix (the first 16 of its 48 requests, 8 system prompts
    of 192 tokens, suffixes of 1-32, RandomState(7); 16 new where
    bench.py has 32) in a
    sequential closed loop,
@@ -264,8 +266,28 @@ the run with a non-zero exit code and no result line:
     one dq and one dkv a layer a step (12 / 12 / 28), a falling loss,
     step ms, tokens/s (samples/s), MFU by bench.py's formulas, peak
     memory and a torch.profiler window each.
-14. One ``kernels`` JSON line.
-15. The result line ``{"ok": true, "device": {...}}``.
+14. The Stable-Diffusion UNet (``models.UNet2DConditionModel``, heads of
+    8, which K1-K4 take zero-padded to 64): (a) K1-K4 at SD v1.5's
+    attention shapes, batch 1, non-causal, d=8: self-attention at 4096,
+    1024, 256 and 64 tokens (40, 80, 160, 160 heads) and cross-attention
+    of each against 77 text tokens (a ragged key tile), in f32, the two
+    4096-query shapes in bf16 too, then d=32 (f32, padded to 64) and
+    d=100 (bf16, padded to 128): out, lse, dq, dk, dv against the plain
+    versions, equal bits over two calls, timed (wrappers with their
+    padding, kernels alone, plain, SDPA) against the largest of the
+    bytes, the products and the exponentials over the SFU's ex2 rate.
+    (b) A UNet of SD v1.5's widths cut to two levels (320, 640; one layer
+    a block; 32^2 latents), f32, TF32 off, weights built on the CPU: the
+    loss and every gradient on the card against the CPU, and 2 AdamW
+    TrainSteps. (c) SD v1.5 (``UNetConfig()``) trained in f32 with AdamW
+    (lr 1e-4) at the first of batch 8/4/2 that fits, 64^2 latents and a
+    77 x 768 context: exactly 32 flash forwards, 32 dq and 32 dkv a step
+    (16 TransformerBlocks), a falling loss, step ms, samples/s, MFU (3 x
+    the forward's FLOPs at the true widths over the f32 peak), peak
+    memory, and a torch.profiler window by family (flash, conv,
+    GroupNorm, matmul, elementwise) with the idle share.
+15. One ``kernels`` JSON line.
+16. The result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or the JAX package. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -2289,10 +2311,11 @@ def phase7_mix(vocab):
 # 54.0 s on the card, so the three would pass 150 s), and its 48 requests
 # (drawn as bench.py draws them) cut to the first 32 (the three runs took
 # 122 s of a 641 s run), then to the first 24 when phase 13 came (at 32
-# they took 75-93 s of 584-710 s runs): the whole run aims at half its
-# time limit
+# they took 75-93 s of 584-710 s runs), then to the first 16 when phase
+# 14 came (at 24 they took 65 s of a 685 s run, with 173 spills and 101
+# restored blocks): the whole run aims at half its time limit
 HOSTTIER_REQUESTS, HOSTTIER_PREFIXES, HOSTTIER_PREFIX_LEN = 48, 8, 192
-HOSTTIER_RUN_REQUESTS = 24
+HOSTTIER_RUN_REQUESTS = 16
 HOSTTIER_SUFFIX, HOSTTIER_NEW = 32, 16
 HOSTTIER_BYTES = 1 << 30
 
@@ -2365,7 +2388,7 @@ def tier_copy_ms(pool, iters=20):
 
 def phase_hosttier(model, knobs):
     """Phase 7d: bench.py's on-chip zipf-hosttier mix at full Llama-2-7B
-    in bf16 (the first 24 of its 48 requests, 8 system prompts of 192
+    in bf16 (the first 16 of its 48 requests, 8 system prompts of 192
     tokens, Zipf 1.2, suffixes of 1-32, RandomState(7); 16 new tokens
     where bench.py has 32), sequential closed
     loop, three runs: ``device`` (unbounded cached set, a pool that holds
@@ -4016,10 +4039,12 @@ def phase_training(warmup=2, timed=5, recompute=False, plain=None):
     return dict(counts, losses=losses, peak=peak, step_ms=step_s * 1e3)
 
 
-def profile_train_window(step, batch, wall_ms, steps=2, label="train"):
-    """Device time per training step by kernel family under
-    torch.profiler, and the device's idle share against the unprofiled
-    step time ``wall_ms``. Returns (device ms by family, idle share)."""
+def profile_train_window(step, batch, wall_ms, steps=2, label="train",
+                         families=TRAIN_FAMILIES):
+    """Device time per training step by kernel family (``families``)
+    under torch.profiler, and the device's idle share against the
+    unprofiled step time ``wall_ms``. Returns (device ms by family, idle
+    share)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4028,8 +4053,7 @@ def profile_train_window(step, batch, wall_ms, steps=2, label="train"):
             step(*batch)
         torch.cuda.synchronize()
     others, ranges = {}, {}
-    device_ms = device_ms_by_family(prof, TRAIN_FAMILIES, steps, others,
-                                    ranges)
+    device_ms = device_ms_by_family(prof, families, steps, others, ranges)
     busy_ms = sum(device_ms.values())
     log(f"[{label}-profile] per step: wall_ms={wall_ms} (unprofiled) "
         f"device_busy_ms={busy_ms} device_idle_share={1 - busy_ms / wall_ms}"
@@ -4086,7 +4110,7 @@ def time_flash_case(q, k, v, do, out, lse, causal, scale):
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
 
     d = q.shape[-1]
-    width = fa.PADDED_HEAD_DIMS.get(d, d)
+    width = fa.padded_head_dim(d)
     qp, kp, vp, dop, outp = (fa.pad_head_dim(t, width)
                              for t in (q, k, v, do, out))
     delta = (dop.float() * outp.float()).sum(-1).transpose(1, 2).contiguous()
@@ -4528,6 +4552,316 @@ def families_only():
         list(pool.map(lambda build: build(), (
             flash_attention.build, paged_attention.build, int8_matmul.build)))
     phase_families(card)
+    return 0
+
+
+# -- phase 14: the Stable-Diffusion UNet (SD v1.5 training) -----------------
+
+# SD v1.5's attention (UNetConfig(): heads of 8, 40/80/160 of them): self-
+# attention at the four levels and cross-attention against the 77 text
+# tokens, non-causal, batch 1 (the plain backward's f32 scores); f32 as
+# the UNet trains, the 4096-query shapes in bf16 too; then d = 32 and
+# d = 100 (zero-padded to 64 and 128). (name, dtype, b, sq, sk, h, kv, d,
+# causal)
+UNET_FLASH_CASES = [
+    (f"{kind}_s{s}_sk{sk}_h{h}_d8_{str(dt).split('.')[-1]}", dt, 1, s, sk,
+     h, h, 8, False)
+    for s, h in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+    for kind, sk in (("self", s), ("cross", 77))
+    for dt in ((torch.float32, torch.bfloat16) if s == 4096
+               else (torch.float32,))
+] + [
+    ("self_s1024_sk1024_h20_d32_float32", torch.float32, 1, 1024, 1024, 20,
+     20, 32, False),
+    ("cross_s1024_sk77_h8_d100_bfloat16", torch.bfloat16, 1, 1024, 77, 8, 8,
+     100, False),
+]
+# H100 SXM: MUFU.EX2 at 16 results a clock per SM (the CUDA C Programming
+# Guide's throughput table, compute capability 9.0), 132 SMs at the 1.98
+# GHz boost clock
+EX2_PER_S = 132 * 16 * 1.98e9
+# 14b: SD's channel widths cut to two levels and one layer a block, so
+# that 40 and 80 heads of 8 run; 14c: SD v1.5, the first batch that fits
+UNET_PARITY_CFG = dict(block_out_channels=(320, 640), layers_per_block=1,
+                       attn_blocks=(True, True), sample_size=32)
+UNET_BATCHES = (8, 4, 2)
+UNET_CONTEXT = 77
+UNET_TRANSFORMER_BLOCKS = 16
+UNET_FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
+                 ("flash_dq", ("flash_dq_kernel",)),
+                 ("flash_dkv", ("flash_dkv_kernel",)),
+                 ("conv", ("fprop", "dgrad", "wgrad", "convolve", "conv2d",
+                           "cudnn", "winograd", "nchwToNhwc", "nhwcToNchw")),
+                 ("group_norm", ("RowwiseMoments", "ComputeFusedParams",
+                                 "GroupNorm", "group_norm",
+                                 "ComputeInternalGradients",
+                                 "ComputeGradOutputCoeffs",
+                                 "GammaBetaBackward")),
+                 ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("elementwise", ("elementwise", "reduce_kernel")))
+
+
+def unet_flash_bound(q, k, kernel):
+    """Least time for one kernel's function at the true head_dim: the
+    largest of the bytes (each input read once, each output written once)
+    over the HBM rate, the products over the input type's peak
+    (:func:`flash_bound`'s counts) and the ``b h sq sk`` exponentials
+    each kernel takes (the forward's softmax; dq and dkv each rebuild P)
+    over the SFU's ``ex2`` rate, EX2_PER_S. Returns (ms, "bytes" or
+    "operations", the term: "bytes", "products" or "ex2")."""
+    b, sq, h, _ = q.shape
+    t_flash, by = flash_bound(dict(q=q, k=k, causal=False), kernel)
+    t_exp = b * h * sq * k.shape[1] / EX2_PER_S * 1e3
+    if t_exp > t_flash:
+        return t_exp, "operations", "ex2"
+    return t_flash, by, "bytes" if by == "bytes" else "products"
+
+
+def phase_unet_flash():
+    """Phase 14a: K1-K4 at SD v1.5's attention shapes, each through
+    :func:`flash_check` (out, lse, dq, dk, dv against the plain versions;
+    bf16 also row by row), two calls of the forward and of the backward
+    giving equal bits, and timed (:func:`time_flash_case`, whose wrapper
+    times include the zero padding to 64 or 128) against the three-term
+    bound of :func:`unet_flash_bound`. Returns {case: errors and
+    times}."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2014)
+    results = {}
+    for name, dt, b, sq, sk, h, kv, d, causal in UNET_FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+        do = rnd(b, sq, h, d)
+        scale = 1.0 / d ** 0.5
+        errs, out, lse = flash_check(name, q, k, v, do, causal, scale)
+        fwd = [fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+               for _ in range(2)]
+        bwd = [fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal,
+                                           scale) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(*fwd))
+              and all(torch.equal(x, y) for x, y in zip(*bwd)),
+              f"flash {name}: two calls differ")
+        del fwd, bwd
+        r = dict(errs, **time_flash_case(q, k, v, do, out, lse, causal,
+                                         scale))
+        for kernel in ("fwd", "dq", "dkv"):
+            (r[f"{kernel}_bound_ms"], r[f"{kernel}_bound_by"],
+             r[f"{kernel}_bound_term"]) = unet_flash_bound(q, k, kernel)
+        r["padding_fwd_ms"] = r["fwd_ms"] - r["fwd_kernel_ms"]
+        log(f"[unet-flash] {name} padded_to={fa.padded_head_dim(d)} "
+            + " ".join(f"{key}={val}" for key, val in r.items()))
+        results[name] = r
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+def _unet_batch(batch, size, device, seed=0):
+    """Latents ``[B, 4, size, size]``, timesteps in [0, 1000), a
+    ``[B, 77, 768]`` text context and the noise target, from a seeded
+    ``torch.Generator``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(batch, 4, size, size, device=device, generator=gen)
+    t = torch.randint(0, 1000, (batch,), device=device, generator=gen)
+    ctx = torch.randn(batch, UNET_CONTEXT, 768, device=device, generator=gen)
+    noise = torch.randn(batch, 4, size, size, device=device, generator=gen)
+    return x, t, ctx, noise
+
+
+def phase_unet_train_parity():
+    """Phase 14b: a UNet of SD v1.5's widths cut to two levels
+    (UNET_PARITY_CFG: 40 and 80 heads of 8, cross-attention against 77
+    tokens), f32, TF32 off: its weights built on the CPU and copied to
+    the card; one forward/backward of ``sd_loss_fn`` on the card (flash
+    kernels at d=8 padded to 64) against the CPU (plain versions), the
+    loss to TRAIN_LOSS_RTOL and every gradient to TRAIN_GRAD_REL of its
+    largest element; then 2 AdamW TrainSteps on each device, the losses
+    to TRAIN_TRAJ_RTOL."""
+    from paddle_tpu_torch import (TrainStep, UNet2DConditionModel,
+                                  UNetConfig, load_reference_state,
+                                  sd_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = UNetConfig(**UNET_PARITY_CFG)
+    host = UNet2DConditionModel(cfg, device="cpu", seed=5)
+    card = UNet2DConditionModel(cfg, seed=6)
+    load_reference_state(card, {n: p.detach().numpy()
+                                for n, p in host.named_parameters()})
+    batch = _unet_batch(1, cfg.sample_size, "cpu", seed=21)
+    losses = {}
+    for dev, model in (("cuda", card), ("cpu", host)):
+        loss = sd_loss_fn(model, *(t.to(dev) for t in batch))
+        loss.backward()
+        losses[dev] = float(loss.detach())
+    err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    check(err <= TRAIN_LOSS_RTOL, f"unet: f32 loss differs card vs CPU "
+          f"({losses})")
+    host_params = dict(host.named_parameters())
+    worst = ("", 0.0)
+    for n, p in card.named_parameters():
+        e = _max_rel_err(p.grad, host_params[n].grad)
+        worst = max(worst, (n, e), key=lambda x: x[1])
+        check(e <= TRAIN_GRAD_REL, f"unet: gradient of {n} differs card vs "
+              f"CPU: {e} of its largest element")
+    for model in (card, host):
+        for p in model.parameters():
+            p.grad = None
+    traj = {}
+    for dev, model in (("cuda", card), ("cpu", host)):
+        step = TrainStep(model, AdamW(learning_rate=1e-5), sd_loss_fn)
+        traj[dev] = [float(step(*(t.to(dev) for t in batch)))
+                     for _ in range(2)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(traj["cuda"], traj["cpu"])]
+    log(f"[unet-parity] SD widths (320, 640), 1 layer a block, 32^2, "
+        f"batch 1, f32: "
+        f"loss card={losses['cuda']} cpu={losses['cpu']} rel_err={err}; all "
+        f"{len(host_params)} gradients within {TRAIN_GRAD_REL}, worst "
+        f"{worst[0]} {worst[1]}; 2 AdamW steps card={traj['cuda']} cpu="
+        f"{traj['cpu']} rel_err={rel}; seconds={time.perf_counter() - t0}")
+    check(max(rel) <= TRAIN_TRAJ_RTOL, "unet: f32 TrainStep losses differ "
+          "card vs CPU")
+    del card, host, step
+    torch.cuda.empty_cache()
+
+
+def unet_forward_flops(model, batch):
+    """Forward FLOPs of one ``model(*batch[:3])`` at the true widths,
+    counted by hooks: 2 x MACs of every conv (``out.numel()`` times the
+    weight's ``in/groups x kh x kw``) and every linear (``out.numel()``
+    times ``in``), and 4 b h n m d of every attention (QK^T and PV)."""
+    from paddle_tpu_torch.models.unet import CrossAttention
+    from paddle_tpu_torch.nn.layer import Conv2D, Linear
+
+    total = [0]
+
+    def hook(module, args, out):
+        if isinstance(module, Conv2D):
+            total[0] += 2 * out.numel() * module.weight[0].numel()
+        elif isinstance(module, Linear):
+            total[0] += 2 * out.numel() * module.weight.shape[0]
+        else:
+            x = args[0]
+            m = (args[1] if len(args) > 1 and args[1] is not None
+                 else x).shape[1]
+            total[0] += (4 * x.shape[0] * module.heads * x.shape[1] * m
+                         * module.head_dim)
+
+    handles = [mod.register_forward_hook(hook) for mod in model.modules()
+               if isinstance(mod, (Conv2D, Linear, CrossAttention))]
+    try:
+        with torch.no_grad():
+            model(*batch[:3])
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def phase_unet_training(card, warmup=2, timed=5):
+    """Phase 14c: SD v1.5 (``UNetConfig()``: 64^2 latents, 77-token
+    context, 16 TransformerBlocks of 40/80/160 heads of 8) trained in f32
+    (TF32 off) with AdamW at learning rate 1e-4, at the first of batch
+    8/4/2 that fits: ``warmup`` + ``timed`` steps, each launching exactly
+    32 flash forwards, 32 dq and 32 dkv kernels (self- and
+    cross-attention of every TransformerBlock); the loss finite and
+    falling; step ms, samples/s, MFU (3 x the forward's FLOPs over the
+    f32 peak), parameters, peak memory, then a torch.profiler window by
+    family (flash, conv, GroupNorm, matmul, elementwise) and the idle
+    share. Returns the numbers."""
+    from paddle_tpu_torch import (TrainStep, UNet2DConditionModel,
+                                  UNetConfig, sd_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    per = 2 * UNET_TRANSFORMER_BLOCKS
+    want = dict(fwd=per, dq=per, dkv=per, k6=0)
+    for b in UNET_BATCHES:
+        torch.cuda.synchronize()
+        release_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model = UNet2DConditionModel(UNetConfig(), seed=0)
+        cfg = model.config
+        n_params = sum(p.numel() for p in model.parameters())
+        step = TrainStep(model, AdamW(learning_rate=1e-4), sd_loss_fn)
+        batch = _unet_batch(b, cfg.sample_size, "cuda")
+        losses, seconds = [], []
+        _reset_train_counts()
+        try:
+            for i in range(warmup + timed):
+                before = _train_counts()
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                losses.append(float(step(*batch)))
+                seconds.append(time.perf_counter() - ts)
+                after = _train_counts()
+                got = {k: after[k] - before[k] for k in want}
+                check(got == want, f"unet training step {i}: launches {got} "
+                      f"!= {want}")
+        except torch.cuda.OutOfMemoryError:
+            log(f"[unet-train] batch {b}: out of memory, trying the next")
+            del model, step, batch
+            continue
+        break
+    else:
+        raise SmokeFailure(f"unet: no batch of {UNET_BATCHES} fits")
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(seconds[warmup:]) / timed
+    rate = b / step_s
+    flops = unet_forward_flops(model, batch)
+    mfu = 3 * flops * rate / b / PEAK_OPS_S[torch.float32]
+    log(f"[unet-train] SD v1.5 (UNetConfig()), f32 (TF32 off), AdamW lr "
+        f"1e-4, batch {b} x 64^2, context 77 x 768: params={n_params} "
+        f"losses={losses} step_ms={step_s * 1e3} (mean of {timed} after "
+        f"{warmup} warm-up; each {[t * 1e3 for t in seconds]}) "
+        f"samples_per_s={rate} forward_flops_per_step={flops} mfu={mfu} "
+        f"(3 x forward FLOPs x samples/s / batch over "
+        f"{PEAK_OPS_S[torch.float32]}) peak_memory_bytes={peak} "
+        f"launches={counts} (per step {want}) ({card})")
+    check(all(np.isfinite(losses)), "unet: non-finite training loss")
+    check(losses[-1] < losses[0], f"unet: training loss did not fall: "
+          f"{losses}")
+    device_ms, idle = profile_train_window(step, batch, step_s * 1e3,
+                                           label="unet-train",
+                                           families=UNET_FAMILIES)
+    log(f"[unet-train] seconds={time.perf_counter() - t0}")
+    del model, step, batch
+    release_device_memory()
+    return dict(counts, batch=b, params=n_params, step_ms=step_s * 1e3,
+                rate=rate, unit="samples_per_s", mfu=mfu, peak=peak,
+                losses=losses, forward_flops=flops, device_ms=device_ms,
+                idle_share=idle)
+
+
+def phase_unet(card):
+    """Phase 14, the Stable-Diffusion UNet: 14a K1-K4 at SD v1.5's
+    attention shapes, 14b f32 training parity card vs CPU at SD's widths
+    cut to two levels, 14c SD v1.5 training at full width in f32.
+    Returns every phase's numbers."""
+    t0 = time.perf_counter()
+    flash = phase_unet_flash()
+    phase_unet_train_parity()
+    train = phase_unet_training(card)
+    log(f"[unet] seconds={time.perf_counter() - t0}")
+    return dict(flash=flash, train=train)
+
+
+def unet_only():
+    """``--unet``: the flash library built, then phase 14 alone."""
+    from paddle_tpu_torch.ops.hopper import flash_attention
+
+    _, _, card = phase_device()
+    flash_attention.build()
+    phase_unet(card)
     return 0
 
 
@@ -5693,6 +6027,8 @@ def main() -> int:
         return 0
     if argv == ["--families"]:
         return families_only()
+    if argv == ["--unet"]:
+        return unet_only()
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
@@ -5723,42 +6059,50 @@ def main() -> int:
     t_families = time.perf_counter()
     families = phase_families(card)
     t_families = time.perf_counter() - t_families
+    t_unet = time.perf_counter()
+    unet = phase_unet(card)
+    t_unet = time.perf_counter() - t_unet
     runs.update(families["runs"])
     k5["gpt_decode_b8_h12_d64"] = families["k5"]
     k5_launches = sum(r["k5"] for r in runs.values())
-    trains = dict(llama=train, **families["train"])
+    trains = dict(llama=train, **families["train"], unet=unet["train"])
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
     family_flash = families["flash"]
+    unet_flash = unet["flash"]
 
     def flash_extra(kernel, errs):
         """The flash entry's launches by training run and the families'
-        shapes, each with its times beside its bound."""
+        and the UNet's shapes, each with its times beside its bound."""
         keys = dict(fwd=("fwd_ms", "fwd_kernel_ms", "plain_fwd_ms",
                          "library_fwd_ms"),
                     dq=("bwd_ms", "dq_kernel_ms", "plain_bwd_ms",
                         "library_bwd_ms"),
                     dkv=("bwd_ms", "dkv_kernel_ms", "plain_bwd_ms",
                          "library_bwd_ms"))[kernel]
+        def shapes(cases, extra):
+            return {n: dict({k: r[k] for k in keys if k in r},
+                            bound_ms=r[f"{kernel}_bound_ms"],
+                            bound_by=r[f"{kernel}_bound_by"],
+                            max_abs_err=max(r[e] for e in errs),
+                            **{k: r[k] for k in extra if k in r})
+                    for n, r in cases.items()}
+
         return dict(
             launches_by_run={k: t[kernel] for k, t in trains.items()},
-            family_shapes={
-                n: dict({k: r[k] for k in keys if k in r},
-                        bound_ms=r[f"{kernel}_bound_ms"],
-                        bound_by=r[f"{kernel}_bound_by"],
-                        max_abs_err=max(r[e] for e in errs),
-                        **{k: r[k] for k in ("d64_fwd_ms", "d64_bwd_ms")
-                           if k in r})
-                for n, r in family_flash.items()})
+            family_shapes=shapes(family_flash, ("d64_fwd_ms", "d64_bwd_ms")),
+            unet_shapes=shapes(unet_flash, (f"{kernel}_bound_term",
+                                            "padding_fwd_ms")))
 
     def flash_launches(kernel):
         return sum(t[kernel] for t in trains.values())
 
     def flash_err(*keys):
         """The largest error of ``keys`` over every flash case checked,
-        the families' among them."""
-        return max(e[k] for e in (*flash.values(), *family_flash.values())
+        the families' and the UNet's among them."""
+        return max(e[k] for e in (*flash.values(), *family_flash.values(),
+                                   *unet_flash.values())
                    for k in keys)
 
     kernels = [
@@ -5833,7 +6177,7 @@ def main() -> int:
         other_shapes={c: ru_times[c]["k9"] for c in k9_main[1:]}))
     log(f"[done] seconds={time.perf_counter() - t_start} (of which the "
         f"ResNet phases 10-12: {t_resnet}, the families' phase 13: "
-        f"{t_families})")
+        f"{t_families}, the UNet's phase 14: {t_unet})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -31,6 +31,10 @@ loss functions and layers of ``nn``. The transformer families beside
 Llama run on the same kernels: GPT serving (engine, ``generate``, int8)
 and training, BERT pretraining and DiT training (``models``, with
 ``nn.LayerNorm``), K1-K4 taking DiT-XL/2's head_dim 72 zero-padded.
+The Stable-Diffusion UNet (``models.UNet2DConditionModel``, SD v1.5
+training in f32, with ``nn.GroupNorm``, ``nn.functional.interpolate``
+and the simple activations) runs K1-K4 at head_dim 8: any head_dim up to
+128 runs zero-padded to the kernels' 64 or 128.
 """
 
 from . import flags, nn, optimizer, telemetry, vision
@@ -38,11 +42,13 @@ from .convert import load_reference_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPretraining, DiT, DiTConfig,
                      GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
-                     dit_loss_fn, llama_loss_fn, quantize_for_decode)
+                     UNet2DConditionModel, UNetConfig, dit_loss_fn,
+                     llama_loss_fn, quantize_for_decode, sd_loss_fn)
 from .serving import ServingEngine
 
 __all__ = ["BertConfig", "BertForPretraining", "DiT", "DiTConfig",
            "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
-           "ServingEngine", "TrainStep", "dit_loss_fn", "flags",
-           "llama_loss_fn", "load_reference_state", "nn", "optimizer",
-           "quantize_for_decode", "telemetry", "vision"]
+           "ServingEngine", "TrainStep", "UNet2DConditionModel",
+           "UNetConfig", "dit_loss_fn", "flags", "llama_loss_fn",
+           "load_reference_state", "nn", "optimizer", "quantize_for_decode",
+           "sd_loss_fn", "telemetry", "vision"]

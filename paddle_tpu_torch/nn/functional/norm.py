@@ -1,9 +1,10 @@
 """Normalisation functions (port of ``nn/functional/norm.py``:
-``layer_norm``, ``rms_norm``, ``batch_norm`` and ``ema_update_stats``).
+``layer_norm``, ``group_norm``, ``rms_norm``, ``batch_norm`` and
+``ema_update_stats``).
 
-``layer_norm`` is plain PyTorch, as the JAX package's is plain XLA (no
-TPU kernel behind it): statistics and the affine in f32, the result cast
-back to the input dtype.
+``layer_norm`` and ``group_norm`` are plain PyTorch, as the JAX
+package's are plain XLA (no TPU kernel behind them): statistics and the
+affine in f32, the result cast back to the input dtype.
 
 ``rms_norm`` goes through ``RMSNormFunction`` on both devices, so it has
 a gradient everywhere: the tensor's device picks the forward (the CUDA
@@ -48,6 +49,28 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
         out = out * weight.float()
     if bias is not None:
         out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW"):
+    """Normalise each of ``num_groups`` groups of channels over the group's
+    channels and every spatial position (the biased variance), times
+    ``weight`` plus ``bias`` per channel, all in f32, cast to x's dtype.
+    ``data_format`` ending in ``C`` (``NHWC``, ``NLC``, ...) puts the
+    channels last. The statistics and the affine are PyTorch's
+    ``group_norm`` on the f32 input: one kernel each way on the card,
+    where the JAX body's composition would keep every intermediate for
+    autograd."""
+    channel_last = data_format.endswith("C") and len(data_format) > 2
+    v = x.float()
+    if channel_last:
+        v = v.movedim(-1, 1)
+    out = torch.nn.functional.group_norm(
+        v, num_groups, None if weight is None else weight.float(),
+        None if bias is None else bias.float(), epsilon)
+    if channel_last:
+        out = out.movedim(1, -1)
     return out.to(x.dtype)
 
 

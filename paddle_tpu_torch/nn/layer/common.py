@@ -1,4 +1,5 @@
-"""Common layers (port of ``nn/layer/common.py``: ``Linear``)."""
+"""Common layers (port of ``nn/layer/common.py``: ``Linear`` and
+``Upsample``)."""
 
 from __future__ import annotations
 
@@ -32,3 +33,18 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Upsample(nn.Module):
+    """``nn.functional.interpolate`` with the layer's arguments."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.data_format)

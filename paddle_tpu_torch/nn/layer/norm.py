@@ -1,9 +1,10 @@
-"""Norm layers (port of ``nn/layer/norm.py``: ``LayerNorm`` and
-``BatchNorm2D``).
+"""Norm layers (port of ``nn/layer/norm.py``: ``LayerNorm``,
+``GroupNorm`` and ``BatchNorm2D``).
 
 ``LayerNorm`` holds ``weight`` (ones) and ``bias`` (zeros) over
 ``normalized_shape``, as the JAX package names them, and runs
-``nn.functional.layer_norm``.
+``nn.functional.layer_norm``; ``GroupNorm`` holds them over the channels
+and runs ``nn.functional.group_norm``.
 
 The running statistics are f32 buffers named ``_mean`` and
 ``_variance``, as in the JAX package's state dict (for example
@@ -45,6 +46,28 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._num_groups, self._epsilon = num_groups, epsilon
+        self._data_format = data_format
+        self.weight = (None if weight_attr is False
+                       else new_parameter((num_channels,), device, dtype))
+        self.bias = (None if bias_attr is False
+                     else new_parameter((num_channels,), device, dtype))
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
 
 
 class BatchNorm2D(nn.Module):

@@ -42,14 +42,19 @@ are the plain PyTorch versions (the backward is the FA2 algebra from
 ``lse``, not autograd of the forward). A CPU tensor runs them; a CUDA
 tensor launches the kernels or raises, and never falls back.
 
-The kernels tile head_dim 64 and 128. DiT-XL/2's head_dim 72 (hidden
-1152 over 16 heads) runs padded: :func:`flash_attention_fwd_padded` and
-:func:`flash_attention_bwd_padded` zero-pad q, k, v (and out, dout) to
-``PADDED_HEAD_DIMS[72] = 128``, run the 128-wide kernels with the
-caller's scale (``1/sqrt(72)``, not ``1/sqrt(128)``) and slice out, dq,
-dk and dv back to 72 columns. Zero columns add nothing to ``QK^T``, and
-their outputs and gradients are zero, so the padded result is the
-unpadded one. Any other head_dim raises on the card.
+The kernels tile head_dim 64 and 128. Any other head_dim up to 128
+runs zero-padded to the narrowest of them that holds it
+(:func:`padded_head_dim`: 64 below 64, 128 between): DiT-XL/2's 72
+(hidden 1152 over 16 heads) and the Stable-Diffusion UNet's 8 (its
+``attention_head_dim`` is the per-head width) among them.
+:func:`flash_attention_fwd_padded` and :func:`flash_attention_bwd_padded`
+zero-pad q, k, v (and out, dout) to that width, run the kernels with the
+caller's scale (``1/sqrt(d)``, not that of the padded width) and slice
+out, dq, dk and dv back to ``d`` columns. Zero columns add nothing to
+``QK^T``, and their outputs and gradients are zero, so the padded result
+is the unpadded one. A head_dim above 128 raises on the card (the JAX
+package's Pallas kernel takes up to 256; a 256-wide tile is still to be
+written).
 """
 
 from __future__ import annotations
@@ -63,9 +68,6 @@ import torch
 from ._build import build_library, count_launch
 
 HEAD_DIMS = (64, 128)
-# head_dim -> the kernels' width it runs at, zero-padded (see the module
-# note); a native tile for these widths is still to be written
-PADDED_HEAD_DIMS = {72: 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = ["flash_attention.cu"]
 
@@ -146,6 +148,13 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def padded_head_dim(d):
+    """The kernels' width that head_dim ``d`` runs at: ``d`` itself for
+    64 and 128, else the narrowest of them above ``d``, zero-padded (see
+    the module note); None above 128, which the kernels do not take."""
+    return next((w for w in HEAD_DIMS if 0 < d <= w), None)
+
+
 def pad_head_dim(t, width):
     """``t`` (``[..., d]``) with zero columns appended up to ``width``."""
     return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
@@ -153,12 +162,12 @@ def pad_head_dim(t, width):
 
 def flash_attention_fwd_padded(q, k, v, causal, scale,
                                fwd=flash_attention_fwd_reference):
-    """The forward at a head_dim of ``PADDED_HEAD_DIMS``: ``fwd`` (the
-    kernel's wrapper on the card) on q, k, v zero-padded to the kernels'
-    width, with the caller's ``scale``; out sliced back to ``d``
-    columns, lse as it comes."""
+    """The forward at a head_dim the kernels do not tile: ``fwd`` (the
+    kernel's wrapper on the card) on q, k, v zero-padded to
+    :func:`padded_head_dim`, with the caller's ``scale``; out sliced back
+    to ``d`` columns, lse as it comes."""
     d = q.shape[-1]
-    width = PADDED_HEAD_DIMS[d]
+    width = padded_head_dim(d)
     out, lse = fwd(*(pad_head_dim(t, width) for t in (q, k, v)), causal,
                    scale)
     return out[..., :d], lse
@@ -166,12 +175,12 @@ def flash_attention_fwd_padded(q, k, v, causal, scale,
 
 def flash_attention_bwd_padded(q, k, v, out, lse, dout, causal, scale,
                                bwd=flash_attention_bwd_reference):
-    """The backward at a head_dim of ``PADDED_HEAD_DIMS``: ``bwd`` on q,
-    k, v, out and dout zero-padded to the kernels' width (delta =
+    """The backward at a head_dim the kernels do not tile: ``bwd`` on q,
+    k, v, out and dout zero-padded to :func:`padded_head_dim` (delta =
     rowsum(dout * out) is unchanged by zero columns), with the caller's
     ``scale``; dq, dk and dv sliced back to ``d`` columns."""
     d = q.shape[-1]
-    width = PADDED_HEAD_DIMS[d]
+    width = padded_head_dim(d)
     qp, kp, vp, op, dop = (pad_head_dim(t, width)
                            for t in (q, k, v, out, dout))
     grads = bwd(qp, kp, vp, op, lse, dop, causal, scale)
@@ -430,8 +439,12 @@ def _check_cuda(tensors):
                          f"{sorted(map(str, devs))}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[3]}: the kernels take "
-                         f"{HEAD_DIMS}, and {tuple(PADDED_HEAD_DIMS)} "
-                         f"zero-padded")
+                         f"{HEAD_DIMS}, and any other head_dim up to "
+                         f"{HEAD_DIMS[-1]} zero-padded")
+
+
+def _runs_padded(d):
+    return d not in HEAD_DIMS and padded_head_dim(d) is not None
 
 
 def _rows_aligned(t):
@@ -458,9 +471,9 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
     kernel, for f32 the CUDA-core one. Same contract as
     :func:`flash_attention_fwd_reference`. Raises ``ValueError`` on
     inputs the kernel does not take and ``RuntimeError`` when the launch
-    fails. A head_dim of ``PADDED_HEAD_DIMS`` runs zero-padded
+    fails. A head_dim up to 128 other than 64 and 128 runs zero-padded
     (:func:`flash_attention_fwd_padded`)."""
-    if q.shape[-1] in PADDED_HEAD_DIMS:
+    if _runs_padded(q.shape[-1]):
         return flash_attention_fwd_padded(q, k, v, causal, scale,
                                           fwd=flash_attention_fwd_cuda)
     _check(q, k, v, causal)
@@ -551,10 +564,10 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     """The backward on the card: same contract as
     :func:`flash_attention_bwd_reference`. ``delta = rowsum(dout * out)``
     is computed here in plain torch, as the JAX package computes it
-    outside its kernels; then the dq and dkv kernels run. A head_dim of
-    ``PADDED_HEAD_DIMS`` runs zero-padded
+    outside its kernels; then the dq and dkv kernels run. A head_dim up
+    to 128 other than 64 and 128 runs zero-padded
     (:func:`flash_attention_bwd_padded`)."""
-    if q.shape[-1] in PADDED_HEAD_DIMS:
+    if _runs_padded(q.shape[-1]):
         return flash_attention_bwd_padded(q, k, v, out, lse, dout, causal,
                                           scale, bwd=flash_attention_bwd_cuda)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()

@@ -63,6 +63,8 @@ FLASH_CASES = [
     ("noncausal_sq128_sk256", 128, 256, 1, 1, 32, False),
     ("gqa_g2_causal_s128", 128, 128, 2, 1, 32, True),
     ("d64_g1_packed_pairs", 128, 128, 2, 2, 64, True),
+    # the Stable-Diffusion UNet's heads: 8 wide, non-causal
+    ("noncausal_s128_d8", 128, 128, 2, 2, 8, False),
 ]
 
 
@@ -522,6 +524,49 @@ def test_bwd_schedule_model_matches_plain(case, dtype):
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("d", [4, 8, 32, 72, 100])
+@pytest.mark.parametrize("causal,sq,sk", [(False, 40, 77), (True, 40, 40)],
+                         ids=["noncausal_sk77", "causal"])
+def test_padded_head_dim_matches_unpadded(d, causal, sq, sk):
+    """The kernels' wrappers run a head_dim other than 64 and 128 zero-
+    padded to the narrowest of them that holds it (64 below 64, 128
+    between), with the caller's scale 1/sqrt(d), and slice out, dq, dk
+    and dv back; on the plain versions that equals the unpadded forward
+    and backward at d (f32, 1e-5: zero columns add nothing but the order
+    of the sums). GQA 4/2, cross-attention lengths 40 x 77 (the UNet's
+    77 text tokens) and causal."""
+    assert hop_fa.padded_head_dim(d) == (64 if d < 64 else 128)
+    rng = np.random.RandomState(d)
+    q, k, v, dout = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                     for shape in ((2, sq, 4, d), (2, sk, 2, d),
+                                   (2, sk, 2, d), (2, sq, 4, d)))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = hop_fa.flash_attention_fwd_padded(q, k, v, causal, scale)
+    want_out, want_lse = hop_fa.flash_attention_fwd_reference(
+        q, k, v, causal, scale)
+    assert out.shape == want_out.shape
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    got = hop_fa.flash_attention_bwd_padded(q, k, v, out, lse, dout, causal,
+                                            scale)
+    want = hop_fa.flash_attention_bwd_reference(q, k, v, want_out, want_lse,
+                                                dout, causal, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def test_padded_head_dim_rule():
+    """64 and 128 run as they are; every other width up to 128 pads to the
+    narrowest that holds it; none above 128 (the card raises there)."""
+    assert [hop_fa.padded_head_dim(d) for d in (1, 8, 63, 64, 65, 72, 100,
+                                                127, 128)] == \
+        [64, 64, 64, 64, 128, 128, 128, 128, 128]
+    assert hop_fa.padded_head_dim(129) is None
+    assert hop_fa.padded_head_dim(136) is None
+    assert hop_fa.padded_head_dim(256) is None
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -666,7 +711,7 @@ def test_flash_fwd_takes_unaligned_views(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 96, device=cuda)
+    q = torch.zeros(1, 64, 2, 136, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         hop_fa.flash_attention_fwd_cuda(q, q, q, True, 1.0)
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
@@ -680,7 +725,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 def test_head_dim_72_kernels_match_plain(cuda, causal):
     """bf16 at d = 72: the forward, dq and dkv kernels (zero-padded to
     128) against the unpadded plain versions, to 4 bf16 ulps of the
-    largest value; d = 96 still raises."""
+    largest value; d = 136 still raises."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v, do = (torch.randn(2, 256, 4, 72, device=cuda, generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
@@ -699,6 +744,43 @@ def test_head_dim_72_kernels_match_plain(cuda, causal):
         w = w.float()
         torch.testing.assert_close(g.float(), w, rtol=0,
                                    atol=2.0 ** -6 * float(w.abs().max()))
-    wide = torch.zeros(1, 64, 2, 96, device=cuda)
+    wide = torch.zeros(1, 64, 2, 136, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         hop_fa.flash_attention_fwd_cuda(wide, wide, wide, True, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 32])
+def test_narrow_head_dims_kernels_match_plain(cuda, d, dtype):
+    """The UNet's narrow heads on the card: d = 8 and 32, zero-padded to
+    64, non-causal self-attention (256 tokens) and cross-attention
+    against 77 keys (a ragged last key tile): out, lse, dq, dk and dv
+    against the unpadded plain versions (f32 to 1e-4, bf16 to 4 bf16
+    ulps of the largest value); d = 136 raises."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    tdt = getattr(torch, dtype)
+    for sk in (256, 77):
+        q, do = (torch.randn(2, 256, 8, d, device=cuda, generator=gen)
+                 .to(tdt) for _ in range(2))
+        k, v = (torch.randn(2, sk, 8, d, device=cuda, generator=gen)
+                .to(tdt) for _ in range(2))
+        scale = d ** -0.5
+        out, lse = hop_fa.flash_attention_fwd_cuda(q, k, v, False, scale)
+        want_out, want_lse = hop_fa.flash_attention_fwd_reference(
+            q, k, v, False, scale)
+        got = (out, *hop_fa.flash_attention_bwd_cuda(
+            q, k, v, want_out, want_lse, do, False, scale))
+        want = (want_out, *hop_fa.flash_attention_bwd_reference(
+            q, k, v, want_out, want_lse, do, False, scale))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            w = w.float()
+            tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * float(
+                w.abs().max())
+            torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
+    wide = torch.zeros(1, 64, 2, 136, device=cuda, dtype=tdt)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        hop_fa.flash_attention_fwd_cuda(wide, wide, wide, False, 1.0)

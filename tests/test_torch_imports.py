@@ -84,6 +84,16 @@ TRANSFORMER_MODULES = (
     "paddle_tpu_torch.models.gpt", "paddle_tpu_torch.nn.initializer",
     "paddle_tpu_torch.nn.functional.activation",
     "paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.layer.norm")
+# the Stable-Diffusion UNet and the nn surface it brings (GroupNorm,
+# interpolate and Upsample, the simple activations), which both scans must
+# reach
+UNET_MODULES = (
+    "paddle_tpu_torch.models.unet",
+    "paddle_tpu_torch.nn.functional.activation",
+    "paddle_tpu_torch.nn.functional.common",
+    "paddle_tpu_torch.nn.functional.norm",
+    "paddle_tpu_torch.nn.layer.activation", "paddle_tpu_torch.nn.layer.common",
+    "paddle_tpu_torch.nn.layer.norm")
 
 
 def _port_modules():
@@ -106,7 +116,7 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
             | set(SERVING_MODULES) | set(TELEMETRY_MODULES)
             | set(FLEET_MODULES)
             | set(INT8_AND_TRAINING_SURFACE_MODULES)
-            | set(TRANSFORMER_MODULES)) <= set(mods)
+            | set(TRANSFORMER_MODULES) | set(UNET_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -96,10 +96,12 @@ def _state(jm):
             for k, v in jm.state_dict().items()}
 
 
-def _port_model(jm, dtype="float32"):
+def _port_model(state, dtype="float32"):
+    """The port's ResNet holding ``state``, a JAX model's arrays
+    (:func:`_state`)."""
     tm = ResNet(BottleneckBlock, DEPTH, num_classes=CLASSES, device="cpu",
                 dtype=dtype)
-    load_reference_state(tm, _state(jm))
+    load_reference_state(tm, state)
     tm.train()
     return tm
 
@@ -147,8 +149,7 @@ def test_resnet_f32_flags_off_matches_jax():
     positions)."""
     assert not flags.flag_value("use_fused_resnet_unit")
     state, (x, y), jloss, jlogits, jbuf, jgrads = _jax_f32_step()
-    tm = _port_model(_jax_model())
-    load_reference_state(tm, state)
+    tm = _port_model(state)
     logits = tm(torch.from_numpy(x))
     loss = CrossEntropyLoss()(logits, torch.from_numpy(y))
     loss.backward()
@@ -247,7 +248,7 @@ def test_resnet_routes_match_jax_with_flags_on(resnet_flags):
 
     resnet_flags(True)
     jm = _jax_model(bf16=True)
-    tm = _port_model(jm, "bfloat16")
+    tm = _port_model(_state(jm), "bfloat16")
     routes = {}
     for name, shape in BLOCK_INPUTS.items():
         zeros = np.zeros(shape, np.float32)
@@ -381,8 +382,8 @@ def test_resnet_bf16_fused_trainstep_matches_jax(resnet_flags):
     is checked in f32 above."""
     resnet_flags(True)
     jm = _jax_model(bf16=True)
-    tm = _port_model(jm, "bfloat16")
     init = _state(jm)
+    tm = _port_model(init, "bfloat16")
     jce, tce = jnn.CrossEntropyLoss(), CrossEntropyLoss()
     jstep = JTrainStep(jm, jopt.Momentum(
         learning_rate=1e-3, momentum=0.9, parameters=jm.parameters(),
@@ -392,7 +393,15 @@ def test_resnet_bf16_fused_trainstep_matches_jax(resnet_flags):
                       lambda m, v, y: tce(m(v), y))
     x, y = _batch(1)
     xb = x.astype("bfloat16")
-    jl = [float(jstep(pt.to_tensor(xb), pt.to_tensor(y))) for _ in range(2)]
+    # the step's outputs are committed to the device, and a first call on
+    # uncommitted arrays would compile the step a second time
+    dev = jax.devices()[0]
+    for _, t in (*jm.named_parameters(), *jm.named_buffers()):
+        t._data = jax.device_put(t._data, dev)
+    jstep._init_state()
+    jstep._state = jax.device_put(jstep._state, dev)
+    jl = [float(jstep(*(pt.to_tensor(jax.device_put(jnp.asarray(a), dev))
+                        for a in (xb, y)))) for _ in range(2)]
     tl = [float(tstep(torch.from_numpy(x).bfloat16(), torch.from_numpy(y)))
           for _ in range(2)]
     np.testing.assert_allclose(tl, jl, rtol=3e-2)

@@ -461,7 +461,7 @@ def test_head_dim_72_padded_matches_unpadded(causal):
                      for shape in ((b, s, h, d), (b, s, kv, d),
                                    (b, s, kv, d), (b, s, h, d)))
     scale = 1.0 / math.sqrt(d)
-    assert hop_fa.PADDED_HEAD_DIMS[d] == 128
+    assert hop_fa.padded_head_dim(d) == 128
     out, lse = hop_fa.flash_attention_fwd_padded(q, k, v, causal, scale)
     want_out, want_lse = hop_fa.flash_attention_fwd_reference(
         q, k, v, causal, scale)
