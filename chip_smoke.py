@@ -57,7 +57,8 @@ the kernel loop. Both take ``--root DIR`` (another checkout's port).
 ``python3 chip_smoke.py --families`` builds the flash, K5 and K10
 libraries and runs phase 13 alone (the transformer families).
 ``python3 chip_smoke.py --unet`` builds the flash library and runs phase
-14 alone (the Stable-Diffusion UNet).
+14 alone (the Stable-Diffusion UNet). ``python3 chip_smoke.py --amp``
+builds the flash and K6 libraries and runs phase 15 alone (amp).
 
 Phases, in order; each one checks its own results and any failure ends
 the run with a non-zero exit code and no result line:
@@ -286,8 +287,27 @@ the run with a non-zero exit code and no result line:
     the forward's FLOPs at the true widths over the f32 peak), peak
     memory, and a torch.profiler window by family (flash, conv,
     GroupNorm, matmul, elementwise) with the idle share.
-15. One ``kernels`` JSON line.
-16. The result line ``{"ok": true, "device": {...}}``.
+15. amp (``paddle_tpu_torch.amp``): (a) K1-K4 in fp16 at Llama-2-7B's
+    training shape (b=2 s=4096 h=32 d=128, causal) and SD v1.5's
+    4096-token self-attention (d=8 padded to 64), then head_dim 256 in
+    f32, bf16 and fp16 (b=1 s=2048 h=8 causal and non-causal, a ragged
+    2048 x 77, d=160 padded to 256): out, lse, dq, dk, dv against the
+    plain versions (fp16 to its own limits), equal bits over two calls,
+    timed against the bound and SDPA. (b) Card against CPU under
+    ``auto_cast``: the tiny UNet through ``TrainStep`` under O1 and O2
+    bf16, the tiny Llama eager under O1 fp16 with a ``GradScaler``: the
+    loss and every gradient. (c) SD v1.5 with f32 parameters trained
+    under ``auto_cast(level="O1")`` (bf16) with AdamW at the first of
+    batch 8/4/2 that fits: exactly 32 bf16 flash forwards, 32 dq and 32
+    dkv a step (the wrappers' counts by form: type and head width), a
+    falling loss, step ms, samples/s, MFU over the bf16 peak, peak memory
+    and a profile window. (d) Llama-2-7B's widths at 8 layers, f32 weights,
+    eager under ``auto_cast(level="O1", dtype="float16")`` with
+    ``GradScaler(init_loss_scaling=65536)``: 8/8/8 fp16 flash launches
+    and 17 f32 K6 forwards a step, the scale after each step, at least
+    one applied step, a finite loss.
+16. One ``kernels`` JSON line.
+17. The result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or the JAX package. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -342,6 +362,11 @@ FLASH_BF16_REL = 2.0 ** -6
 # kernels (the mma.sync ones and the wgmma ones alike) read 1/116 on the
 # worst dq row at the training shape and 2^-7 elsewhere
 FLASH_GRAD_ROW_REL = 2.0 ** -5
+# fp16 keeps 3 more mantissa bits than bf16 (and the kernels round P and
+# dS to fp16): the bf16 limits over 4, a factor of 2 short of the 8 those
+# bits give
+FLASH_F16_REL = 2.0 ** -8
+FLASH_F16_GRAD_ROW_REL = 2.0 ** -7
 # the least row scale of dq, dk and dv, as a share of the tensor's largest
 # value: causal dq's first row is zero in exact arithmetic (one key, so
 # P = 1 and dS = dP - delta = 0) and rounding noise on both sides
@@ -482,12 +507,18 @@ def phase_build():
         nvcc_logs = list(pool.map(lambda build: build(), builds))
     t_all = time.perf_counter() - t0
     for nvcc_log in nvcc_logs:
-        for line in nvcc_log.splitlines():
-            if "Compiling entry" in line:
-                log(f"[build] ptxas: {line.split(chr(39))[1]}")
-            if any(w in line for w in ("registers", "spill", "smem", "C75")):
-                log(f"[build] ptxas: {line.strip()}")
+        log_ptxas(nvcc_log)
     log(f"[build] seconds={t_all}")
+
+
+def log_ptxas(nvcc_log):
+    """Each kernel's ptxas lines of one build log: its name, registers,
+    spills, shared memory and C75xx notes."""
+    for line in nvcc_log.splitlines():
+        if "Compiling entry" in line:
+            log(f"[build] ptxas: {line.split(chr(39))[1]}")
+        if any(w in line for w in ("registers", "spill", "smem", "C75")):
+            log(f"[build] ptxas: {line.strip()}")
 
 
 # -- phase 2 and 5: K5 --------------------------------------------------------
@@ -1010,7 +1041,7 @@ def flash_check(name, q, k, v, do, causal, scale):
                                         causal, scale)
     again = (fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
                                          do, causal, scale)
-             if dt == torch.bfloat16 else grads)
+             if dt != torch.float32 else grads)
     want_grads = fa.flash_attention_bwd_reference(
         q, k, v, want_out, want_lse, do, causal, scale)
     torch.cuda.synchronize()
@@ -1025,10 +1056,13 @@ def flash_check(name, q, k, v, do, causal, scale):
         check(got.shape == want.shape, f"flash {name}: {key} shape "
               f"{tuple(got.shape)} != {tuple(want.shape)}")
         err = float((got.float() - want.float()).abs().max())
+        half_rel, grad_row_rel = ((FLASH_F16_REL, FLASH_F16_GRAD_ROW_REL)
+                                  if dt == torch.float16 else
+                                  (FLASH_BF16_REL, FLASH_GRAD_ROW_REL))
         tol = (FLASH_F32_ATOL if dt == torch.float32 else
-               FLASH_BF16_REL * float(want.float().abs().max()))
+               half_rel * float(want.float().abs().max()))
         errs[key] = err
-        row_tol = FLASH_BF16_REL if key == "out" else FLASH_GRAD_ROW_REL
+        row_tol = half_rel if key == "out" else grad_row_rel
         row_err = (flash_row_err(got, want, FLASH_ROW_FLOOR
                                  if key != "out" else 0.0)
                    if dt != torch.float32 else 0.0)
@@ -3930,23 +3964,39 @@ TRAIN_FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma")))
 
 
-def _train_counts():
+def _train_wrappers():
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
     from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
 
-    return dict(fwd=fa.flash_attention_fwd_cuda.launches,
-                dq=fa.flash_attention_dq_cuda.launches,
-                dkv=fa.flash_attention_dkv_cuda.launches,
-                k6=rms_norm_cuda.launches)
+    return dict(fwd=fa.flash_attention_fwd_cuda,
+                dq=fa.flash_attention_dq_cuda,
+                dkv=fa.flash_attention_dkv_cuda, k6=rms_norm_cuda)
+
+
+def _train_counts():
+    """The flash and K6 launches since the last reset, by kernel and by
+    form: ``{"fwd": {"torch.bfloat16/d128": n, ...}, ..., "k6":
+    {"torch.float32": n}}`` (at head_dim 256 a dkv call is a dK and a dV
+    launch)."""
+    return {k: dict(fn.launches_by_form)
+            for k, fn in _train_wrappers().items()}
 
 
 def _reset_train_counts():
-    from paddle_tpu_torch.ops.hopper import flash_attention as fa
-    from paddle_tpu_torch.ops.hopper.rms_norm import rms_norm_cuda
+    from paddle_tpu_torch.ops.hopper._build import reset_launches
 
-    for fn in (fa.flash_attention_fwd_cuda, fa.flash_attention_dq_cuda,
-               fa.flash_attention_dkv_cuda, rms_norm_cuda):
-        fn.launches = 0
+    reset_launches(*_train_wrappers().values())
+
+
+def _totals(counts):
+    """Launches by kernel, every form summed."""
+    return {k: sum(by.values()) for k, by in counts.items()}
+
+
+def _step_counts(before, after):
+    """The launches by kernel and form between two :func:`_train_counts`."""
+    return {k: {f: n - before[k].get(f, 0) for f, n in after[k].items()
+                if n - before[k].get(f, 0)} for k in after}
 
 
 def phase_training(warmup=2, timed=5, recompute=False, plain=None):
@@ -3996,8 +4046,7 @@ def phase_training(warmup=2, timed=5, recompute=False, plain=None):
         if i == 0:
             # weights, f32 masters and moments: what outlives a step
             mem_state = torch.cuda.memory_allocated()
-        after = _train_counts()
-        got = {k: after[k] - before[k] for k in want}
+        got = _totals(_step_counts(before, _train_counts()))
         check(got == want, f"training step {i}: launches {got} != {want}")
     counts = _train_counts()
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -4036,7 +4085,8 @@ def phase_training(warmup=2, timed=5, recompute=False, plain=None):
               "the plain step's")
     del model, step
     torch.cuda.empty_cache()
-    return dict(counts, losses=losses, peak=peak, step_ms=step_s * 1e3)
+    return dict(_totals(counts), forms=counts, losses=losses, peak=peak,
+                step_ms=step_s * 1e3)
 
 
 def profile_train_window(step, batch, wall_ms, steps=2, label="train",
@@ -4485,8 +4535,7 @@ def train_family(family, card, warmup=2, timed=5):
                 ts = time.perf_counter()
                 losses.append(float(step(*batch)))
                 seconds.append(time.perf_counter() - ts)
-                after = _train_counts()
-                got = {k: after[k] - before[k] for k in want}
+                got = _totals(_step_counts(before, _train_counts()))
                 check(got == want, f"{family} training step {i}: launches "
                       f"{got} != {want}")
         except torch.cuda.OutOfMemoryError:
@@ -4521,7 +4570,8 @@ def train_family(family, card, warmup=2, timed=5):
     log(f"[family-train] {family} seconds={time.perf_counter() - t0}")
     del model, step, batch
     release_device_memory()
-    return dict(counts, layers=layers, batch=list(shape), step_ms=step_s * 1e3,
+    return dict(_totals(counts), forms=counts, layers=layers,
+                batch=list(shape), step_ms=step_s * 1e3,
                 rate=rate, unit=unit, mfu=mfu, peak=peak, losses=losses,
                 device_ms=device_ms, idle_share=idle)
 
@@ -4764,7 +4814,7 @@ def unet_forward_flops(model, batch):
     return total[0]
 
 
-def phase_unet_training(card, warmup=2, timed=5):
+def phase_unet_training(card, warmup=2, timed=3):
     """Phase 14c: SD v1.5 (``UNetConfig()``: 64^2 latents, 77-token
     context, 16 TransformerBlocks of 40/80/160 heads of 8) trained in f32
     (TF32 off) with AdamW at learning rate 1e-4, at the first of batch
@@ -4802,8 +4852,7 @@ def phase_unet_training(card, warmup=2, timed=5):
                 ts = time.perf_counter()
                 losses.append(float(step(*batch)))
                 seconds.append(time.perf_counter() - ts)
-                after = _train_counts()
-                got = {k: after[k] - before[k] for k in want}
+                got = _totals(_step_counts(before, _train_counts()))
                 check(got == want, f"unet training step {i}: launches {got} "
                       f"!= {want}")
         except torch.cuda.OutOfMemoryError:
@@ -4836,7 +4885,8 @@ def phase_unet_training(card, warmup=2, timed=5):
     log(f"[unet-train] seconds={time.perf_counter() - t0}")
     del model, step, batch
     release_device_memory()
-    return dict(counts, batch=b, params=n_params, step_ms=step_s * 1e3,
+    return dict(_totals(counts), forms=counts, batch=b, params=n_params,
+                step_ms=step_s * 1e3,
                 rate=rate, unit="samples_per_s", mfu=mfu, peak=peak,
                 losses=losses, forward_flops=flops, device_ms=device_ms,
                 idle_share=idle)
@@ -4862,6 +4912,439 @@ def unet_only():
     _, _, card = phase_device()
     flash_attention.build()
     phase_unet(card)
+    return 0
+
+
+# -- phase 15: amp ------------------------------------------------------------
+
+# 15a: K1-K4 in fp16 at Llama-2-7B's training shape and SD v1.5's
+# 4096-token self-attention (d=8, padded to 64); then head_dim 256 in f32,
+# bf16 and fp16: b=1 s=2048 h=8 causal and non-causal, a ragged 2048 x 77
+# non-causal (cross-attention's key count), and d=160 (padded to 256)
+# (name, dtype, b, sq, sk, h, kv, d, causal)
+AMP_FLASH_CASES = [
+    ("llama_causal_b2_s4096_h32_d128_fp16", torch.float16, 2, 4096, 4096,
+     32, 32, 128, True),
+    ("sd_self_b1_s4096_h40_d8_fp16", torch.float16, 1, 4096, 4096, 40, 40,
+     8, False),
+] + [
+    (f"{kind}_{str(dt).split('.')[-1]}", dt, 1, 2048, sk, 8, 8, d, causal)
+    for dt in (torch.float32, torch.bfloat16, torch.float16)
+    for kind, sk, d, causal in (("d256_causal_s2048_h8", 2048, 256, True),
+                                ("d256_noncausal_s2048_h8", 2048, 256, False),
+                                ("d256_ragged_sq2048_sk77_h8", 77, 256, False),
+                                ("d160_padded_s2048_h8", 2048, 160, False))]
+# 15b: card against CPU in bf16 and fp16. Each side rounds at its own
+# points (cuDNN's and MKL-DNN's convolutions, the flash kernels' P and dS
+# against the plain versions' f32 P, other orders of the sums), so a
+# 16-bit loss agrees to about 2^-8 of itself and a gradient, over a few
+# dozen ops each rounding to 2^-9, to a few percent of its L2 norm: the
+# loss to AMP_LOSS_RTOL, each gradient to AMP_GRAD_L2 (relative L2)
+AMP_LOSS_RTOL = 2.0 ** -6
+AMP_GRAD_L2 = 2.0 ** -4
+AMP_TINY_UNET = dict(block_out_channels=(32, 64), layers_per_block=1,
+                     cross_attention_dim=32, attention_head_dim=8,
+                     norm_num_groups=8, sample_size=16,
+                     attn_blocks=(True, False))
+# 15d: the first of these batches of 4096 tokens that fits
+AMP_LLAMA_BATCHES = (2, 1)
+AMP_INIT_SCALE = 65536.0
+
+
+def amp_flash_bound(q, k, causal, kernel):
+    """Least time for one kernel's function at the true head_dim: the
+    larger of :func:`flash_bound` (bytes; products over the input type's
+    peak) and the ``b h sq sk`` exponentials (halved when causal) over
+    the SFU's ex2 rate. Returns (ms, "bytes" or "operations")."""
+    b, sq, h, _ = q.shape
+    t, by = flash_bound(dict(q=q, k=k, causal=causal), kernel)
+    t_exp = (b * h * sq * k.shape[1] / (2 if causal else 1) / EX2_PER_S
+             * 1e3)
+    return (t_exp, "operations") if t_exp > t else (t, by)
+
+
+def phase_amp_flash():
+    """Phase 15a: each case of AMP_FLASH_CASES through
+    :func:`flash_check` (out, lse, dq, dk, dv against the plain versions,
+    16-bit outputs also row by row, fp16 to its own limits), two calls of
+    the forward and of the backward giving equal bits, then timed by CUDA
+    events (:func:`time_flash_case`: wrappers with their padding, kernels
+    alone, plain versions, SDPA) against :func:`amp_flash_bound`, for the
+    table. Returns {case: errors and times}."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2115)
+    results = {}
+    for name, dt, b, sq, sk, h, kv, d, causal in AMP_FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+        do = rnd(b, sq, h, d)
+        scale = 1.0 / d ** 0.5
+        errs, out, lse = flash_check(name, q, k, v, do, causal, scale)
+        fwd = [fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+               for _ in range(2)]
+        bwd = [fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal,
+                                           scale) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = (all(torch.equal(x, y) for x, y in zip(*fwd))
+                and all(torch.equal(x, y) for x, y in zip(*bwd)))
+        check(same, f"flash {name}: two calls differ")
+        del fwd, bwd
+        r = dict(errs, bitwise_equal=same, **time_flash_case(
+            q, k, v, do, out, lse, causal, scale))
+        for kernel in ("fwd", "dq", "dkv"):
+            r[f"{kernel}_bound_ms"], r[f"{kernel}_bound_by"] = \
+                amp_flash_bound(q, k, causal, kernel)
+        log(f"[amp-flash] {name} padded_to={fa.padded_head_dim(d)} "
+            + " ".join(f"{key}={val}" for key, val in r.items()))
+        results[name] = r
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+def _l2_rel_err(got, want):
+    g, w = got.detach().cpu().float(), want.detach().float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def _amp_compare(label, losses, grads):
+    """The card's loss and gradients against the CPU's (AMP_LOSS_RTOL,
+    AMP_GRAD_L2); logs the worst gradient."""
+    err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = max(((n, _l2_rel_err(g, grads["cpu"][n]))
+                 for n, g in grads["cuda"].items()), key=lambda x: x[1])
+    log(f"[amp-parity] {label}: loss card={losses['cuda']} cpu="
+        f"{losses['cpu']} rel_err={err} (tol {AMP_LOSS_RTOL}); "
+        f"{len(grads['cpu'])} gradients, worst relative L2 {worst[0]} "
+        f"{worst[1]} (tol {AMP_GRAD_L2})")
+    check(err <= AMP_LOSS_RTOL, f"amp {label}: loss differs card vs CPU")
+    check(worst[1] <= AMP_GRAD_L2, f"amp {label}: gradient of {worst[0]} "
+          f"differs card vs CPU")
+
+
+def phase_amp_parity():
+    """Phase 15b: the tiny UNet (heads of 8: the bf16 kernels at d=8
+    padded to 64) through ``TrainStep`` under ``auto_cast`` O1 bf16 and
+    O2 bf16 (``decorate``; f32 AdamW masters), and the tiny Llama eager
+    under O1 fp16 with a ``GradScaler``: the loss and every gradient on
+    the card (kernels) against the port on the CPU (plain versions),
+    from the same weights and inputs."""
+    from paddle_tpu_torch import (LlamaConfig, LlamaForCausalLM, TrainStep,
+                                  UNet2DConditionModel, UNetConfig, amp,
+                                  load_reference_state, sd_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = UNetConfig(**AMP_TINY_UNET)
+    base = UNet2DConditionModel(cfg, device="cpu", seed=15)
+    state = {n: p.detach().numpy() for n, p in base.named_parameters()}
+    gen = torch.Generator().manual_seed(152)
+    batch = (torch.randn(2, 4, 16, 16, generator=gen),
+             torch.tensor([17, 901]), torch.randn(2, 77, 32, generator=gen),
+             torch.randn(2, 4, 16, 16, generator=gen))
+    for level in ("O1", "O2"):
+        losses, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = UNet2DConditionModel(cfg, device=dev, seed=0)
+            load_reference_state(model, state)
+            if level == "O2":
+                amp.decorate(model, level="O2", dtype="bfloat16")
+            kept = {}
+
+            def keep(g, kept=kept):
+                kept.update({n: t.clone() for n, t in g.items()})
+                return g
+
+            step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                          multi_precision=True),
+                             sd_loss_fn, grad_postprocess=keep)
+            with amp.auto_cast(level=level, dtype="bfloat16"):
+                losses[dev] = float(step(*(t.to(dev) for t in batch)))
+            grads[dev] = kept
+        _amp_compare(f"tiny UNet TrainStep {level} bf16", losses, grads)
+    lcfg = LlamaConfig.tiny(max_position_embeddings=256)
+    host = LlamaForCausalLM(lcfg, device="cpu", seed=15)
+    ids = torch.randint(0, lcfg.vocab_size, (2, 257), generator=gen)
+    ids, labels = ids[:, :-1], ids[:, 1:]
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = LlamaForCausalLM(lcfg, device=dev, seed=0)
+        load_reference_state(model, {n: p.detach().numpy()
+                                     for n, p in host.named_parameters()})
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=1024.0)
+        with amp.auto_cast(level="O1", dtype="float16"):
+            _, loss = model(ids.to(dev), labels=labels.to(dev))
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        check(not scaler._found_inf, f"amp tiny Llama on {dev}: the "
+              f"scaler found inf/nan in finite gradients")
+        losses[dev] = float(loss.detach())
+        grads[dev] = {n: p.grad.clone() for n, p in model.named_parameters()}
+        scaler.step(opt)
+        scaler.update()
+    _amp_compare("tiny Llama eager O1 fp16 GradScaler", losses, grads)
+    log(f"[amp-parity] seconds={time.perf_counter() - t0}")
+    torch.cuda.empty_cache()
+
+
+def phase_amp_unet(card, warmup=2, timed=3):
+    """Phase 15c: SD v1.5 (``UNetConfig()``) with f32 parameters trained
+    under ``auto_cast(level="O1")`` (bf16), AdamW at lr 1e-4 through
+    ``TrainStep``, at the first of UNET_BATCHES that fits: ``warmup`` +
+    ``timed`` steps, each launching exactly 32 bf16 flash forwards, 32
+    bf16 dq and 32 bf16 dkv (by the wrappers' counts by form, 64 wide); the
+    loss finite and falling; step ms, samples/s, MFU (3 x the forward's
+    FLOPs over the bf16 peak), peak memory, then a torch.profiler window
+    by family with the idle share. Returns the numbers."""
+    from paddle_tpu_torch import (TrainStep, UNet2DConditionModel,
+                                  UNetConfig, amp, sd_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    per = 2 * UNET_TRANSFORMER_BLOCKS
+    # SD v1.5's heads are 8 wide (F6): the bf16 kernels at 64, padded
+    bf16 = f"{torch.bfloat16}/d64"
+    want = dict(fwd={bf16: per}, dq={bf16: per}, dkv={bf16: per}, k6={})
+    for b in UNET_BATCHES:
+        torch.cuda.synchronize()
+        release_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model = UNet2DConditionModel(UNetConfig(), seed=0)
+        cfg = model.config
+        step = TrainStep(model, AdamW(learning_rate=1e-4), sd_loss_fn)
+        batch = _unet_batch(b, cfg.sample_size, "cuda")
+        losses, seconds = [], []
+        _reset_train_counts()
+        try:
+            for i in range(warmup + timed):
+                before = _train_counts()
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                with amp.auto_cast(level="O1"):
+                    losses.append(float(step(*batch)))
+                seconds.append(time.perf_counter() - ts)
+                got = _step_counts(before, _train_counts())
+                check(got == want, f"amp unet step {i}: launches {got} != "
+                      f"{want}")
+        except torch.cuda.OutOfMemoryError:
+            log(f"[amp-unet] batch {b}: out of memory, trying the next")
+            del model, step, batch
+            continue
+        break
+    else:
+        raise SmokeFailure(f"amp unet: no batch of {UNET_BATCHES} fits")
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(seconds[warmup:]) / timed
+    rate = b / step_s
+    flops = unet_forward_flops(model, batch)
+    mfu = 3 * flops * rate / b / PEAK_OPS_S[torch.bfloat16]
+    log(f"[amp-unet] SD v1.5 (UNetConfig()), f32 parameters, "
+        f"auto_cast O1 bf16, AdamW lr 1e-4, batch {b} x 64^2, context 77 x "
+        f"768: losses={losses} step_ms={step_s * 1e3} (mean of {timed} "
+        f"after {warmup} warm-up; each {[t * 1e3 for t in seconds]}) "
+        f"samples_per_s={rate} mfu={mfu} (3 x forward FLOPs "
+        f"{flops} x samples/s / batch over {PEAK_OPS_S[torch.bfloat16]}) "
+        f"peak_memory_bytes={peak} launches_by_form={counts} (per step "
+        f"{want}) ({card})")
+    check(all(np.isfinite(losses)), "amp unet: non-finite training loss")
+    check(losses[-1] < losses[0], f"amp unet: training loss did not fall: "
+          f"{losses}")
+
+    def o1_step(*args):
+        with amp.auto_cast(level="O1"):
+            return step(*args)
+
+    device_ms, idle = profile_train_window(o1_step, batch, step_s * 1e3,
+                                           label="amp-unet",
+                                           families=UNET_FAMILIES)
+    log(f"[amp-unet] seconds={time.perf_counter() - t0}")
+    del model, step, batch
+    release_device_memory()
+    return dict(_totals(counts), forms=counts, batch=b,
+                step_ms=step_s * 1e3, rate=rate, unit="samples_per_s",
+                mfu=mfu, peak=peak, losses=losses,
+                device_ms=device_ms, idle_share=idle,
+                per_step=dict(fwd=per, dq=per, dkv=per))
+
+
+def phase_amp_llama(card, warmup=2, timed=3):
+    """Phase 15d: Llama-2-7B's widths cut to TRAIN_LAYERS layers, as
+    phase 9 runs them (fused head loss) but with f32 weights, eager under
+    ``auto_cast(level="O1", dtype="float16")`` with
+    ``GradScaler(init_loss_scaling=65536)`` and an eager AdamW (lr
+    1e-4), at 4096 tokens a row and the first of AMP_LLAMA_BATCHES that
+    fits: every step launches 8 fp16 flash forwards, 8 dq and 8 dkv and
+    17 K6 forwards, all f32 (``rms_norm`` is black-listed); the scale
+    and whether the step applied are logged after each step; at least
+    one step applies and the loss stays finite. The projections stay f32
+    (F8: amp does not reach the parallel linears, as in the JAX
+    package). Returns the numbers."""
+    from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    f16, f32 = f"{torch.float16}/d128", str(torch.float32)
+    n = TRAIN_LAYERS
+    want = dict(fwd={f16: n}, dq={f16: n}, dkv={f16: n},
+                k6={f32: 2 * n + 1})
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=n, fused_head_loss=True,
+                                dtype="float32")
+    for b in AMP_LLAMA_BATCHES:
+        torch.cuda.synchronize()
+        release_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model = LlamaForCausalLM(cfg, seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=AMP_INIT_SCALE)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ids = torch.randint(0, cfg.vocab_size, (b, TRAIN_SEQ + 1),
+                            device="cuda", generator=gen)
+        ids, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+        losses, seconds, scales, applied = [], [], [], []
+        _reset_train_counts()
+        try:
+            for i in range(warmup + timed):
+                before = _train_counts()
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                with amp.auto_cast(level="O1", dtype="float16"):
+                    _, loss = model(ids, labels=labels)
+                scaler.scale(loss).backward()
+                scaler.unscale_(opt)
+                applied.append(not scaler._found_inf)
+                scaler.step(opt)
+                scaler.update()
+                opt.clear_grad()
+                losses.append(float(loss.detach()))
+                seconds.append(time.perf_counter() - ts)
+                scales.append(float(scaler.get_loss_scaling()))
+                got = _step_counts(before, _train_counts())
+                log(f"[amp-llama] step {i}: loss={losses[-1]} applied="
+                    f"{applied[-1]} scale_after={scales[-1]} ms="
+                    f"{seconds[-1] * 1e3}")
+                check(got == want, f"amp llama step {i}: launches {got} "
+                      f"!= {want}")
+        except torch.cuda.OutOfMemoryError:
+            log(f"[amp-llama] batch {b}: out of memory, trying the next")
+            del model, opt, scaler
+            continue
+        break
+    else:
+        raise SmokeFailure(f"amp llama: no batch of {AMP_LLAMA_BATCHES} "
+                           f"fits")
+    counts = _train_counts()
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(seconds[warmup:]) / timed
+    tok_s = b * TRAIN_SEQ / step_s
+    log(f"[amp-llama] llama2_7b widths, {n} layers, f32 weights, auto_cast "
+        f"O1 fp16, GradScaler({AMP_INIT_SCALE}), eager AdamW, batch {b} x "
+        f"{TRAIN_SEQ}: params={n_params} losses={losses} applied={applied} "
+        f"scales={scales} step_ms={step_s * 1e3} (mean of {timed} after "
+        f"{warmup} warm-up) tokens_per_s={tok_s} mfu="
+        f"{6 * n_params * tok_s / PEAK_OPS_S[torch.bfloat16]} (6*N*tokens/s "
+        f"over the 16-bit peak; the projections run in f32, F8) "
+        f"peak_memory_bytes={peak} launches_by_form={counts} (per "
+        f"step {want}) ({card})")
+    check(all(np.isfinite(losses)), "amp llama: non-finite loss")
+    check(any(applied), "amp llama: the scaler skipped every step")
+    log(f"[amp-llama] seconds={time.perf_counter() - t0}")
+    del model, opt, scaler
+    release_device_memory()
+    return dict(_totals(counts), forms=counts, batch=b, step_ms=step_s * 1e3,
+                rate=tok_s,
+                peak=peak, losses=losses, scales=scales, applied=applied,
+                per_step=dict(fwd=n, dq=n, dkv=n, k6=2 * n + 1))
+
+
+def phase_amp(card):
+    """Phase 15, amp: 15a K1-K4 in fp16 and at head_dim 256, 15b card
+    against CPU under auto_cast, 15c SD v1.5 under O1 (bf16), 15d
+    Llama-2-7B's widths at 8 layers under O1 fp16 with a GradScaler.
+    Returns every phase's numbers."""
+    t0 = time.perf_counter()
+    flash = phase_amp_flash()
+    phase_amp_parity()
+    unet = phase_amp_unet(card)
+    llama = phase_amp_llama(card)
+    log(f"[amp] seconds={time.perf_counter() - t0}")
+    return dict(flash=flash, unet=unet, llama=llama)
+
+
+def flash_part(form):
+    """The kernels line's entry a flash launch of ``form`` (a wrapper's
+    ``launches_by_form`` key, ``torch.float16/d128``) counts under:
+    ``"d256"`` at head_dim 256, else ``"fp16"`` for fp16, else ``""``."""
+    dtype, width = form.rsplit("/d", 1)
+    if width == "256":
+        return "d256"
+    return "fp16" if dtype == str(torch.float16) else ""
+
+
+def amp_kernel_entries(amp, src, pallas, launches_by_run):
+    """The ``kernels`` line's entries for K1-K4's fp16 and 256-wide forms:
+    fp16 at Llama's causal shape, then the 256-wide forms (every type) at
+    15a's bf16 causal case, each with 15a's other cases beside it. Their
+    launches are those of their forms in every main path's run
+    (``launches_by_run(kernel, form)``): 15d is the fp16 kernels' path; no
+    model of the repository has heads wider than 128, so the 256-wide
+    forms count what the runs show, 0 unless that changes. At head_dim
+    256 one dkv call launches a dK and a dV kernel, counted as two."""
+    flash = amp["flash"]
+    entries = []
+    for form, main in (("fp16", "llama_causal_b2_s4096_h32_d128_fp16"),
+                       ("d256", "d256_causal_s2048_h8_bfloat16")):
+        cases = {n: r for n, r in flash.items()
+                 if ("fp16" in n and "d256" not in n and "d160" not in n)
+                 == (form == "fp16")}
+        for kernel, line, tri, errs, keys in (
+                ("fwd", 298, 172, ("out", "lse"),
+                 ("fwd_ms", "plain_fwd_ms", "library_fwd_ms")),
+                ("dq", 673, 567, ("dq",),
+                 ("dq_kernel_ms", "plain_bwd_ms", "library_bwd_ms")),
+                ("dkv", 703, 610, ("dk", "dv"),
+                 ("dkv_kernel_ms", "plain_bwd_ms", "library_bwd_ms"))):
+            r = cases[main]
+            by_run = launches_by_run(kernel, form)
+            entries.append(dict(
+                name=f"flash_attention_{kernel}_{form}", route="cuda",
+                source=src, replaces=f"{pallas}:{line}",
+                also_replaces=[f"{pallas}:{tri}"],
+                launches=sum(by_run.values()),
+                launches_by_run={k: n for k, n in by_run.items() if n},
+                **({"note": "one dkv call at head_dim 256 launches a dK "
+                            "and a dV kernel, counted as two launches"}
+                   if (kernel, form) == ("dkv", "d256") else {}),
+                max_abs_err=max(c[e] for c in cases.values() for e in errs),
+                ms=r[keys[0]], plain_ms=r[keys[1]], library_ms=r[keys[2]],
+                bound_ms=r[f"{kernel}_bound_ms"],
+                bound_by=r[f"{kernel}_bound_by"], shape=main,
+                other_shapes={n: {k: c[k] for k in (
+                    *keys, f"{kernel}_bound_ms", f"{kernel}_bound_by")}
+                    for n, c in cases.items() if n != main}))
+    return entries
+
+
+def amp_only():
+    """``--amp``: the flash and K6 libraries built, then phase 15 alone."""
+    from paddle_tpu_torch.ops.hopper import flash_attention, rms_norm
+
+    _, _, card = phase_device()
+    with ThreadPoolExecutor(2) as pool:
+        for nvcc_log in pool.map(lambda m: m.build(),
+                                 (flash_attention, rms_norm)):
+            log_ptxas(nvcc_log)
+    phase_amp(card)
     return 0
 
 
@@ -6029,6 +6512,8 @@ def main() -> int:
         return families_only()
     if argv == ["--unet"]:
         return unet_only()
+    if argv == ["--amp"]:
+        return amp_only()
     t_start = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
@@ -6062,10 +6547,22 @@ def main() -> int:
     t_unet = time.perf_counter()
     unet = phase_unet(card)
     t_unet = time.perf_counter() - t_unet
+    t_amp = time.perf_counter()
+    amp = phase_amp(card)
+    t_amp = time.perf_counter() - t_amp
     runs.update(families["runs"])
     k5["gpt_decode_b8_h12_d64"] = families["k5"]
     k5_launches = sum(r["k5"] for r in runs.values())
-    trains = dict(llama=train, **families["train"], unet=unet["train"])
+    # every main path that runs K1-K4, each counted from 0 just before it
+    trains = dict(llama=train, **families["train"], unet=unet["train"],
+                  amp_unet=amp["unet"], amp_llama=amp["llama"])
+
+    def launches_by_run(kernel, part):
+        """``kernel``'s launches in each run, of the forms of one entry
+        of the kernels line: ``""`` f32 and bf16 up to 128 wide,
+        ``"fp16"`` fp16 up to 128 wide, ``"d256"`` 256 wide."""
+        return {k: sum(n for f, n in t["forms"][kernel].items()
+                       if flash_part(f) == part) for k, t in trains.items()}
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
     shape = FLASH_CASES[0][0]
@@ -6090,13 +6587,13 @@ def main() -> int:
                     for n, r in cases.items()}
 
         return dict(
-            launches_by_run={k: t[kernel] for k, t in trains.items()},
+            launches_by_run=launches_by_run(kernel, ""),
             family_shapes=shapes(family_flash, ("d64_fwd_ms", "d64_bwd_ms")),
             unet_shapes=shapes(unet_flash, (f"{kernel}_bound_term",
                                             "padding_fwd_ms")))
 
     def flash_launches(kernel):
-        return sum(t[kernel] for t in trains.values())
+        return sum(launches_by_run(kernel, "").values())
 
     def flash_err(*keys):
         """The largest error of ``keys`` over every flash case checked,
@@ -6175,9 +6672,11 @@ def main() -> int:
         graph_ms=ru_times[k9_main[0]]["k9"]["graph_ms"],
         host_us=ru_times[k9_main[0]]["k9"]["host_us"],
         other_shapes={c: ru_times[c]["k9"] for c in k9_main[1:]}))
+    kernels += amp_kernel_entries(amp, src, pallas, launches_by_run)
     log(f"[done] seconds={time.perf_counter() - t_start} (of which the "
         f"ResNet phases 10-12: {t_resnet}, the families' phase 13: "
-        f"{t_families}, the UNet's phase 14: {t_unet})")
+        f"{t_families}, the UNet's phase 14: {t_unet}, amp's phase 15: "
+        f"{t_amp})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -34,10 +34,13 @@ and training, BERT pretraining and DiT training (``models``, with
 The Stable-Diffusion UNet (``models.UNet2DConditionModel``, SD v1.5
 training in f32, with ``nn.GroupNorm``, ``nn.functional.interpolate``
 and the simple activations) runs K1-K4 at head_dim 8: any head_dim up to
-128 runs zero-padded to the kernels' 64 or 128.
+128 runs zero-padded to the kernels' 64 or 128. ``amp`` (``auto_cast``
+O1/O2, ``decorate``, ``GradScaler``, ``debugging``) casts the named
+functional ops at one op-cast point (``ops/registry.py``); K1-K4 take
+f32, bf16 and fp16 at every head_dim up to 256.
 """
 
-from . import flags, nn, optimizer, telemetry, vision
+from . import amp, flags, nn, optimizer, telemetry, vision
 from .convert import load_reference_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPretraining, DiT, DiTConfig,
@@ -49,6 +52,6 @@ from .serving import ServingEngine
 __all__ = ["BertConfig", "BertForPretraining", "DiT", "DiTConfig",
            "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
            "ServingEngine", "TrainStep", "UNet2DConditionModel",
-           "UNetConfig", "dit_loss_fn", "flags", "llama_loss_fn",
+           "UNetConfig", "amp", "dit_loss_fn", "flags", "llama_loss_fn",
            "load_reference_state", "nn", "optimizer", "quantize_for_decode",
            "sd_loss_fn", "telemetry", "vision"]

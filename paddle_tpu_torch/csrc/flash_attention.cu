@@ -2,7 +2,8 @@
 // K1/K3 (forward) and K2/K4 (backward) of the port.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
-// (each kernel here in a bf16 and an f32 form, `_bf16` / `_f32`):
+// (each kernel here in a 16-bit form, `_16`, templated over bf16 and fp16,
+// and a CUDA-core form, `_cc` / `_f32` / `_wide`):
 //   flash_fwd_kernel  <- `_fwd_rect` -> `_fwd_kernel` (K1) and
 //                        `_fwd_tri` -> `_fwd_kernel_tri` (K3);
 //   flash_dq_kernel   <- `_dq_kernel` (K2) and `_dq_kernel_tri` (K4);
@@ -22,7 +23,12 @@
 // alignment agree; ragged lengths (not a multiple of the tile) are masked
 // here.
 //
-// bf16 forward (flash_fwd_kernel_bf16): TMA, wgmma and 128-row tiles, its
+// Which runs: bf16 and fp16 at head_dim 64 and 128 take the 16-bit
+// kernels; f32 at 64 and 128 the CUDA-core f32 kernels; every type at 256
+// the CUDA-core forward and the one-tile dq and dkv (their note is above
+// them). The wrapper pads other widths up to 256 to the next of these.
+//
+// 16-bit forward (flash_fwd_kernel_16): TMA, wgmma and 128-row tiles, its
 // design in the note above the kernel. A CTA owns a 128-row q tile of one
 // (batch, query head); one thread loads Q once and streams K and V by TMA
 // into a two-stage ring; two consumer warpgroups of 64 rows each multiply
@@ -30,7 +36,7 @@
 // take turns on the tensor cores so that one's softmax runs beside the
 // other's products, and mask only the diagonal and ragged key tiles.
 //
-// bf16 backward (flash_dq_kernel_bf16, flash_dkv_kernel_bf16): the same
+// 16-bit backward (flash_dq_kernel_16, flash_dkv_kernel_16): the same
 // design, its note above the kernels. dq: a CTA owns a 128-row q tile of
 // one (batch, query head) and streams 64-key tiles of K and V; dkv: a CTA
 // owns a 128-key tile of one (batch, KV head) and streams 64-query tiles
@@ -53,9 +59,11 @@
 // tiles launch first. They run on the CUDA cores in f32 FMA with register
 // tiles (no TF32), with S and P staged through shared memory.
 //
-// bf16 products run on the tensor cores (bf16 operands, f32 accumulators);
-// P and dS are rounded to bf16 before their products, as the Pallas kernels
-// cast them to the input dtype. Softmax and all elementwise math are f32.
+// 16-bit products run on the tensor cores (bf16 or fp16 operands, f32
+// accumulators); P and dS are rounded to the input type before their
+// products, as the Pallas kernels cast them to the input dtype (the
+// CUDA-core kernels round them too at 16 bits). Softmax and all elementwise
+// math are f32.
 //
 // What bounds it on an H100: at Llama training shapes (B=2, H=32, D=128,
 // s=4096, causal) the forward does 4 B H s^2 D / 2 = 0.27 TFLOP against 0.27 GB
@@ -127,11 +135,35 @@ struct Carve {
   }
 };
 
+// The CUDA-core kernels' element types: f32, and at head_dim 256 bf16 and
+// fp16 too, read into f32 tiles and written back from f32.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (kIsF16<T>)
+    return __float2half_rn(x);
+  else if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
+}
+
+// x rounded to T: P and dS are rounded to the input type before their
+// products, as the Pallas kernels cast them (f32: x itself)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 // Copy a 64-row tile (row pitch `stride` elements in device memory, rows
-// contiguous) into shared memory with pitch P. Rows at or past `rows` are
-// zero, so masked rows never carry garbage (0 * NaN) into a product.
+// contiguous) into an f32 tile in shared memory with pitch P. Rows at or
+// past `rows` are zero, so masked rows never carry garbage (0 * NaN) into
+// a product.
 template <typename T, int D, int P>
-__device__ void load_tile(T* dst, const T* src, long long stride, int rows) {
+__device__ void load_tile(float* dst, const T* src, long long stride, int rows) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
@@ -140,7 +172,7 @@ __device__ void load_tile(T* dst, const T* src, long long stride, int rows) {
     if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(src + r * stride + c));
     const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) dst[r * P + c + k] = e[k];
+    for (int k = 0; k < kVec; ++k) dst[r * P + c + k] = to_f32(e[k]);
   }
 }
 
@@ -230,18 +262,18 @@ struct Args {
 // forward
 // ----------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel_f32(Args a) {
-  using T = float;
+// T = float at every head_dim; at 256 also bf16 and fp16 (P rounded to T)
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel_cc(Args a) {
   using Pt = Pitch<D>;
   using Sz = Smem<D>;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
-  T* sQ = cv.take<T>(Sz::in);
-  T* sK = cv.take<T>(Sz::in);
-  T* sV = cv.take<T>(Sz::in);
+  float* sQ = cv.take<float>(Sz::in);
+  float* sK = cv.take<float>(Sz::in);
+  float* sV = cv.take<float>(Sz::in);
   float* sS = cv.take<float>(Sz::s);
-  T* sP = cv.take<T>(Sz::p);
+  float* sP = cv.take<float>(Sz::p);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ntiles = (a.sq + kTile - 1) / kTile;
@@ -264,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_f32(Args a) {
     l[r] = 0.f;
   }
   float* S = sS + warp * 16 * Pt::kS;
-  T* Pw = sP + warp * 16 * Pt::kP;
+  float* Pw = sP + warp * 16 * Pt::kP;
   const int row0 = q0 + warp * 16;
   const int kend = a.causal ? min(a.sk, q0 + kTile) : a.sk;
 
@@ -291,8 +323,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_f32(Args a) {
       alpha[r] = expf(m[r] - mn);
       l[r] = l[r] * alpha[r] + warp_sum(p0 + p1);
       m[r] = mn;
-      Pw[r * Pt::kP + lane] = (p0);
-      Pw[r * Pt::kP + lane + 32] = (p1);
+      Pw[r * Pt::kP + lane] = rnd<T>(p0);
+      Pw[r * Pt::kP + lane + 32] = rnd<T>(p1);
     }
     __syncwarp();
     acc.scale_rows(alpha);
@@ -308,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_f32(Args a) {
     const float lsafe = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < D / 32; ++j)
-      ob[(size_t)qi * a.H * D + lane + 32 * j] = (acc.get(r, j) / lsafe);
+      ob[(size_t)qi * a.H * D + lane + 32 * j] = from_f32<T>(acc.get(r, j) / lsafe);
     if (lane == 0) a.lse_out[((size_t)b * a.H + hq) * a.sq + qi] = m[r] + logf(lsafe);
   }
 }
@@ -505,6 +537,205 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel_f32(Args a) {
 }
 
 // ----------------------------------------------------------------------------
+// backward at head_dim 256 (f32, bf16, fp16): CUDA cores, one shared tile
+// ----------------------------------------------------------------------------
+//
+// At D = 256 a 64-row f32 tile is 64 KB, so the f32 dq and dkv kernels'
+// four resident tiles do not fit the 227 KB a block may hold, and a warp
+// cannot keep both dK and dV (128 registers each). These kernels keep the
+// f32 kernels' warps, tiles and arithmetic, with one shared tile that takes
+// the streamed operands in turn, each loaded once:
+//   dq   Q and dO resident; per key tile, V into the tile (dP = dO V^T),
+//        then K (S = Q K^T, dS in place of S, dQ += dS K).
+//   dkv  two launches over the same grid, dK then dV, each with one
+//        accumulator: K (and for dK, V) resident; per (query head, q
+//        tile), for dK dO into the tile (dP^T = V dO^T), then Q (S^T = K
+//        Q^T, dS^T in place, dK += dS^T Q); for dV Q (S^T, P^T in place),
+//        then dO (dV += P^T dO).
+// P and dS are rounded to T before their products, as the Pallas kernels
+// cast them; everything else is f32. A simple design, right first: its
+// times are in PERF.md.
+
+template <int D>
+struct WideSmem {
+  static constexpr int kPi = D + 1;      // input tiles
+  static constexpr int kPs = kTile + 2;  // scores (and P / dS in place)
+  static constexpr size_t in = r128(size_t(kTile) * kPi * sizeof(float));
+  static constexpr size_t s = r128(size_t(kTile) * kPs * sizeof(float));
+  static constexpr size_t vec = r128(kTile * sizeof(float));
+  static constexpr size_t total = 3 * in + 2 * s + 2 * vec;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel_wide(Args a) {
+  using Sz = WideSmem<D>;
+  constexpr int PI = Sz::kPi, PS = Sz::kPs;
+  extern __shared__ __align__(128) char smem[];
+  Carve cv{smem};
+  float* sQ = cv.take<float>(Sz::in);
+  float* sdO = cv.take<float>(Sz::in);
+  float* sB = cv.take<float>(Sz::in);  // the key tile's V, then its K
+  float* sS = cv.take<float>(Sz::s);
+  float* sdP = cv.take<float>(Sz::s);
+  float* sLse = cv.take<float>(Sz::vec);
+  float* sDelta = cv.take<float>(Sz::vec);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ntiles = (a.sq + kTile - 1) / kTile;
+  const int bh = blockIdx.x % (a.B * a.H);
+  const int q0 = (ntiles - 1 - blockIdx.x / (a.B * a.H)) * kTile;
+  const int hq = bh % a.H, b = bh / a.H;
+  const int kh = hq / (a.H / a.KV);
+  const int qrows = min(kTile, a.sq - q0);
+
+  const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + hq * a.qs[2];
+  const T* db = static_cast<const T*>(a.dout) + b * a.ds[0] + hq * a.ds[2];
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kh * a.ks[2];
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kh * a.vs[2];
+  load_tile<T, D, PI>(sQ, qb + q0 * a.qs[1], a.qs[1], qrows);
+  load_tile<T, D, PI>(sdO, db + q0 * a.ds[1], a.ds[1], qrows);
+  const size_t row_base = ((size_t)b * a.H + hq) * a.sq + q0;
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    sLse[i] = i < qrows ? a.lse_in[row_base + i] : 0.f;
+    sDelta[i] = i < qrows ? a.delta[row_base + i] : 0.f;
+  }
+
+  Acc<D> acc;
+  acc.init();
+  float* S = sS + warp * 16 * PS;
+  float* dP = sdP + warp * 16 * PS;
+  const int row0 = q0 + warp * 16;
+  const int kend = a.causal ? min(a.sk, q0 + kTile) : a.sk;
+
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    const int krows = min(kTile, a.sk - k0);
+    __syncthreads();  // every warp is done with the previous K
+    load_tile<T, D, PI>(sB, vb + k0 * a.vs[1], a.vs[1], krows);
+    __syncthreads();
+    warp_scores<D, PI, PI, PS>(sdO + warp * 16 * PI, sB, dP);
+    __syncthreads();  // every warp is done with V
+    load_tile<T, D, PI>(sB, kb + k0 * a.ks[1], a.ks[1], krows);
+    __syncthreads();
+    warp_scores<D, PI, PI, PS>(sQ + warp * 16 * PI, sB, S);
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int qi = row0 + r;
+      const float lse = sLse[warp * 16 + r], dl = sDelta[warp * 16 + r];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h, kj = k0 + c;
+        const bool valid = qi < a.sq && kj < a.sk && (!a.causal || kj <= qi);
+        const float p = valid ? expf(S[r * PS + c] * a.scale - lse) : 0.f;
+        S[r * PS + c] = rnd<T>(p * (dP[r * PS + c] - dl));
+      }
+    }
+    __syncwarp();
+    acc.template add<PS, PI>(S, sB);  // dQ += dS K
+  }
+
+  T* ob = static_cast<T*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int qi = row0 + r;
+    if (qi >= a.sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j)
+      ob[(size_t)qi * a.H * D + lane + 32 * j] = from_f32<T>(acc.get(r, j) * a.scale);
+  }
+}
+
+// DK: the dK launch (else the dV launch)
+template <typename T, int D, bool DK>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel_wide(Args a) {
+  using Sz = WideSmem<D>;
+  constexpr int PI = Sz::kPi, PS = Sz::kPs;
+  extern __shared__ __align__(128) char smem[];
+  Carve cv{smem};
+  float* sK = cv.take<float>(Sz::in);
+  float* sV = cv.take<float>(Sz::in);  // dK only
+  float* sB = cv.take<float>(Sz::in);  // the q tile's dO, then its Q (dK); Q, then dO (dV)
+  float* sS = cv.take<float>(Sz::s);
+  float* sdP = cv.take<float>(Sz::s);  // dK only
+  float* sLse = cv.take<float>(Sz::vec);
+  float* sDelta = cv.take<float>(Sz::vec);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = a.H / a.KV;
+  const int bk = blockIdx.x % (a.B * a.KV);
+  const int k0 = (blockIdx.x / (a.B * a.KV)) * kTile;
+  const int kh = bk % a.KV, b = bk / a.KV;
+  const int krows = min(kTile, a.sk - k0);
+
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kh * a.ks[2];
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kh * a.vs[2];
+  load_tile<T, D, PI>(sK, kb + k0 * a.ks[1], a.ks[1], krows);
+  if (DK) load_tile<T, D, PI>(sV, vb + k0 * a.vs[1], a.vs[1], krows);
+
+  Acc<D> acc;
+  acc.init();
+  float* S = sS + warp * 16 * PS;
+  float* dP = sdP + warp * 16 * PS;
+  const int key0 = k0 + warp * 16;
+  const int qstart = a.causal ? k0 : 0;
+
+  for (int t = 0; t < g; ++t) {
+    const int hq = kh * g + t;
+    const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + hq * a.qs[2];
+    const T* db = static_cast<const T*>(a.dout) + b * a.ds[0] + hq * a.ds[2];
+    const size_t row_base = ((size_t)b * a.H + hq) * a.sq;
+    for (int q0 = qstart; q0 < a.sq; q0 += kTile) {
+      const int qrows = min(kTile, a.sq - q0);
+      __syncthreads();  // every warp is done with the previous tile
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        sLse[i] = i < qrows ? a.lse_in[row_base + q0 + i] : 0.f;
+        sDelta[i] = i < qrows ? a.delta[row_base + q0 + i] : 0.f;
+      }
+      if (DK) {
+        load_tile<T, D, PI>(sB, db + q0 * a.ds[1], a.ds[1], qrows);
+        __syncthreads();
+        // transposed: rows are this warp's keys, columns the q tile
+        warp_scores<D, PI, PI, PS>(sV + warp * 16 * PI, sB, dP);
+        __syncthreads();  // every warp is done with dO
+      }
+      load_tile<T, D, PI>(sB, qb + q0 * a.qs[1], a.qs[1], qrows);
+      __syncthreads();
+      warp_scores<D, PI, PI, PS>(sK + warp * 16 * PI, sB, S);
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int kj = key0 + r;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = lane + 32 * h, qi = q0 + c;
+          const bool valid = qi < a.sq && kj < a.sk && (!a.causal || kj <= qi);
+          const float p = valid ? expf(S[r * PS + c] * a.scale - sLse[c]) : 0.f;
+          S[r * PS + c] = DK ? rnd<T>(p * (dP[r * PS + c] - sDelta[c])) : rnd<T>(p);
+        }
+      }
+      __syncwarp();
+      if (!DK) {
+        __syncthreads();  // every warp is done with Q
+        load_tile<T, D, PI>(sB, db + q0 * a.ds[1], a.ds[1], qrows);
+        __syncthreads();
+      }
+      acc.template add<PS, PI>(S, sB);  // dK += dS^T Q, or dV += P^T dO
+    }
+  }
+
+  T* ob = static_cast<T*>(DK ? a.dk : a.dv) + ((size_t)b * a.sk * a.KV + kh) * D;
+  const float f = DK ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int kj = key0 + r;
+    if (kj >= a.sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j)
+      ob[(size_t)kj * a.KV * D + lane + 32 * j] = from_f32<T>(acc.get(r, j) * f);
+  }
+}
+
+// ----------------------------------------------------------------------------
 // bf16 helpers
 // ----------------------------------------------------------------------------
 
@@ -588,9 +819,9 @@ struct FwdArgs {
   float scale_log2;  // scale * log2(e)
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-    flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+    flash_fwd_kernel_16(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, FwdArgs a) {
   using Sm = FwdSmem<D>;
@@ -678,7 +909,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss_n128<0, 0>(
+        wgmma_ss_n128<0, 0, E>(
             sc, smem_desc(qa + (ks / 4) * kFwdBM * 128 + (ks % 4) * 32, 1, 64),
             smem_desc(k_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64), ks > 0);
       wgmma_commit();
@@ -694,9 +925,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t db = smem_desc(v_u + s * Sm::kv + kk * 16 * 128, BN * 128 / 16, 64);
         if constexpr (D == 128)
-          wgmma_rs_n128<1>(o, p[kk], db, 1);
+          wgmma_rs_n128<1, E>(o, p[kk], db, 1);
         else
-          wgmma_rs_n64<1>(o, p[kk], db, 1);
+          wgmma_rs_n64<1, E>(o, p[kk], db, 1);
       }
       wgmma_commit();
     };
@@ -742,7 +973,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          p[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          p[kk][r] = pack2<E>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
     };
     // O scaled to the running max of the last softmax
     auto rescale_o = [&]() {
@@ -791,18 +1022,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     wgmma_wait<0>();
     fence_operand(o);
 
-    bf16* const ob = static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
+    E* const ob = static_cast<E*>(a.out) + ((size_t)b * a.sq * a.H + hq) * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       const float lt = quad_sum(l[h]);
       if (row >= a.sq) continue;
       const float inv = 1.f / lt;
-      bf16* const orow = ob + (size_t)row * a.H * D;
+      E* const orow = ob + (size_t)row * a.H * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-            pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+            pack2<E>(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
       if (t == 0)
         a.lse[((size_t)b * a.H + hq) * a.sq + row] = (m[h] * a.scale_log2 + log2f(lt)) * kLn2;
     }
@@ -920,9 +1151,9 @@ __device__ __forceinline__ void grouped_cta(int pairs, int ntiles, int group, in
   rank = within / gc;
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_dq_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+    flash_dq_kernel_16(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
@@ -1019,7 +1250,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss_n64<0, 0>(sc, smem_desc(qa + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+        wgmma_ss_n64<0, 0, E>(sc, smem_desc(qa + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
                            smem_desc(k_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
                            ks > 0);
       wgmma_commit();
@@ -1027,7 +1258,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss_n64<0, 0>(dp, smem_desc(da + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
+        wgmma_ss_n64<0, 0, E>(dp, smem_desc(da + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
                            smem_desc(v_u + s * Sm::kv + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
                            ks > 0);
       wgmma_commit();
@@ -1044,9 +1275,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t db = smem_desc(k_u + s * Sm::kv + kk * 16 * 128, BN * 128 / 16, 64);
         if constexpr (D == 128)
-          wgmma_rs_n128<1>(dq, ds[kk], db, i > 0 || kk > 0);
+          wgmma_rs_n128<1, E>(dq, ds[kk], db, i > 0 || kk > 0);
         else
-          wgmma_rs_n64<1>(dq, ds[kk], db, i > 0 || kk > 0);
+          wgmma_rs_n64<1, E>(dq, ds[kk], db, i > 0 || kk > 0);
       }
       wgmma_commit();
     };
@@ -1070,7 +1301,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
             if (masked && (col >= a.sk || (a.causal && col > row))) p = 0.f;
             v[c] = p * (dp[x] - dl[h]);
           }
-          ds[kk][r] = pack_bf16(v[0], v[1]);
+          ds[kk][r] = pack2<E>(v[0], v[1]);
         }
     };
     auto release = [&](uint64_t* bar) {
@@ -1094,23 +1325,23 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     wgmma_wait<0>();
     fence_operand(dq);
 
-    bf16* const ob = static_cast<bf16*>(a.dq) + ((size_t)b * a.sq * a.H + hq) * D;
+    E* const ob = static_cast<E*>(a.dq) + ((size_t)b * a.sq * a.H + hq) * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= a.sq) continue;
-      bf16* const orow = ob + (size_t)row * a.H * D;
+      E* const orow = ob + (size_t)row * a.H * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-            pack_bf16(dq[4 * j + 2 * h] * a.scale, dq[4 * j + 2 * h + 1] * a.scale);
+            pack2<E>(dq[4 * j + 2 * h] * a.scale, dq[4 * j + 2 * h + 1] * a.scale);
     }
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_dkv_kernel_bf16(const __grid_constant__ CUtensorMap map_q,
+    flash_dkv_kernel_16(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
@@ -1208,14 +1439,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss_n64<0, 0>(st, smem_desc(ka + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+        wgmma_ss_n64<0, 0, E>(st, smem_desc(ka + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
                            smem_desc(q_u + s * Sm::q + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
                            ks > 0);
       wgmma_commit();
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss_n64<0, 0>(dpt, smem_desc(va + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
+        wgmma_ss_n64<0, 0, E>(dpt, smem_desc(va + (ks / 4) * BN * 128 + (ks % 4) * 32, 1, 64),
                            smem_desc(do_u + s * Sm::q + (ks / 4) * BM * 128 + (ks % 4) * 32, 1, 64),
                            ks > 0);
       wgmma_commit();
@@ -1229,9 +1460,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int kk = 0; kk < BM / 16; ++kk) {
         const uint64_t db = smem_desc(tile + kk * 16 * 128, BM * 128 / 16, 64);
         if constexpr (D == 128)
-          wgmma_rs_n128<1>(acc, af[kk], db, !first || kk > 0);
+          wgmma_rs_n128<1, E>(acc, af[kk], db, !first || kk > 0);
         else
-          wgmma_rs_n64<1>(acc, af[kk], db, !first || kk > 0);
+          wgmma_rs_n64<1, E>(acc, af[kk], db, !first || kk > 0);
       }
       wgmma_commit();
     };
@@ -1256,8 +1487,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
             if (key > q0 + col) p0 = 0.f;
             if (key > q0 + col + 1) p1 = 0.f;
           }
-          pp[kk][r] = pack_bf16(p0, p1);
-          ds[kk][r] = pack_bf16(p0 * (dpt[x] - d2.x), p1 * (dpt[x + 1] - d2.y));
+          pp[kk][r] = pack2<E>(p0, p1);
+          ds[kk][r] = pack2<E>(p0 * (dpt[x] - d2.x), p1 * (dpt[x + 1] - d2.y));
         }
     };
     auto release = [&](uint64_t* bar) {
@@ -1283,8 +1514,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     fence_operand(dk);
     fence_operand(dv);
 
-    bf16* const dkb = static_cast<bf16*>(a.dk) + ((size_t)b * a.sk * a.KV + kh) * D;
-    bf16* const dvb = static_cast<bf16*>(a.dv) + ((size_t)b * a.sk * a.KV + kh) * D;
+    E* const dkb = static_cast<E*>(a.dk) + ((size_t)b * a.sk * a.KV + kh) * D;
+    E* const dvb = static_cast<E*>(a.dv) + ((size_t)b * a.sk * a.KV + kh) * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int key = key0 + 8 * h;
@@ -1293,9 +1524,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dkb + row + 8 * j + 2 * t) =
-            pack_bf16(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+            pack2<E>(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
         *reinterpret_cast<uint32_t*>(dvb + row + 8 * j + 2 * t) =
-            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+            pack2<E>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
       }
     }
   }
@@ -1315,15 +1546,41 @@ struct Launch {
 template <int D>
 Launch pick_f32(Which which) {
   using Sz = Smem<D>;
-  if (which == kFwd) return {flash_fwd_kernel_f32<D>, Sz::fwd};
+  if (which == kFwd) return {flash_fwd_kernel_cc<float, D>, Sz::fwd};
   if (which == kDq) return {flash_dq_kernel_f32<D>, Sz::dq};
   return {flash_dkv_kernel_f32<D>, Sz::dkv};
 }
 
-// A 4-D tensor map over (d, heads, seq, batch) of a bf16 [batch, seq,
-// heads, d] tensor with element strides st (batch, seq, heads; d
-// contiguous): boxes of 64 columns x `rows` rows of one head, 128-byte
+// A CUDA-core kernel: 64-row tiles, 4 warps
+int launch_cc(Launch l, int blocks, const Args& a, cudaStream_t st) {
+  // above 48 KB of dynamic shared memory a kernel must opt in
+  const cudaError_t err = cudaFuncSetAttribute(
+      l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (err != cudaSuccess) return (int)err;
+  l.kernel<<<blocks, kThreads, l.smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// head_dim 256, every type: the CUDA-core forward, the one-tile dq, and the
+// dK then the dV launch of the one-tile dkv
+template <typename T>
+int run_wide(Which which, const Args& a, cudaStream_t st) {
+  constexpr int D = 256;
+  const int qblocks = (a.sq + kTile - 1) / kTile * a.B * a.H;
+  const int kblocks = (a.sk + kTile - 1) / kTile * a.B * a.KV;
+  if (which == kFwd) return launch_cc({flash_fwd_kernel_cc<T, D>, Smem<D>::fwd}, qblocks, a, st);
+  constexpr size_t smem = WideSmem<D>::total;
+  if (which == kDq) return launch_cc({flash_dq_kernel_wide<T, D>, smem}, qblocks, a, st);
+  const int rc = launch_cc({flash_dkv_kernel_wide<T, D, true>, smem}, kblocks, a, st);
+  if (rc != 0) return rc;
+  return launch_cc({flash_dkv_kernel_wide<T, D, false>, smem}, kblocks, a, st);
+}
+
+// A 4-D tensor map over (d, heads, seq, batch) of a bf16 or fp16 (E)
+// [batch, seq, heads, d] tensor with element strides st (batch, seq, heads;
+// d contiguous): boxes of 64 columns x `rows` rows of one head, 128-byte
 // swizzle, zeros outside the tensor.
+template <typename E>
 bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq, int batch,
               const long long* st, int rows) {
   const EncodeTiled enc = encode_tiled();
@@ -1334,22 +1591,24 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq, int 
                                  (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  const CUtensorMapDataType type =
+      kIsF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int run_fwd_bf16(const Args& a, cudaStream_t st) {
+template <typename E, int D>
+int run_fwd_16(const Args& a, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, a.q, D, a.H, a.sq, a.B, a.qs, kFwdBM) ||
-      !make_map(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, kFwdBN) ||
-      !make_map(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, kFwdBN))
+  if (!make_map<E>(&mq, a.q, D, a.H, a.sq, a.B, a.qs, kFwdBM) ||
+      !make_map<E>(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, kFwdBN) ||
+      !make_map<E>(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, kFwdBN))
     return (int)cudaErrorInvalidValue;
   // the shared-memory opt-in holds per device: set it on every call
   constexpr int smem = FwdSmem<D>::total;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel_16<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   FwdArgs f;
   f.out = a.out, f.lse = a.lse_out;
@@ -1357,21 +1616,21 @@ int run_fwd_bf16(const Args& a, cudaStream_t st) {
   f.group = a.group;
   f.scale_log2 = a.scale * kLog2e;
   const int blocks = (a.sq + kFwdBM - 1) / kFwdBM * a.B * a.H;
-  flash_fwd_kernel_bf16<D><<<blocks, kFwdThreads, smem, st>>>(mq, mk, mv, f);
+  flash_fwd_kernel_16<E, D><<<blocks, kFwdThreads, smem, st>>>(mq, mk, mv, f);
   return (int)cudaGetLastError();
 }
 
-// The bf16 dq (which == kDq) or dkv kernel: Q and dO in boxes of the q
+// The 16-bit dq (which == kDq) or dkv kernel: Q and dO in boxes of the q
 // tile's rows, K and V of the key tile's.
-template <int D>
-int run_bwd_bf16(const Args& a, Which which, cudaStream_t st) {
+template <typename E, int D>
+int run_bwd_16(const Args& a, Which which, cudaStream_t st) {
   const bool dq = which == kDq;
   const int qrows = dq ? kDqBM : kDkvBM, krows = dq ? kDqBN : kDkvBN;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, a.q, D, a.H, a.sq, a.B, a.qs, qrows) ||
-      !make_map(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, krows) ||
-      !make_map(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, krows) ||
-      !make_map(&mdo, a.dout, D, a.H, a.sq, a.B, a.ds, qrows))
+  if (!make_map<E>(&mq, a.q, D, a.H, a.sq, a.B, a.qs, qrows) ||
+      !make_map<E>(&mk, a.k, D, a.KV, a.sk, a.B, a.ks, krows) ||
+      !make_map<E>(&mv, a.v, D, a.KV, a.sk, a.B, a.vs, krows) ||
+      !make_map<E>(&mdo, a.dout, D, a.H, a.sq, a.B, a.ds, qrows))
     return (int)cudaErrorInvalidValue;
   BwdArgs f;
   f.lse = a.lse_in, f.delta = a.delta;
@@ -1381,7 +1640,7 @@ int run_bwd_bf16(const Args& a, Which which, cudaStream_t st) {
   f.scale = a.scale;
   f.scale_log2 = a.scale * kLog2e;
   void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdArgs) =
-      dq ? flash_dq_kernel_bf16<D> : flash_dkv_kernel_bf16<D>;
+      dq ? flash_dq_kernel_16<E, D> : flash_dkv_kernel_16<E, D>;
   const int smem = dq ? DqSmem<D>::total : DkvSmem<D>::total;
   const int blocks = dq ? (a.sq + kDqBM - 1) / kDqBM * a.B * a.H
                         : (a.sk + kDkvBN - 1) / kDkvBN * a.B * a.KV;
@@ -1393,24 +1652,26 @@ int run_bwd_bf16(const Args& a, Which which, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <typename E>
+int run_16(int d, Which which, const Args& a, cudaStream_t st) {
+  if (which == kFwd) return d == 64 ? run_fwd_16<E, 64>(a, st) : run_fwd_16<E, 128>(a, st);
+  return d == 64 ? run_bwd_16<E, 64>(a, which, st) : run_bwd_16<E, 128>(a, which, st);
+}
+
 int run(int dtype, int d, Which which, const Args& a, void* stream) {
-  const bool f32 = dtype == 0;
   if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.sq <= 0 || a.sk <= 0 ||
-      (a.causal && a.sq != a.sk) || (d != 64 && d != 128) || (dtype != 0 && dtype != 1) ||
-      (!f32 && a.group < 1))
+      (a.causal && a.sq != a.sk) || (d != 64 && d != 128 && d != 256) || dtype < 0 ||
+      dtype > 2 || (dtype != 0 && d != 256 && a.group < 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!f32 && which == kFwd) return d == 64 ? run_fwd_bf16<64>(a, st) : run_fwd_bf16<128>(a, st);
-  if (!f32) return d == 64 ? run_bwd_bf16<64>(a, which, st) : run_bwd_bf16<128>(a, which, st);
+  if (d == 256)
+    return dtype == 0 ? run_wide<float>(which, a, st)
+                      : dtype == 1 ? run_wide<bf16>(which, a, st) : run_wide<__half>(which, a, st);
+  if (dtype == 1) return run_16<bf16>(d, which, a, st);
+  if (dtype == 2) return run_16<__half>(d, which, a, st);
   const Launch l = d == 64 ? pick_f32<64>(which) : pick_f32<128>(which);
-  // above 48 KB of dynamic shared memory a kernel must opt in
-  cudaError_t err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)l.smem);
-  if (err != cudaSuccess) return (int)err;
   const int qtiles = (a.sq + kTile - 1) / kTile, ktiles = (a.sk + kTile - 1) / kTile;
-  const int blocks = which == kDkv ? ktiles * a.B * a.KV : qtiles * a.B * a.H;
-  l.kernel<<<blocks, kThreads, l.smem, st>>>(a);
-  return (int)cudaGetLastError();
+  return launch_cc(l, which == kDkv ? ktiles * a.B * a.KV : qtiles * a.B * a.H, a, st);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const long long* strides, int B,
@@ -1431,10 +1692,12 @@ Args make_args(const void* q, const void* k, const void* v, const long long* str
 
 // strides: 12 int64 values, the batch/sequence/head strides (in elements) of
 // q, k, v and dout in that order (dout's are unused by the forward).
-// dtype: 0 = float32, 1 = bfloat16 (all inputs and outputs share it).
-// group: a bf16 kernel's (batch, head) pairs per group of CTAs (>= 1; the
-// wrapper's fwd_group for the forward and dq, dkv_group for dkv), unused
-// by the f32 kernels.
+// d: 64, 128 or 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (all inputs and outputs
+// share it).
+// group: a 16-bit kernel's (batch, head) pairs per group of CTAs (>= 1;
+// the wrapper's fwd_group for the forward and dq, dkv_group for dkv),
+// unused by the CUDA-core kernels (f32, and every type at d = 256).
 // The caller checks shapes, devices, dtypes and 16-byte alignment of rows
 // (the bf16 kernels' tensor maps need a 16-byte aligned base and strides
 // that are multiples of 16 bytes; they return cudaErrorInvalidValue when a

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...framework.dtype import promote
 from ...ops.hopper.int8_matmul import int8_matmul
 
 
@@ -72,7 +73,7 @@ class ColumnParallelLinear(nn.Module):
     def forward(self, x):
         out = quantized_matmul(self, x)
         if out is None:
-            out = torch.matmul(x, self.weight)
+            out = torch.matmul(*promote(x, self.weight))
         return out if self.bias is None else out + self.bias
 
 

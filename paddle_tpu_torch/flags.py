@@ -6,8 +6,9 @@ One registry, three surfaces: :func:`define_flag` at import time,
 serving slice (with its prefix cache, speculative decoding, host-RAM
 tier, robustness contract, fleet publishing and the fleet: router,
 self-healing, autoscaler, disaggregation, migration), the telemetry
-package and the ResNet model read are defined here; ``fault_spec`` is
-defined beside its registry in ``distributed/fault.py``, which re-arms
+package, the ResNet model and amp's tensor checker read are defined
+here; ``fault_spec`` is defined beside its registry in
+``distributed/fault.py``, which re-arms
 the rules whenever it changes (``on_change``). The attention, RMSNorm
 and BN-statistics kernels are not chosen by flags: the tensor's device
 picks between a kernel and its plain version. The two ResNet
@@ -88,6 +89,13 @@ def get_flags(names: str | list[str]) -> dict[str, Any]:
 def flag_value(name: str) -> Any:
     return _REGISTRY[name].value
 
+
+# -- amp's tensor checker (amp/debugging.py), read at the op-cast point
+# (ops/registry.py), as in the JAX package ----------------------------------
+define_flag("check_nan_inf", False,
+            "scan op outputs for nan/inf (eager debugging)")
+define_flag("check_nan_inf_level", 0,
+            "0: error on nan/inf; 3: only collect stats")
 
 # -- serving (serving/engine.py defaults; constructor kwargs override) ------
 define_flag("serving_block_size", 16,

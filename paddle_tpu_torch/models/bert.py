@@ -21,6 +21,7 @@ from torch import nn
 from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..framework.device import resolve_device, resolve_dtype
+from ..framework.dtype import promote
 from ..nn import functional as F
 from ..nn.initializer import Normal
 from ..nn.layer.norm import LayerNorm
@@ -73,8 +74,10 @@ class BertLayer(nn.Module):
         q, k, v = self.qkv(x).reshape(b, s, 3, self.nh, self.hd).unbind(2)
         out, _ = F.flash_attention(q, k, v, causal=False)
         x = self.attn_ln(x + self.attn_out(out.reshape(b, s, -1)))
-        # jax.nn.gelu's default, the tanh form
-        m = self.ffn_out(F.gelu(self.ffn_in(x), approximate=True))
+        # jax.nn.gelu's default, the tanh form; a raw call there, not
+        # the named op (amp leaves it alone)
+        m = self.ffn_out(nn.functional.gelu(self.ffn_in(x),
+                                            approximate="tanh"))
         return self.ffn_ln(x + m)
 
 
@@ -143,11 +146,12 @@ class BertForPretraining(nn.Module):
         or ``(None, loss)`` with ``fused_head_loss``. Labels below zero
         are ignored."""
         h = self.bert(input_ids, token_type_ids)
-        t = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate=True))
+        t = self.mlm_ln(nn.functional.gelu(self.mlm_transform(h),
+                                           approximate="tanh"))
         if labels is not None and self.cfg.fused_head_loss:
             return None, fused_head_cross_entropy(
                 t, self.decoder, _mlm_labels(labels), ignore_index=-100)
-        logits = t @ self.decoder
+        logits = torch.matmul(*promote(t, self.decoder))
         if labels is None:
             return logits
         return logits, causal_lm_loss(logits, _mlm_labels(labels),

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device, resolve_dtype
+from ..framework.dtype import promote
 from ..nn import functional as F
 from ..nn.initializer import Constant, Normal, XavierUniform
 from ..nn.layer.norm import LayerNorm
@@ -57,6 +58,11 @@ def timestep_embedding(t, dim, max_period=10000):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
+def _mm(a, b):
+    """A raw product, its operands promoted as ``jnp`` promotes them."""
+    return torch.matmul(*promote(a, b))
+
+
 def modulate(x, shift, scale):
     return x * (1 + scale[:, None, :]) + shift[:, None, :]
 
@@ -89,15 +95,20 @@ class DiTBlock(nn.Module):
         Constant(0.0)(self.ada)
 
     def forward(self, x, c):
-        sh1, sc1, g1, sh2, sc2, g2 = (F.silu(c) @ self.ada).chunk(6, dim=-1)
+        # SiLU and GELU are raw jax.nn calls in the JAX package, not its
+        # named ops: amp leaves them alone
+        mods = _mm(nn.functional.silu(c), self.ada)
+        sh1, sc1, g1, sh2, sc2, g2 = mods.chunk(6, dim=-1)
         b, s, h = x.shape
         n = modulate(self.norm1(x), sh1, sc1)
-        q, k, v = (n @ self.qkv).reshape(b, s, 3, self.nh, self.hd).unbind(2)
+        q, k, v = _mm(n, self.qkv).reshape(b, s, 3, self.nh,
+                                           self.hd).unbind(2)
         att, _ = F.flash_attention(q, k, v, causal=False)
-        x = x + g1[:, None, :] * (att.reshape(b, s, h) @ self.proj)
+        x = x + g1[:, None, :] * _mm(att.reshape(b, s, h), self.proj)
         n = modulate(self.norm2(x), sh2, sc2)
         # jax.nn.gelu's default, the tanh form
-        m = F.gelu(n @ self.fc1, approximate=True) @ self.fc2
+        m = _mm(nn.functional.gelu(_mm(n, self.fc1), approximate="tanh"),
+                self.fc2)
         return x + g2[:, None, :] * m
 
 
@@ -159,15 +170,16 @@ class DiT(nn.Module):
         # matmul edges, or the f32 timestep embedding would promote the
         # whole network to f32 through the adaLN conditioning
         wdt = self.x_embed.dtype
-        tokens = self.patchify(x).to(wdt) @ self.x_embed + self.pos_embed[None]
+        tokens = (_mm(self.patchify(x).to(wdt), self.x_embed)
+                  + self.pos_embed[None])
         temb = timestep_embedding(t, 256).to(wdt)
-        temb = F.silu(temb @ self.t_fc1) @ self.t_fc2
+        temb = _mm(nn.functional.silu(_mm(temb, self.t_fc1)), self.t_fc2)
         c = temb + self.y_embed[y]
         h = tokens
         for blk in self.blocks:
             h = blk(h, c)
-        sh, sc = (F.silu(c) @ self.final_ada).chunk(2, dim=-1)
-        out = modulate(self.final_norm(h), sh, sc) @ self.final_proj
+        sh, sc = _mm(nn.functional.silu(c), self.final_ada).chunk(2, dim=-1)
+        out = _mm(modulate(self.final_norm(h), sh, sc), self.final_proj)
         return self.unpatchify(out)
 
 

@@ -28,6 +28,7 @@ from torch import nn
 from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..framework.device import resolve_device, resolve_dtype
+from ..framework.dtype import promote
 from ..nn import functional as F
 from ..nn.initializer import Normal
 from ..nn.layer.norm import LayerNorm
@@ -96,9 +97,10 @@ class GPTBlock(nn.Module):
                                         input_is_parallel=True, **kw)
 
     def _mlp_residual(self, x):
-        # jax.nn.gelu's default, the tanh form
-        return x + self.fc_out(F.gelu(self.fc_in(self.ln_2(x)),
-                                      approximate=True))
+        # jax.nn.gelu's default, the tanh form; a raw call there, not
+        # the named op (amp leaves it alone)
+        return x + self.fc_out(nn.functional.gelu(
+            self.fc_in(self.ln_2(x)), approximate="tanh"))
 
     def forward(self, x):
         return self._mlp_residual(x + self.attn(self.ln_1(x)))
@@ -188,8 +190,8 @@ class GPTForCausalLM(nn.Module):
             if logits_rows is not None:
                 h = h[torch.arange(h.shape[0], device=h.device),
                       logits_rows.long()]
-            return h @ self.lm_head, new_caches
-        logits = self.gpt(input_ids) @ self.lm_head
+            return torch.matmul(*promote(h, self.lm_head)), new_caches
+        logits = torch.matmul(*promote(self.gpt(input_ids), self.lm_head))
         if labels is None:
             return logits
         return logits, causal_lm_loss(logits, labels)

@@ -32,6 +32,7 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
 from ..distributed.fleet.recompute import recompute
 from ..framework.device import resolve_device, resolve_dtype
 from ..nn import functional as F
+from ..ops.registry import named_op
 
 
 @dataclass
@@ -284,7 +285,7 @@ class LlamaLMHead(nn.Module):
         out = quantized_matmul(self, x)   # weight-only int8 serving
         if out is not None:
             return out
-        return torch.matmul(x, self.weight.t() if self._tied else self.weight)
+        return _matmul(x, self.weight.t() if self._tied else self.weight)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -353,6 +354,13 @@ class LlamaForCausalLM(nn.Module):
             top_k=top_k, top_p=top_p, eos_token_id=eos_token_id, seed=seed)
 
 
+@named_op("matmul")
+def _matmul(x, y):
+    """The LM head's product, the JAX package's ``ops.matmul`` (a named
+    op: amp casts it, where the decoder's linears are raw products)."""
+    return torch.matmul(x, y)
+
+
 def causal_lm_loss(logits, labels, ignore_index=-100):
     """LM cross-entropy: mean over the labels that are not
     ``ignore_index``, log-softmax in f32."""
@@ -369,6 +377,7 @@ def _chunk_nll_sum(hc, w, lc, ignore_index):
                        torch.zeros_like(lse)).sum()
 
 
+@named_op("fused_lm_head_ce")
 def fused_head_cross_entropy(h, weight, labels, ignore_index=-100, chunks=4,
                              transpose_weight=False):
     """LM head matmul + cross-entropy without the whole ``[b*s, vocab]``

@@ -16,12 +16,17 @@ so through the flash kernels K1-K4 on the card: self-attention over the
 (``ops/hopper/flash_attention.py``). Convolutions, GroupNorm, LayerNorm,
 GELU and SiLU are plain PyTorch, as the JAX package leaves them to XLA.
 
-The model computes in the weights' dtype with no amp boundary, as the
-JAX package's does: the f32 timestep embedding meets bf16 weights at
-``time_mlp1``, where PyTorch's matmul raises (the JAX package promotes
+Without amp the model computes in the weights' dtype with no boundary,
+as the JAX package's does: the f32 timestep embedding meets bf16 weights
+at ``time_mlp1``, where PyTorch's matmul raises (the JAX package promotes
 there and raises later, at a ResNet block's second conv), so only f32
-trains. Parameter names are the JAX package's (``conv_in.weight``,
-``down_res_0_0.norm1.weight``, ``mid_attn.attn2.to_k.weight``, ...):
+trains. Under ``amp.auto_cast`` the named ops (convs, linears, norms,
+SiLU, GELU, interpolate, attention, the timestep embedding and the
+loss's subtract, multiply and mean) cast their inputs as the JAX
+package's do, and the UNet trains in bf16 (O1 over f32 weights, or O2
+after ``amp.decorate``). Parameter names are the JAX package's
+(``conv_in.weight``, ``down_res_0_0.norm1.weight``,
+``mid_attn.attn2.to_k.weight``, ...):
 the block lists stay plain lists and each block is registered once
 under its ``{list}_{block}_{layer}`` name. Linears keep Paddle's
 ``[in, out]`` weights and convs OIHW (``convert.py``).
@@ -38,6 +43,14 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..nn import functional as F
 from ..nn.layer import Conv2D, GroupNorm, LayerNorm, Linear, Silu
+from ..ops.registry import named_op
+
+# the tensor methods the JAX UNet and sd_loss_fn run as the JAX package's
+# named ops, so that amp casts them as it does there (under O2, the
+# prediction minus the f32 noise in the low dtype)
+_subtract = named_op("subtract")(torch.sub)
+_multiply = named_op("multiply")(torch.mul)
+_mean = named_op("mean")(torch.mean)
 
 
 @dataclass
@@ -67,6 +80,7 @@ class UNetConfig:
         return UNetConfig(**base)
 
 
+@named_op("timestep_embedding")
 def timestep_embedding(timesteps, dim, max_period=10000.0):
     """Sinusoidal embeddings ``[B, dim]``: ``[cos(t f), sin(t f)]`` with
     ``f = exp(-log(max_period) i / half)``, in f32 whatever t's dtype
@@ -155,7 +169,7 @@ class TransformerBlock(nn.Module):
         y = y + self.attn2(self.norm2(y), context)
         gate, val = self.ff1(self.norm3(y)).chunk(2, dim=-1)
         # the gate first, through the exact (erf) GELU, F.gelu's default
-        y = y + self.ff2(F.gelu(gate) * val)
+        y = y + self.ff2(_multiply(F.gelu(gate), val))
         y = y.transpose(1, 2).reshape(b, c, h, w)
         return residual + self.proj_out(y)
 
@@ -307,5 +321,5 @@ def sd_loss_fn(model, latents, timesteps, context, noise):
     """The noise-prediction MSE (the DDPM epsilon objective), SD's
     training loss: the latents come noised (x_t) and the model predicts
     the noise."""
-    diff = model(latents, timesteps, context) - noise
-    return (diff * diff).mean()
+    diff = _subtract(model(latents, timesteps, context), noise)
+    return _mean(_multiply(diff, diff))

@@ -1,12 +1,16 @@
 """Common functions (port of ``nn/functional/common.py``: ``linear``,
-``interpolate`` and ``upsample``)."""
+``interpolate`` and ``upsample``), ``linear`` and ``interpolate`` as the
+JAX package's ops of those names (``ops/registry.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ...ops.registry import named_op
 
+
+@named_op("linear")
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)`` with Paddle's ``[in, out]`` weight; the
     product is rounded to the input dtype before the bias is added, as
@@ -73,6 +77,7 @@ _MODES = {"nearest": "nearest", "linear": "linear", "bilinear": "linear",
           "trilinear": "linear", "bicubic": "cubic", "area": "area"}
 
 
+@named_op("interpolate")
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, data_format="NCHW"):
     """Resize the spatial axes of ``x`` (channels second, or last when

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ...ops.registry import named_op
+
 
 def _pair(v):
     if isinstance(v, (list, tuple)):
@@ -22,6 +24,7 @@ def _pair(v):
     return (int(v), int(v))
 
 
+@named_op("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """2-D convolution of ``x`` (NCHW or NHWC) with an OIHW ``weight``

@@ -12,6 +12,14 @@ or their plain versions (CPU). As in the JAX package, attention dropout,
 kernels too, so this is its routing, not a fallback. Dropout draws from
 the ``torch.Generator`` the caller passes. Context parallelism (the
 ``sep`` ring) is not ported yet.
+
+The ops carry the JAX package's names (``ops/registry.py``, for amp and
+the operator stats): ``flash_attention`` where the JAX package would run
+its Pallas kernel (both lengths multiples of 128, head_dim up to 256),
+``flash_attention_ref`` where it would take its plain composition
+(other shapes, dropout, ``return_softmax``), and ``sdpa`` with an
+``attn_mask``. The name follows the reference's routing; the tensor's
+device alone picks the port's kernels or their plain versions.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from ...ops.hopper.flash_attention import (FlashAttentionFunction,
                                             check_causal_lengths)
+from ...ops.registry import named_op
 
 
 def expand_gqa_kv(q, k, v):
@@ -64,6 +73,23 @@ def _reference_attention(q, k, v, causal=False, dropout=0.0, bias=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def pallas_tiles(sq, sk, d):
+    """Whether the JAX package would run its Pallas kernel at these
+    lengths and head_dim (``ops/pallas/flash_attention.supported``)."""
+    return sq % 128 == 0 and sk % 128 == 0 and d <= 256
+
+
+def _kernels(query, key, value, causal):
+    return FlashAttentionFunction.apply(
+        query, key, value, bool(causal), 1.0 / math.sqrt(query.shape[-1]))
+
+
+_flash = named_op("flash_attention")(_kernels)
+_flash_at_ref_shape = named_op("flash_attention_ref")(_kernels)
+_composition = named_op("flash_attention_ref")(_reference_attention)
+_sdpa = named_op("sdpa")(_reference_attention)
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     rng_name="", training=True, name=None, generator=None):
@@ -73,12 +99,12 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     check_causal_lengths(query.shape[1], key.shape[1], causal)
     drop = dropout if training else 0.0
     if return_softmax or drop > 0.0:
-        return _reference_attention(query, key, value, causal=causal,
-                                    dropout=drop,
-                                    generator=generator), None
-    return FlashAttentionFunction.apply(
-        query, key, value, bool(causal),
-        1.0 / math.sqrt(query.shape[-1])), None
+        return _composition(query, key, value, causal=causal, dropout=drop,
+                            generator=generator), None
+    named = (_flash if pallas_tiles(query.shape[1], key.shape[1],
+                                    query.shape[3])
+             else _flash_at_ref_shape)
+    return named(query, key, value, causal), None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -92,7 +118,5 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  causal=is_causal, training=training,
                                  generator=generator)
         return out
-    return _reference_attention(query, key, value, causal=is_causal,
-                                bias=attn_mask,
-                                dropout=dropout_p if training else 0.0,
-                                generator=generator)
+    return _sdpa(query, key, value, causal=is_causal, bias=attn_mask,
+                 dropout=dropout_p if training else 0.0, generator=generator)

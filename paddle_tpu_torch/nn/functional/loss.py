@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 
+from ...ops.registry import named_op
+
 
 def _reduce(out, reduction):
     if reduction == "mean":
@@ -27,6 +29,7 @@ def _reduce(out, reduction):
     return out
 
 
+@named_op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -88,6 +91,7 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
     return loss
 
 
+@named_op("nll_loss")
 def nll_loss(input, label, weight=None, ignore_index=-100,
              reduction="mean"):
     """``input`` holds log-probabilities (``[N, C]``, ``[C]`` or spatial
@@ -110,20 +114,24 @@ def nll_loss(input, label, weight=None, ignore_index=-100,
     return losses
 
 
+@named_op("mse_loss")
 def mse_loss(input, label, reduction="mean"):
     return _reduce(torch.square(input - label), reduction)
 
 
+@named_op("l1_loss")
 def l1_loss(input, label, reduction="mean"):
     return _reduce(torch.abs(input - label), reduction)
 
 
+@named_op("smooth_l1_loss")
 def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
     d = torch.abs(input - label)
     out = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
     return _reduce(out, reduction)
 
 
+@named_op("binary_cross_entropy")
 def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     """``input`` holds probabilities, clipped to [1e-12, 1 - 1e-12] in
     f32."""
@@ -134,6 +142,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     return _reduce(out, reduction)
 
 
+@named_op("bce_with_logits")
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None):
     """From logits, in f32: ``max(z, 0) - z * t + log(1 + exp(-|z|))``,
@@ -151,6 +160,7 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     return _reduce(out, reduction)
 
 
+@named_op("kl_div")
 def kl_div(input, label, reduction="mean"):
     """``label * (log(label) - input)`` with ``input`` log-probabilities;
     ``batchmean`` divides the sum by the first dimension."""
@@ -160,16 +170,19 @@ def kl_div(input, label, reduction="mean"):
     return _reduce(out, reduction)
 
 
+@named_op("hinge_embedding_loss")
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
     out = torch.where(label == 1, input, torch.clamp(margin - input, min=0))
     return _reduce(out, reduction)
 
 
+@named_op("margin_ranking_loss")
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
     out = torch.clamp(-label * (input - other) + margin, min=0)
     return _reduce(out, reduction)
 
 
+@named_op("cosine_embedding_loss")
 def cosine_embedding_loss(input1, input2, label, margin=0.0,
                           reduction="mean"):
     cos = (input1 * input2).sum(-1) / (
@@ -179,6 +192,7 @@ def cosine_embedding_loss(input1, input2, label, margin=0.0,
     return _reduce(out, reduction)
 
 
+@named_op("triplet_margin_loss")
 def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
                         epsilon=1e-6, swap=False, reduction="mean"):
     def dist(u, v):
@@ -193,15 +207,18 @@ def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
     return _reduce(out, reduction)
 
 
+@named_op("log_loss")
 def log_loss(input, label, epsilon=1e-4):
     return (-label * torch.log(input + epsilon)
             - (1 - label) * torch.log(1 - input + epsilon))
 
 
+@named_op("square_error_cost")
 def square_error_cost(input, label):
     return torch.square(input - label)
 
 
+@named_op("sigmoid_focal_loss")
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
                        reduction="sum"):
     """``alpha_t * (1 - p_t)^gamma * bce(logit, label)``, divided by

@@ -32,8 +32,10 @@ from ... import flags
 from ...ops.hopper.bn_stats import bn_stats
 from ...ops.hopper.bn_stats import supported as bn_stats_supported
 from ...ops.hopper.rms_norm import RMSNormFunction
+from ...ops.registry import named_op
 
 
+@named_op("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """Normalise the trailing ``normalized_shape`` axes: ``(x - mean) /
     sqrt(var + epsilon)`` (the biased variance) in f32, times ``weight``
@@ -52,6 +54,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out.to(x.dtype)
 
 
+@named_op("group_norm")
 def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
                data_format="NCHW"):
     """Normalise each of ``num_groups`` groups of channels over the group's
@@ -74,6 +77,7 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
     return out.to(x.dtype)
 
 
+@named_op("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
     """``x * rsqrt(mean(x^2, axis) + epsilon) * weight``, computed in
     f32 and returned in x's dtype."""
@@ -107,6 +111,7 @@ def _channel_axis(data_format):
     return -1 if data_format.endswith("C") else 1
 
 
+@named_op("batch_norm", keep=("running_mean", "running_var"))
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None):

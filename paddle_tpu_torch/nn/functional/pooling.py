@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ...ops.registry import named_op
 from .conv import _pair
 
 
@@ -22,6 +23,7 @@ def _from_nchw(v, data_format):
     return v.permute(0, 2, 3, 1) if data_format == "NHWC" else v
 
 
+@named_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW"):
     """Max pool with -inf padding; ``stride`` defaults to the kernel."""
@@ -35,6 +37,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     return _from_nchw(out, data_format)
 
 
+@named_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """Adaptive average pool. Where each output bin is a whole block of
     the input (the sizes divide), the block means over H and then over W,

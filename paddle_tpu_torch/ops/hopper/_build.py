@@ -10,8 +10,10 @@ seconds; the wrappers load the library with ``ctypes``. A failed build
 raises with the compiler's output.
 
 :func:`count_launch` is the one place a wrapper adds to its launch count
-(``<wrapper>.launches``), under a lock: replicas of a serving fleet step
-on threads of their own, and a bare ``+= 1`` from two threads can lose a
+(``<wrapper>.launches``, and ``<wrapper>.launches_by_form`` where its
+kernels come in several forms), and :func:`reset_launches` the one place
+both are set to 0, under a lock: replicas of a serving fleet step on
+threads of their own, and a bare ``+= 1`` from two threads can lose a
 count.
 """
 
@@ -37,10 +39,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, exactly under threads."""
+def count_launch(wrapper, form=None, kernels=1) -> None:
+    """Add ``kernels`` (the kernels one call launched) to
+    ``wrapper.launches``, exactly under threads; with ``form``, also to
+    ``wrapper.launches_by_form[form]``, for a wrapper whose kernels come
+    in several forms (input type, head width)."""
     with _LAUNCH_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += kernels
+        if form is not None:
+            by = wrapper.launches_by_form
+            by[form] = by.get(form, 0) + kernels
+
+
+def reset_launches(*wrappers) -> None:
+    """Set every count of ``wrappers`` to 0: ``launches`` and, where a
+    wrapper has one, ``launches_by_form``."""
+    with _LAUNCH_LOCK:
+        for w in wrappers:
+            w.launches = 0
+            if hasattr(w, "launches_by_form"):
+                w.launches_by_form = {}
 
 
 def find_nvcc() -> str:

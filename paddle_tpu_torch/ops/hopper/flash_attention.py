@@ -42,19 +42,24 @@ are the plain PyTorch versions (the backward is the FA2 algebra from
 ``lse``, not autograd of the forward). A CPU tensor runs them; a CUDA
 tensor launches the kernels or raises, and never falls back.
 
-The kernels tile head_dim 64 and 128. Any other head_dim up to 128
-runs zero-padded to the narrowest of them that holds it
-(:func:`padded_head_dim`: 64 below 64, 128 between): DiT-XL/2's 72
-(hidden 1152 over 16 heads) and the Stable-Diffusion UNet's 8 (its
-``attention_head_dim`` is the per-head width) among them.
+The kernels take f32, bf16 and fp16 and tile head_dim 64, 128 and 256.
+Any other head_dim up to 256 runs zero-padded to the narrowest of them
+that holds it (:func:`padded_head_dim`: 64 below 64, 128 up to 128, 256
+above): DiT-XL/2's 72 (hidden 1152 over 16 heads) and the
+Stable-Diffusion UNet's 8 (its ``attention_head_dim`` is the per-head
+width) among them. bf16 and fp16 at 64 and 128 take the TMA/``wgmma``
+kernels (one template over the 16-bit type); f32, and every type at 256,
+the CUDA-core kernels: at 256 a forward with the f32 one's tiles, and a
+dq and a dkv (a dK and a dV launch) that keep one streamed tile in
+shared memory, P and dS rounded to the 16-bit type before their
+products as the tensor-core kernels round them.
 :func:`flash_attention_fwd_padded` and :func:`flash_attention_bwd_padded`
 zero-pad q, k, v (and out, dout) to that width, run the kernels with the
 caller's scale (``1/sqrt(d)``, not that of the padded width) and slice
 out, dq, dk and dv back to ``d`` columns. Zero columns add nothing to
 ``QK^T``, and their outputs and gradients are zero, so the padded result
-is the unpadded one. A head_dim above 128 raises on the card (the JAX
-package's Pallas kernel takes up to 256; a 256-wide tile is still to be
-written).
+is the unpadded one. A head_dim above 256 raises on the card, as the
+JAX package's Pallas path refuses there.
 """
 
 from __future__ import annotations
@@ -67,8 +72,8 @@ import torch
 
 from ._build import build_library, count_launch
 
-HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SOURCES = ["flash_attention.cu"]
 
 
@@ -114,7 +119,10 @@ def _expand(x, g):
 
 def flash_attention_fwd_reference(q, k, v, causal, scale):
     """Plain version of the forward: masked softmax in f32. Returns
-    (out in q's dtype ``[b, sq, h, d]``, lse f32 ``[b, h, sq]``)."""
+    (out in q's dtype ``[b, sq, h, d]``, lse f32 ``[b, h, sq]``). P stays
+    f32 here; the kernels round it to a 16-bit q's dtype (bf16 or fp16)
+    before ``P V`` (:func:`fwd_schedule_model` models that), so the two
+    agree within that rounding."""
     _check(q, k, v, causal)
     g = q.shape[2] // k.shape[2]
     s = _scores(q, _expand(k, g), causal, scale)
@@ -150,8 +158,12 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal, scale):
 
 def padded_head_dim(d):
     """The kernels' width that head_dim ``d`` runs at: ``d`` itself for
-    64 and 128, else the narrowest of them above ``d``, zero-padded (see
-    the module note); None above 128, which the kernels do not take."""
+    64, 128 and 256, else the narrowest of them above ``d``, zero-padded
+    (see the module note). Above 256 it raises, as the JAX package's
+    Pallas path refuses there."""
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {d}: the kernels take up to "
+                         f"{HEAD_DIMS[-1]}")
     return next((w for w in HEAD_DIMS if 0 < d <= w), None)
 
 
@@ -429,8 +441,8 @@ def build() -> str:
 def _check_cuda(tensors):
     q = tensors[0]
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dtype {q.dtype}: the kernels take float32 and "
-                         f"bfloat16")
+        raise ValueError(f"dtype {q.dtype}: the kernels take float32, "
+                         f"bfloat16 and float16")
     if any(t.dtype != q.dtype for t in tensors):
         raise ValueError("q, k, v (and out, dout) must share one dtype")
     devs = {t.device for t in tensors}
@@ -444,7 +456,7 @@ def _check_cuda(tensors):
 
 
 def _runs_padded(d):
-    return d not in HEAD_DIMS and padded_head_dim(d) is not None
+    return d not in HEAD_DIMS and 0 < d <= HEAD_DIMS[-1]
 
 
 def _rows_aligned(t):
@@ -460,6 +472,12 @@ def _rows_aligned(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _form(q):
+    """A launch's form, the key of ``<wrapper>.launches_by_form``: the
+    input type and the head width the kernel ran at, ``torch.bfloat16/d64``."""
+    return f"{q.dtype}/d{q.shape[3]}"
+
+
 def _strides(*tensors):
     vals = [s for t in tensors for s in t.stride()[:3]]
     vals += [0] * (12 - len(vals))
@@ -467,12 +485,12 @@ def _strides(*tensors):
 
 
 def flash_attention_fwd_cuda(q, k, v, causal, scale):
-    """Launch the forward kernel (K1/K3): for bf16 the TMA/``wgmma``
-    kernel, for f32 the CUDA-core one. Same contract as
-    :func:`flash_attention_fwd_reference`. Raises ``ValueError`` on
-    inputs the kernel does not take and ``RuntimeError`` when the launch
-    fails. A head_dim up to 128 other than 64 and 128 runs zero-padded
-    (:func:`flash_attention_fwd_padded`)."""
+    """Launch the forward kernel (K1/K3): for bf16 and fp16 at head_dim
+    64 and 128 the TMA/``wgmma`` kernel, for f32 and at head_dim 256 the
+    CUDA-core one. Same contract as :func:`flash_attention_fwd_reference`.
+    Raises ``ValueError`` on inputs the kernel does not take and
+    ``RuntimeError`` when the launch fails. Any other head_dim up to 256
+    runs zero-padded (:func:`flash_attention_fwd_padded`)."""
     if _runs_padded(q.shape[-1]):
         return flash_attention_fwd_padded(q, k, v, causal, scale,
                                           fwd=flash_attention_fwd_cuda)
@@ -497,11 +515,12 @@ def flash_attention_fwd_cuda(q, k, v, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {rc}")
-    count_launch(flash_attention_fwd_cuda)
+    count_launch(flash_attention_fwd_cuda, _form(q))
     return out, lse
 
 
 flash_attention_fwd_cuda.launches = 0
+flash_attention_fwd_cuda.launches_by_form = {}
 
 
 def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale, outs):
@@ -539,11 +558,12 @@ def flash_attention_dq_cuda(q, k, v, dout, lse, delta, causal, scale):
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     _launch_bwd(0, q, k, v, dout, lse, delta, causal, scale,
                 (dq.data_ptr(), None, None))
-    count_launch(flash_attention_dq_cuda)
+    count_launch(flash_attention_dq_cuda, _form(q))
     return dq
 
 
 flash_attention_dq_cuda.launches = 0
+flash_attention_dq_cuda.launches_by_form = {}
 
 
 def flash_attention_dkv_cuda(q, k, v, dout, lse, delta, causal, scale):
@@ -553,19 +573,23 @@ def flash_attention_dkv_cuda(q, k, v, dout, lse, delta, causal, scale):
     dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
     _launch_bwd(1, q, k, v, dout, lse, delta, causal, scale,
                 (None, dk.data_ptr(), dv.data_ptr()))
-    count_launch(flash_attention_dkv_cuda)
+    # at head_dim 256 one call launches a dK and a dV kernel
+    count_launch(flash_attention_dkv_cuda, _form(q),
+                 kernels=2 if q.shape[3] == 256 else 1)
     return dk, dv
 
 
 flash_attention_dkv_cuda.launches = 0
+flash_attention_dkv_cuda.launches_by_form = {}
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
     """The backward on the card: same contract as
     :func:`flash_attention_bwd_reference`. ``delta = rowsum(dout * out)``
     is computed here in plain torch, as the JAX package computes it
-    outside its kernels; then the dq and dkv kernels run. A head_dim up
-    to 128 other than 64 and 128 runs zero-padded
+    outside its kernels; then the dq and dkv kernels run (at head_dim
+    256 the dkv wrapper's one call launches a dK and a dV kernel). Any
+    other head_dim up to 256 runs zero-padded
     (:func:`flash_attention_bwd_padded`)."""
     if _runs_padded(q.shape[-1]):
         return flash_attention_bwd_padded(q, k, v, out, lse, dout, causal,

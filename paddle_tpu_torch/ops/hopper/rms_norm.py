@@ -107,11 +107,12 @@ def rms_norm_cuda(x2d, w, eps):
         h, code, eps, dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {rc}")
-    count_launch(rms_norm_cuda)
+    count_launch(rms_norm_cuda, str(x2d.dtype))
     return out, rstd
 
 
 rms_norm_cuda.launches = 0
+rms_norm_cuda.launches_by_form = {}
 
 
 def rms_norm_backward(x2d, w, rstd, g):

@@ -56,16 +56,16 @@ ARGTYPES = ([_P] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 8
 
 
 def ptxas_lines(src_name, log):
-    """The compiler's lines about the bf16 backward kernels, and
+    """The compiler's lines about the 16-bit backward kernels, and
     warnings."""
     kernel = ""
     for line in log.splitlines():
         if "Compiling entry" in line or "Function properties" in line:
             kernel = line
-        elif ("_kernel_bf16" in kernel and "fwd" not in kernel
+        elif ("_kernel_16" in kernel and "fwd" not in kernel
               or any(w in line for w in ("arning", "C75", "Performance"))):
             name = "dq" if "flash_dq" in kernel else "dkv"
-            print(f"{src_name} {name} {kernel.split('ILi')[-1][:3]}: "
+            print(f"{src_name} {name} {kernel.split('Li')[-1][:3]}: "
                   f"{line.strip()}")
 
 

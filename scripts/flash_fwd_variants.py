@@ -57,14 +57,15 @@ ARGTYPES = ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 8
 
 
 def ptxas_lines(src_name, log):
-    """The compiler's lines about the bf16 forward kernel, and warnings."""
+    """The compiler's lines about the 16-bit forward kernel, and
+    warnings."""
     kernel = ""
     for line in log.splitlines():
         if "Compiling entry" in line or "Function properties" in line:
             kernel = line
-        elif ("flash_fwd_kernel_bf16" in kernel
+        elif ("flash_fwd_kernel_16" in kernel
               or any(w in line for w in ("arning", "C75", "Performance"))):
-            print(f"{src_name} {kernel.split('ILi')[-1][:3]}: "
+            print(f"{src_name} {kernel.split('Li')[-1][:3]}: "
                   f"{line.strip()}")
 
 

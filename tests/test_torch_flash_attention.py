@@ -176,6 +176,62 @@ def test_flash_plain_matches_pallas(ref, case):
                                    x, causal, scale)
 
 
+# (name, sq, sk, heads, kv_heads, head_dim, causal, dtype): head_dim 256,
+# the widest the Pallas path takes, and 160 (the card pads it to 256), in
+# f32; and fp16 (amp's float16) at the rectangular and triangle paths
+WIDE_FP16_CASES = [
+    ("noncausal_s128_d256_f32", 128, 128, 2, 1, 256, False, "float32"),
+    ("causal_s128_d160_f32", 128, 128, 2, 2, 160, True, "float32"),
+    ("causal_s128_rect_d64_fp16", 128, 128, 2, 2, 64, True, "float16"),
+    ("causal_s256_triangle_d32_fp16", 256, 256, 2, 1, 32, True, "float16"),
+]
+# fp16 on both sides: each rounds out, dq, dk and dv to fp16, and the
+# Pallas kernels round P and dS to fp16 before their products where the
+# plain versions keep them f32: 2^-8 (4 fp16 ulps) of the largest value
+FP16_REL = 2.0 ** -8
+
+
+@pytest.mark.parametrize("case", WIDE_FP16_CASES, ids=lambda c: c[0])
+def test_flash_plain_matches_pallas_wide_heads_and_fp16(ref, case):
+    """The plain versions the port runs on the CPU at head_dim 160 and
+    256 (f32, ATOL/RTOL, with lse) and in fp16 equal the JAX Pallas
+    kernels (interpret mode) and their vjp on the same inputs."""
+    _, sq, sk, h, kv, d, causal, dtype = case
+    x = _inputs(7, 1, sq, sk, h, kv, d)
+    x = {n: a.astype(np.float16 if dtype == "float16" else np.float32)
+         for n, a in x.items()}
+    scale = 1.0 / math.sqrt(d)
+    got = _port_fwd_bwd(x, causal, lambda q, k, v:
+                        FlashAttentionFunction.apply(q, k, v, causal, scale))
+    jnp = ref.jnp
+
+    def jax_side(q, k, v, dout):
+        out, vjp = ref.jax.vjp(
+            lambda q, k, v: ref.pallas.flash_attention_pallas(
+                q, k, v, causal=causal, interpret=True), q, k, v)
+        return (out, *vjp(dout))
+
+    want = ref.jax.jit(jax_side)(
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v", "dout")))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if dtype == "float32":
+            _assert_close_or_name_the_side(g, w, name, x, causal, scale)
+        else:
+            w32 = w.astype(np.float32)
+            np.testing.assert_allclose(
+                g.astype(np.float32), w32, rtol=0,
+                atol=FP16_REL * float(np.abs(w32).max()), err_msg=name)
+    if dtype == "float32":
+        _, lse = hop_fa.flash_attention_fwd_reference(
+            *(torch.from_numpy(x[n]) for n in "qkv"), causal, scale)
+        want_lse = _jax_lse(ref, *(jnp.asarray(x[n]) for n in "qkv"),
+                            causal, scale)
+        _assert_close_or_name_the_side(lse.numpy(), np.asarray(want_lse),
+                                       "lse", x, causal, scale)
+
+
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_functional_ragged_s100_matches_jax_reference_route(ref, with_bias):
     """At s=100, which does not tile by 128, the JAX package routes
@@ -557,14 +613,46 @@ def test_padded_head_dim_matches_unpadded(d, causal, sq, sk):
 
 
 def test_padded_head_dim_rule():
-    """64 and 128 run as they are; every other width up to 128 pads to the
-    narrowest that holds it; none above 128 (the card raises there)."""
+    """64, 128 and 256 run as they are; every other width up to 256 pads
+    to the narrowest that holds it; above 256 it raises, as the JAX
+    package's Pallas path refuses there."""
     assert [hop_fa.padded_head_dim(d) for d in (1, 8, 63, 64, 65, 72, 100,
                                                 127, 128)] == \
         [64, 64, 64, 64, 128, 128, 128, 128, 128]
-    assert hop_fa.padded_head_dim(129) is None
-    assert hop_fa.padded_head_dim(136) is None
-    assert hop_fa.padded_head_dim(256) is None
+    assert hop_fa.padded_head_dim(129) == 256
+    assert hop_fa.padded_head_dim(136) == 256
+    assert hop_fa.padded_head_dim(256) == 256
+    with pytest.raises(ValueError, match="up to 256"):
+        hop_fa.padded_head_dim(257)
+
+
+def test_launch_counts_by_form():
+    """A launch's form is its input type and the head width the kernel
+    runs at; ``count_launch`` adds the kernels of one call (a 256-wide
+    dkv call launches a dK and a dV kernel) to the wrapper's total and
+    to its form's count, and ``reset_launches`` sets both to 0."""
+    from paddle_tpu_torch.ops.hopper._build import count_launch, reset_launches
+
+    q = torch.zeros(1, 2, 3, 256, dtype=torch.float16)
+    assert hop_fa._form(q) == "torch.float16/d256"
+    assert hop_fa._form(q[..., :64].to(torch.bfloat16)) == \
+        "torch.bfloat16/d64"
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.launches_by_form = 0, {}
+    count_launch(wrapper, "torch.bfloat16/d64")
+    count_launch(wrapper, hop_fa._form(q), kernels=2)
+    count_launch(wrapper, "torch.bfloat16/d64")
+    assert wrapper.launches == 4
+    assert wrapper.launches_by_form == {"torch.bfloat16/d64": 2,
+                                        "torch.float16/d256": 2}
+    reset_launches(wrapper)
+    assert (wrapper.launches, wrapper.launches_by_form) == (0, {})
+    for fn in (hop_fa.flash_attention_fwd_cuda, hop_fa.flash_attention_dq_cuda,
+               hop_fa.flash_attention_dkv_cuda):
+        assert isinstance(fn.launches_by_form, dict)
 
 
 @pytest.fixture
@@ -575,7 +663,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", FLASH_CASES + [
     ("ragged_s200_gqa_d128", 200, 200, 8, 2, 128, True),
     # the bf16 forward's 128-row tiles: no full tile, one and a half, a
@@ -613,10 +701,43 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * float(
             w.abs().max())
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
-    if dtype == "bfloat16":
+    if dtype != "float32":
         _assert_rows_close(out, want_out, 2.0 ** -6)
         for g, w in zip(got[1:], want[1:]):
             _assert_rows_close(g, w, GRAD_ROW_REL, ROW_FLOOR)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (False, 130, 77)],
+                         ids=["causal_s200", "noncausal_sq130_sk77"])
+def test_flash_kernels_wide_heads_match_plain(cuda, causal, sq, sk, d,
+                                              dtype):
+    """At head_dim 256 (and 160, zero-padded to 256) the CUDA-core
+    kernels take every type: out, lse, dq, dk and dv equal the plain
+    versions, f32 to 1e-4, 16-bit to 4 bf16 ulps of the largest value
+    (fp16 keeps more bits), GQA 8/2, ragged tiles."""
+    x = _inputs(d + sq, 2, sq, sk, 8, 2, d)
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x[n]).to(cuda, tdt)
+                   for n in ("q", "k", "v", "dout"))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = hop_fa.flash_attention_fwd_cuda(q, k, v, causal, scale)
+    want_out, want_lse = hop_fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                              scale)
+    got = (out, *hop_fa.flash_attention_bwd_cuda(q, k, v, want_out, want_lse,
+                                                 do, causal, scale))
+    want = (want_out, *hop_fa.flash_attention_bwd_reference(
+        q, k, v, want_out, want_lse, do, causal, scale))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and g.shape == w.shape
+        w = w.float()
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * float(
+            w.abs().max())
+        torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
 
 
 @pytest.mark.gpu
@@ -711,10 +832,12 @@ def test_flash_fwd_takes_unaligned_views(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 136, device=cuda)
+    """A head_dim above 256, or a type other than f32, bf16 and fp16,
+    raises on the card; nothing falls back to the plain version."""
+    q = torch.zeros(1, 64, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         hop_fa.flash_attention_fwd_cuda(q, q, q, True, 1.0)
-    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         hop_fa.flash_attention_fwd_cuda(q, q, q, True, 1.0)
 
@@ -725,7 +848,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 def test_head_dim_72_kernels_match_plain(cuda, causal):
     """bf16 at d = 72: the forward, dq and dkv kernels (zero-padded to
     128) against the unpadded plain versions, to 4 bf16 ulps of the
-    largest value; d = 136 still raises."""
+    largest value; d = 264 raises."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v, do = (torch.randn(2, 256, 4, 72, device=cuda, generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
@@ -744,7 +867,7 @@ def test_head_dim_72_kernels_match_plain(cuda, causal):
         w = w.float()
         torch.testing.assert_close(g.float(), w, rtol=0,
                                    atol=2.0 ** -6 * float(w.abs().max()))
-    wide = torch.zeros(1, 64, 2, 136, device=cuda)
+    wide = torch.zeros(1, 64, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         hop_fa.flash_attention_fwd_cuda(wide, wide, wide, True, 1.0)
 
@@ -757,7 +880,7 @@ def test_narrow_head_dims_kernels_match_plain(cuda, d, dtype):
     64, non-causal self-attention (256 tokens) and cross-attention
     against 77 keys (a ragged last key tile): out, lse, dq, dk and dv
     against the unpadded plain versions (f32 to 1e-4, bf16 to 4 bf16
-    ulps of the largest value); d = 136 raises."""
+    ulps of the largest value); d = 264 raises."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     tdt = getattr(torch, dtype)
     for sk in (256, 77):
@@ -781,6 +904,6 @@ def test_narrow_head_dims_kernels_match_plain(cuda, d, dtype):
             tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * float(
                 w.abs().max())
             torch.testing.assert_close(g.float(), w, atol=tol, rtol=0)
-    wide = torch.zeros(1, 64, 2, 136, device=cuda, dtype=tdt)
-    with pytest.raises(ValueError, match="head_dim 136"):
+    wide = torch.zeros(1, 64, 2, 264, device=cuda, dtype=tdt)
+    with pytest.raises(ValueError, match="head_dim 264"):
         hop_fa.flash_attention_fwd_cuda(wide, wide, wide, False, 1.0)

@@ -94,6 +94,13 @@ UNET_MODULES = (
     "paddle_tpu_torch.nn.functional.norm",
     "paddle_tpu_torch.nn.layer.activation", "paddle_tpu_torch.nn.layer.common",
     "paddle_tpu_torch.nn.layer.norm")
+# amp and what it brings (the op-cast point, the dtype names), which both
+# scans must reach
+AMP_MODULES = (
+    "paddle_tpu_torch.amp", "paddle_tpu_torch.amp.amp_lists",
+    "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.debugging",
+    "paddle_tpu_torch.amp.grad_scaler", "paddle_tpu_torch.framework.dtype",
+    "paddle_tpu_torch.ops.registry")
 
 
 def _port_modules():
@@ -116,7 +123,8 @@ def test_every_module_imports_with_jax_and_reference_poisoned():
             | set(SERVING_MODULES) | set(TELEMETRY_MODULES)
             | set(FLEET_MODULES)
             | set(INT8_AND_TRAINING_SURFACE_MODULES)
-            | set(TRANSFORMER_MODULES) | set(UNET_MODULES)) <= set(mods)
+            | set(TRANSFORMER_MODULES) | set(UNET_MODULES)
+            | set(AMP_MODULES)) <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -183,6 +191,17 @@ def test_no_jax_or_reference_import_in_source(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (
                 f"{path}:{node.lineno} imports {name}")
+
+
+def test_amp_sources_are_scanned():
+    """The AST scan reaches every module of ``amp`` and the op-cast point,
+    and ``paddle_tpu_torch.amp`` is importable from the package root."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in AMP_MODULES:
+        rel = mod.replace(".", os.sep)
+        assert (rel + ".py" in scanned
+                or os.path.join(rel, "__init__.py") in scanned), mod
+    assert paddle_tpu_torch.amp.auto_cast is not None
 
 
 def test_fleet_sources_are_scanned():
